@@ -1,0 +1,60 @@
+"""Import hygiene and device selection of the port.
+
+she_tpu_torch and chip_smoke.py import neither jax nor anything of she_tpu:
+each file is parsed and every import statement checked. Entry points run
+on the CUDA card unless the caller names a device, and raise where there
+is no card.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "she_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path) -> list[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.append(node.module)
+    return names
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "she_tpu")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_she_tpu_imports(path):
+    bad = [n for n in _imported_modules(path) if _forbidden(n)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_hygiene_check_catches_forbidden_imports(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("import jax.numpy as jnp\nfrom she_tpu.ops import ntt\nfrom she_tpu_torch import params\n")
+    assert [n for n in _imported_modules(probe) if _forbidden(n)] == ["jax.numpy", "she_tpu.ops"]
+
+
+def test_entry_points_need_a_card_unless_told_otherwise():
+    from she_tpu_torch import params as tparams
+    from she_tpu_torch.bfv import bfv
+    from she_tpu_torch.device import resolve_device
+
+    ep = tparams.from_predefined("insecure_n_8_logq_5x18_logt_5", 32)
+    if torch.cuda.is_available():
+        assert bfv.get_bfv_context(ep).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            bfv.get_bfv_context(ep)
+        with pytest.raises(RuntimeError):
+            resolve_device(None)
+    assert bfv.get_bfv_context(ep, device="cpu").device == torch.device("cpu")
