@@ -8,13 +8,18 @@ n_4096_logq_27_28_28_logt_5 at 32-bit scalars, 128 queries per batch:
 1. require a CUDA card; print its name and power limit (nvidia-smi);
 2. build the CUDA kernels from she_tpu_torch/csrc with nvcc;
 3. hold each kernel bit-equal to its plain PyTorch version at the main
-   path's shapes, and time both with CUDA events;
+   path's shapes on the 32-bit route, and at N=4096 on the 64-bit route
+   (moduli in [2^30, 2^31)); hold the 55-bit moduli at N=8192 against the
+   big-int reference;
 4. process the database, generate keys and queries with the port's client,
    serve the batches, check that every answer decrypts to its entry and
    that one batched response equals the per-query server's bit for bit,
-   with the kernels' launch counts read around the serving run, then
-   profile one more batch (device time by kernel, idle share);
-5. print one JSON line with every kernel's numbers, and as the last line
+   with the kernels' launch counts (and launch shapes) read around the
+   serving run, then profile one more batch (device time by kernel, idle
+   share);
+5. time each kernel and its plain version with CUDA events at every shape
+   the serving run launched it with, and the 64-bit route at the widest;
+6. print one JSON line with every kernel's numbers, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without the last line. Run from the repository
@@ -74,14 +79,48 @@ def random_rows(moduli, shape, degree, seed):
     return torch.from_numpy(rows).cuda()
 
 
+def ptxas_lines(name: str) -> list[str]:
+    """ptxas -v's registers, spills and shared memory of the N=4096
+    instantiations of each kernel on both routes."""
+    import re
+
+    from she_tpu_torch.ops import kernel_build
+
+    path = kernel_build.log_path(name)
+    lines = path.read_text(errors="replace").splitlines() if path.exists() else []
+    out, label = [], None
+    for line in lines:
+        m = re.search(r"(ntt_(?:forward|inverse)_kernel)I([jy])Li(\d+)E", line)
+        if m:
+            word = "u32" if m.group(2) == "j" else "u64"
+            label = f"{m.group(1)}<{word}, log2n={m.group(3)}>" if m.group(3) == "12" else None
+        elif label and ("Used" in line or "spill" in line):
+            out.append(f"{label}: {line.strip()}")
+    return out
+
+
+def prod(shape) -> int:
+    p = 1
+    for d in shape:
+        p *= d
+    return p
+
+
+def kernel_bound_ms(shape, moduli, degree) -> float:
+    """Bytes over the memory rate: every int64 row read and written once,
+    plus the int64 root and Shoup tables of its moduli (counted as in PR 1)."""
+    return 1e3 * (2 * prod(shape) * 8 + 2 * len(moduli) * degree * 8) / HBM_BYTES_PER_S
+
+
 def kernel_phase(seed: int) -> dict:
-    """Kernels against their plain versions at the main path's shapes."""
+    """Kernels against their plain versions at the main path's shapes, and
+    the 64-bit route against its plain version at N=4096."""
     import torch
 
     from she_tpu_torch import params as paramsmod
     from she_tpu_torch.core import rns
     from she_tpu_torch.ops import ntt, ntt_cuda
-    from she_tpu_torch.utils import refimpl
+    from she_tpu_torch.utils import nt, refimpl
 
     ep = paramsmod.from_predefined(PARAMS, scalar_bits=32)
     q_ct = ep.coefficient_moduli[:2]
@@ -98,6 +137,8 @@ def kernel_phase(seed: int) -> dict:
     max_err = {"ntt_forward": 0, "ntt_inverse": 0}
     for i, (label, moduli, fshape, ishape) in enumerate(cases):
         tables = ntt.build_ntt_tables(tuple(moduli), n, torch.device("cuda"))
+        if tables.word_bits != 32:
+            raise AssertionError(f"main-path moduli {moduli} did not take the 32-bit route")
         x = random_rows(moduli, fshape, n, seed + i)
         k = ntt_cuda.forward(x, tables)
         p = ntt.forward_ntt_plain(x, tables)
@@ -114,7 +155,34 @@ def kernel_phase(seed: int) -> dict:
     if any(max_err.values()):
         raise AssertionError(f"kernels disagree with the plain version: {max_err}")
 
-    # the 64-bit moduli at N=8192 (n_8192_logq_3x55_logt_24): round trip and
+    # the 64-bit route at the widest main-path shape, with moduli in
+    # [2^30, 2^31) that the plain version takes
+    w64_route = tuple(nt.generate_primes([31] * 3, preferring_small=True, ntt_degree=n))
+    tables = ntt.build_ntt_tables(w64_route, n, torch.device("cuda"))
+    if tables.word_bits != 64:
+        raise AssertionError(f"moduli {w64_route} did not take the 64-bit route")
+    x = random_rows(w64_route, (nodes, 2), n, seed + 40)
+    k = ntt_cuda.forward(x, tables)
+    ki = ntt_cuda.inverse(x, tables)
+    route64 = {}
+    for name, got, plain in (("ntt_forward", k, ntt.forward_ntt_plain),
+                             ("ntt_inverse", ki, ntt.inverse_ntt_plain)):
+        err = int((got - plain(x, tables)).abs().max())
+        max_err[name] = max(max_err[name], err)
+        kern = ntt_cuda.forward if name == "ntt_forward" else ntt_cuda.inverse
+        ms = cuda_ms(lambda: kern(x, tables), 20)
+        bound = kernel_bound_ms(x.shape, w64_route, n)
+        route64[name] = dict(shape=list(x.shape), moduli=list(w64_route), ms=ms, bound_ms=bound,
+                             share_of_bound=bound / ms, max_abs_err=err)
+        log(f"{name} 64-bit route: moduli {w64_route}, shape {tuple(x.shape)}: max |kernel - plain| "
+            f"= {err}; kernel {ms:.4f} ms, byte bound {bound:.4f} ms ({100 * bound / ms:.1f}% of bound)")
+    if not torch.equal(ntt_cuda.inverse(k, tables), x):
+        raise AssertionError("64-bit route round trip failed")
+    if any(max_err.values()):
+        raise AssertionError(f"kernels disagree with the plain version: {max_err}")
+    del x, k, ki
+
+    # the 55-bit moduli at N=8192 (n_8192_logq_3x55_logt_24): round trip and
     # one row against the big-int reference
     w64 = paramsmod.from_predefined("n_8192_logq_3x55_logt_24").coefficient_moduli
     tables = ntt.build_ntt_tables(tuple(w64), 8192, torch.device("cuda"))
@@ -125,28 +193,47 @@ def kernel_phase(seed: int) -> dict:
     if not torch.equal(ntt_cuda.inverse(fwd, tables), x):
         raise AssertionError("w64 kernel round trip failed")
     log(f"kernel check 3x55-bit moduli at N=8192 {tuple(x.shape)}: round trip and big-int reference row agree")
+    del x, fwd
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max_err, route64=route64)
 
-    # timing at the widest main-path shape, the key-switching transform
-    label, moduli, fshape, _ = cases[1]
-    tables = ntt.build_ntt_tables(tuple(moduli), n, torch.device("cuda"))
-    x = random_rows(moduli, fshape, n, seed + 30)
-    rows = x.numel() // n
-    table_bytes = 2 * len(moduli) * n * 8
-    bound_ms = 1e3 * (2 * x.numel() * 8 + table_bytes) / HBM_BYTES_PER_S
-    timing = {}
-    for name, kern, plain in (
-        ("ntt_forward", ntt_cuda.forward, ntt.forward_ntt_plain),
-        ("ntt_inverse", ntt_cuda.inverse, ntt.inverse_ntt_plain),
-    ):
+
+def shape_timing(launch_shapes, batches: int) -> dict:
+    """Each kernel and its plain version at every shape the serving run
+    launched it with: ms (mean of 20 launches after a warm-up; plain: of 3),
+    ns per row, byte bound and its share, launches per batch; and, as a
+    yardstick of the memory rate, one copy_ of the same tensor."""
+    import torch
+
+    from she_tpu_torch.ops import ntt, ntt_cuda
+
+    kernels = {"ntt_forward": (ntt_cuda.forward, ntt.forward_ntt_plain),
+               "ntt_inverse": (ntt_cuda.inverse, ntt.inverse_ntt_plain)}
+    out = {name: [] for name in kernels}
+    for (name, shape, moduli), count in sorted(launch_shapes.items(), key=lambda kv: (kv[0][0], -prod(kv[0][1]))):
+        kern, plain = kernels[name]
+        n = shape[-1]
+        tables = ntt.build_ntt_tables(moduli, n, torch.device("cuda"))
+        x = random_rows(moduli, shape[:-2], n, 50 + len(out[name]))
+        y = torch.empty_like(x)
+        rows = x.numel() // n
         ms = cuda_ms(lambda: kern(x, tables), 20)
         plain_ms = cuda_ms(lambda: plain(x, tables), 3)
-        timing[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, max_abs_err=max_err[name])
-        log(f"{name}: shape {tuple(x.shape)} ({rows} rows of N={n}), grid {rows} CTAs x "
-            f"{min(n // 2, 256)} threads, {n * 8} B dynamic shared memory; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, byte bound {bound_ms:.4f} ms ({100 * bound_ms / ms:.1f}% of bound)")
-    del x
+        copy_ms = cuda_ms(lambda: y.copy_(x), 20)
+        bound = kernel_bound_ms(shape, moduli, n)
+        row = dict(shape=list(shape), rows=rows, word_bits=tables.word_bits,
+                   launches_per_batch=count / batches, ms=ms, ns_per_row=1e6 * ms / rows,
+                   plain_ms=plain_ms, copy_ms=copy_ms, bound_ms=bound, share_of_bound=bound / ms)
+        out[name].append(row)
+        log(f"{name} {tuple(shape)} ({rows} rows, {count / batches:g} per batch, {tables.word_bits}-bit "
+            f"words): kernel {ms:.4f} ms ({row['ns_per_row']:.2f} ns/row), plain {plain_ms:.4f} ms, "
+            f"copy_ {copy_ms:.4f} ms, byte bound {bound:.4f} ms ({100 * bound / ms:.1f}% of bound)")
+        del x, y
     torch.cuda.empty_cache()
-    return timing
+    for name, rows in out.items():
+        per_batch = sum(r["launches_per_batch"] * r["ms"] for r in rows)
+        log(f"{name}: launches x ms summed over the shapes of one batch = {per_batch:.4f} ms")
+    return out
 
 
 def profile_batch(server, queries, ek) -> dict:
@@ -174,13 +261,17 @@ def profile_batch(server, queries, ek) -> dict:
     busy_us = sum(by_name.values())
     if busy_us <= 0:
         raise AssertionError("the profiler saw no device work in the profiled batch")
+    ntt_ms = {k: sum(us for name, us in by_name.items() if f"{k}_kernel" in name) / 1e3
+              for k in ("ntt_forward", "ntt_inverse")}
     top =sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     log(f"profiled batch: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
         f"idle share {1 - busy_us / wall_us:.3f}, {launches} device kernels and copies")
     for name, us in top:
         log(f"  {us / 1e3:9.3f} ms {100 * us / busy_us:5.1f}%  {name[:110]}")
+    log(f"  NTT kernels in the profiled batch: {ntt_ms} ms, "
+        f"{100 * sum(ntt_ms.values()) * 1e3 / busy_us:.1f}% of device time")
     return dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3, idle_share=1 - busy_us / wall_us,
-                device_launches=launches, top_ms={k: v / 1e3 for k, v in top})
+                device_launches=launches, top_ms={k: v / 1e3 for k, v in top}, ntt_ms=ntt_ms)
 
 
 def main_path(seed: int, batches: int) -> dict:
@@ -246,6 +337,7 @@ def main_path(seed: int, batches: int) -> dict:
         batch_s.append(time.perf_counter() - t0)
         all_responses.append(responses)
     launches = dict(ntt_cuda.launches)
+    launch_shapes = dict(ntt_cuda.launch_shapes)
     plain_on_cuda = dict(ntt.plain_calls_on_cuda)
     peak = torch.cuda.max_memory_allocated()
     for i, s in enumerate(batch_s):
@@ -287,6 +379,7 @@ def main_path(seed: int, batches: int) -> dict:
         steady_batches=len(steady), queries_per_s=BATCH / statistics.median(steady),
         peak_bytes=peak, launches=launches,
         launches_per_batch={k: v / batches for k, v in launches.items()},
+        launch_shapes=launch_shapes, batches=batches,
     )
 
 
@@ -304,25 +397,27 @@ def run(args) -> int:
     t0 = time.perf_counter()
     built = kernel_build.build()
     log(f"kernels built in {time.perf_counter() - t0:.3f} s: {built}")
-    for name in built:  # registers, shared memory and spills per kernel (ptxas -v)
-        build_log = kernel_build.log_path(name)
-        lines = build_log.read_text(errors="replace").splitlines() if build_log.exists() else []
-        for line in lines:
-            if "Used" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    for name in built:
+        for line in ptxas_lines(name):
+            log(f"  {name}: {line}")
 
-    timing = kernel_phase(args.seed)
+    checked = kernel_phase(args.seed)
     path = main_path(args.seed, args.batches)
+    shapes = shape_timing(path["launch_shapes"], path["batches"])
 
     kernels = []
     for name, line in (("ntt_forward", 217), ("ntt_inverse", 261)):
+        widest = max(shapes[name], key=lambda r: r["rows"])
         kernels.append(dict(
             name=name, route="cuda", source="she_tpu_torch/csrc/ntt.cu",
             replaces=f"she_tpu/ops/ntt_pallas.py:{line}", launches=path["launches"][name],
-            max_abs_err=timing[name]["max_abs_err"], ms=timing[name]["ms"],
-            plain_ms=timing[name]["plain_ms"], bound_ms=timing[name]["bound_ms"],
-            bound_by="bytes", library_ms=None,
+            max_abs_err=checked["max_abs_err"][name], ms=widest["ms"],
+            plain_ms=widest["plain_ms"], bound_ms=widest["bound_ms"],
+            bound_by="bytes", library_ms=None, widest_shape=widest["shape"],
+            shapes=shapes[name], route64=checked["route64"][name],
         ))
+    path["launch_shapes"] = [dict(name=k[0], shape=list(k[1]), moduli=list(k[2]), launches=v)
+                             for k, v in path["launch_shapes"].items()]
     summary = dict(card=card, device=torch.cuda.get_device_name(0), kernel_build_s=built,
                    kernels=kernels, main_path=path)
     if args.json_out:

@@ -14,6 +14,10 @@ inverse_ntt_arrays, including the n^-1 fold of inv_final_stage, with every
 stage fully reduced (so it needs q < 2^31: a product of residues must fit
 int64). `plain_calls_on_cuda` counts plain transforms of CUDA tensors,
 which only a comparison against the kernel should make.
+
+The kernel's word follows the moduli (`ntt_word_bits`): 32 bits when every
+q < 2^30, she_tpu's one-limb rule, with the 32-bit Shoup tables of
+`NttTables.w32`; 64 bits otherwise, with the 64-bit Shoup tables.
 """
 
 from __future__ import annotations
@@ -30,20 +34,20 @@ from . import ntt_cuda
 from .modarith import add_mod, sub_mod
 
 PLAIN_MAX_MODULUS = 1 << 31
+W32_MAX_MODULUS = 1 << 30  # Harvey's lazy range [0, 4q) fits one 32-bit word
 
 plain_calls_on_cuda = {"forward": 0, "inverse": 0}
 
 
 @dataclass(frozen=True)
-class NttTables:
-    """Per-(moduli, degree, device) tables, int64 on the device.
+class ShoupTables:
+    """Twiddles and scalars of one word width, on the device.
 
-    roots / inv_roots and their Shoup constants floor(w * 2^64 / q) are
-    [L, N] (the constants stored as the bit pattern of a u64); the scalars
-    q, n^-1 and n^-1 * w^-1 (with Shoup constants) are [L, 1]."""
+    roots / inv_roots and their Shoup constants floor(w * 2^bits / q) are
+    [L, N]; the scalars q, n^-1 and n^-1 * w^-1 (with Shoup constants) are
+    [L, 1]. Each value is stored as the bit pattern of an unsigned word:
+    int64 for 64 bits, int32 for 32 bits."""
 
-    degree: int
-    moduli: tuple[int, ...]
     roots: torch.Tensor
     roots_shoup: torch.Tensor
     inv_roots: torch.Tensor
@@ -55,48 +59,65 @@ class NttTables:
     q: torch.Tensor
 
 
-def shoup64(w: int, q: int) -> int:
-    """floor(w * 2^64 / q) for 0 <= w < q."""
+@dataclass(frozen=True, kw_only=True)
+class NttTables(ShoupTables):
+    """Per-(moduli, degree, device) tables: the 64-bit ones (which the plain
+    version reads too) as fields, and the 32-bit ones in `w32` where
+    `word_bits` is 32, else None."""
+
+    degree: int
+    moduli: tuple[int, ...]
+    word_bits: int
+    w32: ShoupTables | None
+
+
+def ntt_word_bits(moduli) -> int:
+    """The kernel's word for these moduli: 32 bits when every q < 2^30
+    (she_tpu's ops/word.py:nlimbs_for_modulus gives one limb), else 64."""
+    return 32 if max(moduli) < W32_MAX_MODULUS else 64
+
+
+def shoup_const(w: int, q: int, bits: int) -> int:
+    """floor(w * 2^bits / q) for 0 <= w < q."""
     if not 0 <= w < q:
         raise ValueError(f"Shoup constant needs 0 <= w < q, got {w}, {q}")
-    return (w << 64) // q
+    return (w << bits) // q
 
 
-def _u64_tensor(values, device) -> torch.Tensor:
-    """Python ints in [0, 2^64) -> int64 tensor holding their bit patterns."""
-    arr = np.array(values, dtype=np.uint64).view(np.int64)
+def _word_tensor(values, bits: int, device) -> torch.Tensor:
+    """Python ints in [0, 2^bits) -> int64 / int32 tensor of their bit patterns."""
+    unsigned, signed = (np.uint64, np.int64) if bits == 64 else (np.uint32, np.int32)
+    arr = np.array(values, dtype=unsigned).view(signed)
     return torch.from_numpy(arr).to(device)
+
+
+def _shoup_tables(moduli, degree, bits, device) -> ShoupTables:
+    cols = {k: [] for k in ShoupTables.__dataclass_fields__}
+    for q in moduli:
+        r, ir = ntt_root_tables(q, degree)
+        ninv = nt.inverse_mod(degree, q)
+        ninvw = (ninv * ir[1]) % q
+        cols["roots"].append(r)
+        cols["roots_shoup"].append([shoup_const(v, q, bits) for v in r])
+        cols["inv_roots"].append(ir)
+        cols["inv_roots_shoup"].append([shoup_const(v, q, bits) for v in ir])
+        for key, v in (("n_inv", ninv), ("n_inv_shoup", shoup_const(ninv, q, bits)),
+                       ("n_inv_w", ninvw), ("n_inv_w_shoup", shoup_const(ninvw, q, bits)),
+                       ("q", q)):
+            cols[key].append([v])
+    return {k: _word_tensor(v, bits, device) for k, v in cols.items()}
 
 
 @lru_cache(maxsize=None)
 def build_ntt_tables(moduli: tuple[int, ...], degree: int, device: torch.device) -> NttTables:
-    rows = {k: [] for k in ("r", "rs", "ir", "irs")}
-    scal = {k: [] for k in ("ni", "nis", "nw", "nws", "q")}
     for q in moduli:
         if not nt.is_ntt_modulus(q, degree):
             raise ValueError(f"{q} is not NTT-friendly for N={degree}")
-        r, ir = ntt_root_tables(q, degree)
-        rows["r"].append(r)
-        rows["rs"].append([shoup64(v, q) for v in r])
-        rows["ir"].append(ir)
-        rows["irs"].append([shoup64(v, q) for v in ir])
-        ninv = nt.inverse_mod(degree, q)
-        ninvw = (ninv * ir[1]) % q
-        for key, v in (("ni", ninv), ("nis", shoup64(ninv, q)), ("nw", ninvw),
-                       ("nws", shoup64(ninvw, q)), ("q", q)):
-            scal[key].append([v])
+    bits = ntt_word_bits(moduli)
+    w32 = ShoupTables(**_shoup_tables(moduli, degree, 32, device)) if bits == 32 else None
     return NttTables(
-        degree=degree,
-        moduli=tuple(moduli),
-        roots=_u64_tensor(rows["r"], device),
-        roots_shoup=_u64_tensor(rows["rs"], device),
-        inv_roots=_u64_tensor(rows["ir"], device),
-        inv_roots_shoup=_u64_tensor(rows["irs"], device),
-        n_inv=_u64_tensor(scal["ni"], device),
-        n_inv_shoup=_u64_tensor(scal["nis"], device),
-        n_inv_w=_u64_tensor(scal["nw"], device),
-        n_inv_w_shoup=_u64_tensor(scal["nws"], device),
-        q=_u64_tensor(scal["q"], device),
+        **_shoup_tables(moduli, degree, 64, device),
+        degree=degree, moduli=tuple(moduli), word_bits=bits, w32=w32,
     )
 
 

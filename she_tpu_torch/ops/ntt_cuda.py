@@ -4,31 +4,39 @@ The kernels replace she_tpu/ops/ntt_pallas.py:_fwd_kernel / _inv_kernel.
 Each wrapper checks its input, allocates the output with torch.empty,
 launches on torch.cuda.current_stream() and raises if the launch reports a
 CUDA error. There is no fallback: a tensor the kernel does not take raises.
+The kernel's word is `tables.word_bits` (ops/ntt.ntt_word_bits): 32-bit
+words with the tables of `tables.w32` when every modulus is below 2^30,
+64-bit words with the int64 tables otherwise; both are kernels.
 `launches` counts each launch per direction, so a run can show that its
-NTTs went through the kernels.
+NTTs went through the kernels; `launch_shapes` counts the same launches by
+(direction, input shape, moduli), so a run can time each shape it used.
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
 from . import kernel_build
 
 launches = {"ntt_forward": 0, "ntt_inverse": 0}
+launch_shapes: Counter = Counter()
 
 MAX_LOG2N = 13  # one row in shared memory: 8192 u64 = 64 KB
 MAX_MODULUS = 1 << 62  # Harvey lazy range [0, 4q) must fit 64 bits
 
 _VP = ctypes.c_void_p
-_FWD_ARGS = [_VP, _VP, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _VP, _VP, _VP, _VP]
-_INV_ARGS = [_VP, _VP, ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + [_VP] * 8
+_INT = ctypes.c_int
+_FWD_ARGS = [_VP, _VP, ctypes.c_longlong, _INT, _INT, _INT] + [_VP] * 4
+_INV_ARGS = [_VP, _VP, ctypes.c_longlong, _INT, _INT, _INT] + [_VP] * 8
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    launch_shapes.clear()
 
 
 def _library():
@@ -43,12 +51,12 @@ def _library():
 
 def _check(x: torch.Tensor, tables) -> int:
     """Validate x against the tables; returns log2(N)."""
-    if x.device.type != "cuda":
-        raise ValueError(f"CUDA NTT needs a CUDA tensor, got {x.device}")
     if x.dtype != torch.int64:
         raise TypeError(f"CUDA NTT needs int64, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("CUDA NTT needs a contiguous tensor")
+    if x.device.type != "cuda":
+        raise ValueError(f"CUDA NTT needs a CUDA tensor, got {x.device}")
     L, n = len(tables.moduli), tables.degree
     if x.dim() < 2 or tuple(x.shape[-2:]) != (L, n):
         raise ValueError(f"CUDA NTT expects [..., {L}, {n}], got {tuple(x.shape)}")
@@ -62,6 +70,11 @@ def _check(x: torch.Tensor, tables) -> int:
     return log2n
 
 
+def _words(tables):
+    """The tables of the kernel's word: the 32-bit ones or the int64 ones."""
+    return tables.w32 if tables.word_bits == 32 else tables
+
+
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
@@ -73,14 +86,15 @@ def forward(x: torch.Tensor, tables) -> torch.Tensor:
     rows = x.numel() >> log2n
     if rows == 0:
         return y
+    w = _words(tables)
     err = _library().she_ntt_forward(
-        x.data_ptr(), y.data_ptr(), rows, len(tables.moduli), log2n,
-        tables.roots.data_ptr(), tables.roots_shoup.data_ptr(),
-        tables.q.data_ptr(), _stream(),
+        x.data_ptr(), y.data_ptr(), rows, len(tables.moduli), log2n, tables.word_bits,
+        w.roots.data_ptr(), w.roots_shoup.data_ptr(), w.q.data_ptr(), _stream(),
     )
     if err != 0:
         raise RuntimeError(f"she_ntt_forward launch failed with CUDA error {err}")
     launches["ntt_forward"] += 1
+    launch_shapes[("ntt_forward", tuple(x.shape), tables.moduli)] += 1
     return y
 
 
@@ -91,13 +105,15 @@ def inverse(x: torch.Tensor, tables) -> torch.Tensor:
     rows = x.numel() >> log2n
     if rows == 0:
         return y
+    w = _words(tables)
     err = _library().she_ntt_inverse(
-        x.data_ptr(), y.data_ptr(), rows, len(tables.moduli), log2n,
-        tables.inv_roots.data_ptr(), tables.inv_roots_shoup.data_ptr(),
-        tables.q.data_ptr(), tables.n_inv.data_ptr(), tables.n_inv_shoup.data_ptr(),
-        tables.n_inv_w.data_ptr(), tables.n_inv_w_shoup.data_ptr(), _stream(),
+        x.data_ptr(), y.data_ptr(), rows, len(tables.moduli), log2n, tables.word_bits,
+        w.inv_roots.data_ptr(), w.inv_roots_shoup.data_ptr(), w.q.data_ptr(),
+        w.n_inv.data_ptr(), w.n_inv_shoup.data_ptr(), w.n_inv_w.data_ptr(),
+        w.n_inv_w_shoup.data_ptr(), _stream(),
     )
     if err != 0:
         raise RuntimeError(f"she_ntt_inverse launch failed with CUDA error {err}")
     launches["ntt_inverse"] += 1
+    launch_shapes[("ntt_inverse", tuple(x.shape), tables.moduli)] += 1
     return y

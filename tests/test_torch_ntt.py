@@ -28,6 +28,10 @@ def _rows(moduli, degree, batch, seed=0):
     return rows
 
 
+def _u32(tensor):
+    return tensor.numpy().view(np.uint32)
+
+
 def _jax_word(rows):
     return wordmod.as_word(wordmod.pack(rows.astype(object), 1))
 
@@ -49,6 +53,36 @@ def test_tables_match_she_tpu(degree):
     for name in ("roots_shoup", "inv_roots_shoup", "n_inv_shoup", "n_inv_w_shoup"):
         got = getattr(tables, name).numpy().view(np.uint64).astype(object)
         np.testing.assert_array_equal(got, wordmod.unpack(getattr(j64, name)))
+
+
+@pytest.mark.parametrize("degree", [8, 256, 512])
+def test_w32_tables_match_she_tpu(degree):
+    """The kernel's 32-bit route reads she_tpu's one-limb tables, Shoup
+    constants floor(w * 2^32 / q) included, bit for bit."""
+    tables = tntt.build_ntt_tables(W32_MODULI, degree, CPU)
+    assert tables.word_bits == 32
+    j32 = jntt.build_ntt_tables(W32_MODULI, degree, 1)
+    for name in ("roots", "roots_shoup", "inv_roots", "inv_roots_shoup", "n_inv",
+                 "n_inv_shoup", "n_inv_w", "n_inv_w_shoup", "q"):
+        got = getattr(tables.w32, name)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(_u32(got), getattr(j32, name)[0])
+
+
+@pytest.mark.parametrize(
+    "q",
+    [(1 << 30) - 1, 1 << 30, (1 << 30) + 1, 1073692673, 1073872897, (1 << 28) - 65535,
+     (1 << 55) - 311295],
+)
+def test_word_bits_follow_she_tpu_limbs(q):
+    assert tntt.ntt_word_bits((q,)) == 32 * wordmod.nlimbs_for_modulus(q)
+    # one wide modulus sends the whole launch to 64-bit words
+    assert tntt.ntt_word_bits(((1 << 28) - 65535, q)) == 32 * wordmod.nlimbs_for_modulus(q)
+
+
+def test_w64_tables_have_no_w32_route():
+    tables = tntt.build_ntt_tables((1073872897,), 8, CPU)
+    assert tables.word_bits == 64 and tables.w32 is None
 
 
 @pytest.mark.parametrize("degree", [8, 256, 512])
@@ -95,6 +129,26 @@ def test_kernel_wrapper_refuses_cpu_tensor():
         ntt_cuda.forward(x, tables)
     with pytest.raises(ValueError):
         ntt_cuda.inverse(x, tables)
+
+
+@pytest.mark.parametrize(
+    "case,error,match",
+    [
+        ("cpu", ValueError, "CUDA tensor"),
+        ("non_contiguous", ValueError, "contiguous"),
+        ("int32", TypeError, "int64"),
+    ],
+)
+def test_kernel_wrapper_refuses_what_it_does_not_take(case, error, match):
+    tables = tntt.build_ntt_tables(W32_MODULI, 8, CPU)
+    x = torch.from_numpy(_rows(W32_MODULI, 8, batch=2))
+    if case == "non_contiguous":
+        x = x.transpose(0, 1).contiguous().transpose(0, 1)
+    elif case == "int32":
+        x = x.to(torch.int32)
+    for wrapper in (ntt_cuda.forward, ntt_cuda.inverse):
+        with pytest.raises(error, match=match):
+            wrapper(x, tables)
 
 
 def test_plain_refuses_wide_moduli():
