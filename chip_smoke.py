@@ -2,23 +2,24 @@
 """Drive the port's main path on one NVIDIA card and check every kernel.
 
 Batched MulPIR serving (she_tpu_torch.pir.serving.BatchedMulPirServer)
-against a 1,000,000-entry x 1-byte database with parameters
-n_4096_logq_27_28_28_logt_5 at 32-bit scalars, 128 queries per batch:
+against a 1,000,000-entry x 1-byte database, 128 queries per batch, on two
+paths: w32 (n_4096_logq_27_28_28_logt_5 at 32-bit scalars) and w64
+(n_8192_logq_3x55_logt_24 at 64-bit scalars, exact wide arithmetic):
 
 1. require a CUDA card; print its name and power limit (nvidia-smi);
 2. build the CUDA kernels from she_tpu_torch/csrc with nvcc;
-3. hold each kernel bit-equal to its plain PyTorch version at the main
+3. hold each kernel bit-equal to its plain PyTorch version at the w32
    path's shapes on the 32-bit route, and at N=4096 on the 64-bit route
-   (moduli in [2^30, 2^31)); hold the 55-bit moduli at N=8192 against the
-   big-int reference;
-4. process the database, generate keys and queries with the port's client,
-   serve the batches, check that every answer decrypts to its entry and
+   (moduli in [2^30, 2^31));
+4. per path: process the database, generate keys and queries with the
+   port's client, serve the batches, check that every answer decrypts to
+   its entry, print the smallest noise budget of the responses, and check
    that one batched response equals the per-query server's bit for bit,
    with the kernels' launch counts (and launch shapes) read around the
    serving run, then profile one more batch (device time by kernel, idle
    share);
-5. time each kernel and its plain version with CUDA events at every shape
-   the serving run launched it with, and the 64-bit route at the widest;
+5. at every shape a serving run launched a kernel with: hold the kernel
+   bit-equal to its plain version, and time both with CUDA events;
 6. print one JSON line with every kernel's numbers, and as the last line
    {"ok": true, "device": {...}}.
 
@@ -36,9 +37,16 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
-PARAMS = "n_4096_logq_27_28_28_logt_5"
 ENTRY_COUNT = 1_000_000
 BATCH = 128
+# name -> (parameters, scalar bits, fresh queries per batch?): the w64 path
+# serves the same 128 queries in each batch (each query takes about 0.2 s
+# of host AES-CTR sampling at N=8192)
+PATHS = {
+    "w32": ("n_4096_logq_27_28_28_logt_5", 32, True),
+    "w64": ("n_8192_logq_3x55_logt_24", 64, False),
+}
+PARAMS = PATHS["w32"][0]
 
 
 def log(msg: str) -> None:
@@ -120,7 +128,7 @@ def kernel_phase(seed: int) -> dict:
     from she_tpu_torch import params as paramsmod
     from she_tpu_torch.core import rns
     from she_tpu_torch.ops import ntt, ntt_cuda
-    from she_tpu_torch.utils import nt, refimpl
+    from she_tpu_torch.utils import nt
 
     ep = paramsmod.from_predefined(PARAMS, scalar_bits=32)
     q_ct = ep.coefficient_moduli[:2]
@@ -181,31 +189,20 @@ def kernel_phase(seed: int) -> dict:
     if any(max_err.values()):
         raise AssertionError(f"kernels disagree with the plain version: {max_err}")
     del x, k, ki
-
-    # the 55-bit moduli at N=8192 (n_8192_logq_3x55_logt_24): round trip and
-    # one row against the big-int reference
-    w64 = paramsmod.from_predefined("n_8192_logq_3x55_logt_24").coefficient_moduli
-    tables = ntt.build_ntt_tables(tuple(w64), 8192, torch.device("cuda"))
-    x = random_rows(w64, (16,), 8192, seed + 20)
-    fwd = ntt_cuda.forward(x, tables)
-    if fwd[3, 1].tolist() != refimpl.forward_ntt(x[3, 1].tolist(), w64[1]):
-        raise AssertionError("w64 kernel disagrees with the big-int reference")
-    if not torch.equal(ntt_cuda.inverse(fwd, tables), x):
-        raise AssertionError("w64 kernel round trip failed")
-    log(f"kernel check 3x55-bit moduli at N=8192 {tuple(x.shape)}: round trip and big-int reference row agree")
-    del x, fwd
     torch.cuda.empty_cache()
     return dict(max_abs_err=max_err, route64=route64)
 
 
-def shape_timing(launch_shapes, batches: int) -> dict:
-    """Each kernel and its plain version at every shape the serving run
-    launched it with: ms (mean of 20 launches after a warm-up; plain: of 3),
-    ns per row, byte bound and its share, launches per batch; and, as a
-    yardstick of the memory rate, one copy_ of the same tensor."""
+def shape_timing(path: str, launch_shapes, batches: int) -> dict:
+    """Each kernel at every shape one path's serving run launched it with:
+    held bit-equal to its plain version on random residues, then timed:
+    ms (mean of 20 launches after a warm-up; plain: of 3 on the int64
+    route, of 1 on the wide route, whose plain NTT is far slower), ns per
+    row, byte bound and its share, launches per batch; and, as a yardstick
+    of the memory rate, one copy_ of the same tensor."""
     import torch
 
-    from she_tpu_torch.ops import ntt, ntt_cuda
+    from she_tpu_torch.ops import modarith, ntt, ntt_cuda
 
     kernels = {"ntt_forward": (ntt_cuda.forward, ntt.forward_ntt_plain),
                "ntt_inverse": (ntt_cuda.inverse, ntt.inverse_ntt_plain)}
@@ -215,28 +212,34 @@ def shape_timing(launch_shapes, batches: int) -> dict:
         n = shape[-1]
         tables = ntt.build_ntt_tables(moduli, n, torch.device("cuda"))
         x = random_rows(moduli, shape[:-2], n, 50 + len(out[name]))
+        err = int((kern(x, tables) - plain(x, tables)).abs().max())
+        if err:
+            raise AssertionError(f"{name} at {tuple(shape)}, moduli {moduli}: max |kernel - plain| = {err}")
         y = torch.empty_like(x)
         rows = x.numel() // n
+        plain_iters = 1 if modarith.is_wide(max(moduli)) else 3
         ms = cuda_ms(lambda: kern(x, tables), 20)
-        plain_ms = cuda_ms(lambda: plain(x, tables), 3)
+        plain_ms = cuda_ms(lambda: plain(x, tables), plain_iters)
         copy_ms = cuda_ms(lambda: y.copy_(x), 20)
         bound = kernel_bound_ms(shape, moduli, n)
-        row = dict(shape=list(shape), rows=rows, word_bits=tables.word_bits,
-                   launches_per_batch=count / batches, ms=ms, ns_per_row=1e6 * ms / rows,
-                   plain_ms=plain_ms, copy_ms=copy_ms, bound_ms=bound, share_of_bound=bound / ms)
+        row = dict(path=path, shape=list(shape), moduli=list(moduli), rows=rows, word_bits=tables.word_bits,
+                   launches_per_batch=count / batches, max_abs_err=err, ms=ms, ns_per_row=1e6 * ms / rows,
+                   plain_ms=plain_ms, plain_iters=plain_iters, copy_ms=copy_ms, bound_ms=bound,
+                   share_of_bound=bound / ms)
         out[name].append(row)
-        log(f"{name} {tuple(shape)} ({rows} rows, {count / batches:g} per batch, {tables.word_bits}-bit "
-            f"words): kernel {ms:.4f} ms ({row['ns_per_row']:.2f} ns/row), plain {plain_ms:.4f} ms, "
-            f"copy_ {copy_ms:.4f} ms, byte bound {bound:.4f} ms ({100 * bound / ms:.1f}% of bound)")
+        log(f"{path} {name} {tuple(shape)} ({rows} rows, {count / batches:g} per batch, {tables.word_bits}-bit "
+            f"words): bit-equal to plain; kernel {ms:.4f} ms ({row['ns_per_row']:.2f} ns/row), plain "
+            f"{plain_ms:.4f} ms (x{plain_iters}), copy_ {copy_ms:.4f} ms, byte bound {bound:.4f} ms "
+            f"({100 * bound / ms:.1f}% of bound)")
         del x, y
     torch.cuda.empty_cache()
     for name, rows in out.items():
         per_batch = sum(r["launches_per_batch"] * r["ms"] for r in rows)
-        log(f"{name}: launches x ms summed over the shapes of one batch = {per_batch:.4f} ms")
+        log(f"{path} {name}: launches x ms summed over the shapes of one batch = {per_batch:.4f} ms")
     return out
 
 
-def profile_batch(server, queries, ek) -> dict:
+def profile_batch(path: str, server, queries, ek) -> dict:
     """One more batch under torch.profiler: device time by kernel name,
     kernel count, and the device's idle share of the batch's wall time
     (profiling slows the host, so this wall time exceeds the plain one)."""
@@ -263,19 +266,19 @@ def profile_batch(server, queries, ek) -> dict:
         raise AssertionError("the profiler saw no device work in the profiled batch")
     ntt_ms = {k: sum(us for name, us in by_name.items() if f"{k}_kernel" in name) / 1e3
               for k in ("ntt_forward", "ntt_inverse")}
-    top =sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    log(f"profiled batch: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    log(f"[{path}] profiled batch: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
         f"idle share {1 - busy_us / wall_us:.3f}, {launches} device kernels and copies")
     for name, us in top:
         log(f"  {us / 1e3:9.3f} ms {100 * us / busy_us:5.1f}%  {name[:110]}")
-    log(f"  NTT kernels in the profiled batch: {ntt_ms} ms, "
+    log(f"[{path}]  NTT kernels in the profiled batch: {ntt_ms} ms, "
         f"{100 * sum(ntt_ms.values()) * 1e3 / busy_us:.1f}% of device time")
     return dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3, idle_share=1 - busy_us / wall_us,
                 device_launches=launches, top_ms={k: v / 1e3 for k, v in top}, ntt_ms=ntt_ms)
 
 
-def main_path(seed: int, batches: int) -> dict:
-    """The port's batched MulPIR serving, as a user drives it."""
+def main_path(path: str, seed: int, batches: int) -> dict:
+    """One path of the port's batched MulPIR serving, as a user drives it."""
     import numpy as np
     import torch
 
@@ -286,14 +289,17 @@ def main_path(seed: int, batches: int) -> dict:
     from she_tpu_torch.pir import serving
     from she_tpu_torch.rng.ctr_drbg import nist_aes128_ctr
 
-    ep = paramsmod.from_predefined(PARAMS, scalar_bits=32)
+    params, scalar_bits, fresh_queries = PATHS[path]
+    ep = paramsmod.from_predefined(params, scalar_bits=scalar_bits)
     ctx = bfv.get_bfv_context(ep)  # the CUDA card
     config = ip.IndexPirConfig(
         entry_count=ENTRY_COUNT, entry_size_in_bytes=1, dimension_count=2, batch_size=1,
         uneven_dimensions=True, key_compression=ip.PirKeyCompression.NO_COMPRESSION,
     )
     parameter = ip.generate_parameter(config, ctx)
-    log(f"PIR parameter: dims {parameter.dimensions}, {parameter.expanded_query_count} expanded "
+    log(f"[{path}] {params} at {scalar_bits}-bit scalars, moduli {ep.coefficient_moduli}, "
+        f"t = {ep.plaintext_modulus}")
+    log(f"[{path}] PIR parameter: dims {parameter.dimensions}, {parameter.expanded_query_count} expanded "
         f"ciphertexts per query, Galois elements {parameter.evaluation_key_config.galois_elements}")
     rng = np.random.default_rng(seed)
     database = rng.integers(0, 256, size=(ENTRY_COUNT, 1), dtype=np.uint8)
@@ -303,7 +309,7 @@ def main_path(seed: int, batches: int) -> dict:
     processed = ip.MulPirServer.process(database, ctx, parameter)
     torch.cuda.synchronize()
     process_s = time.perf_counter() - t0
-    log(f"database processed in {process_s:.3f} s: {processed.count} plaintexts, "
+    log(f"[{path}] database processed in {process_s:.3f} s: {processed.count} plaintexts, "
         f"{int(processed.present.sum())} non-zero")
 
     t0 = time.perf_counter()
@@ -312,16 +318,20 @@ def main_path(seed: int, batches: int) -> dict:
     ek = client.generate_evaluation_key(sk, nist_aes128_ctr(b"evaluation-key-err-seed-32-bytes"))
     server = serving.BatchedMulPirServer(parameter, ctx, [processed])
     torch.cuda.synchronize()
-    log(f"keys and server ready in {time.perf_counter() - t0:.3f} s")
+    log(f"[{path}] keys and server ready in {time.perf_counter() - t0:.3f} s")
 
     all_indices, all_queries = [], []
     t0 = time.perf_counter()
-    for _ in range(batches):
-        indices = [int(i) for i in rng.integers(0, ENTRY_COUNT, size=BATCH)]
+    for b in range(batches):
+        if fresh_queries or b == 0:
+            indices = [int(i) for i in rng.integers(0, ENTRY_COUNT, size=BATCH)]
+            queries = [client.generate_query([i], sk) for i in indices]
         all_indices.append(indices)
-        all_queries.append([client.generate_query([i], sk) for i in indices])
+        all_queries.append(queries)
     torch.cuda.synchronize()
-    log(f"{batches} x {BATCH} queries generated in {time.perf_counter() - t0:.3f} s")
+    distinct = batches * BATCH if fresh_queries else BATCH
+    log(f"[{path}] {distinct} queries generated in {time.perf_counter() - t0:.3f} s "
+        f"({'fresh queries in each batch' if fresh_queries else 'the same queries in each batch'})")
 
     # the main path, with the launch counts read around it
     ntt_cuda.reset_launches()
@@ -341,39 +351,54 @@ def main_path(seed: int, batches: int) -> dict:
     plain_on_cuda = dict(ntt.plain_calls_on_cuda)
     peak = torch.cuda.max_memory_allocated()
     for i, s in enumerate(batch_s):
-        log(f"batch {i}: {s:.4f} s, {BATCH / s:.2f} queries/s")
+        log(f"[{path}] batch {i}: {s:.4f} s, {BATCH / s:.2f} queries/s")
     if any(v == 0 for v in launches.values()):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     if any(plain_on_cuda.values()):
         raise AssertionError(f"the plain NTT ran on CUDA tensors: {plain_on_cuda}")
-    log(f"NTT kernel launches over {batches} batches: {launches}; plain NTT on CUDA: {plain_on_cuda}")
-    log(f"peak device memory during serving: {peak} bytes ({peak / 2**30:.3f} GiB)")
+    log(f"[{path}] NTT kernel launches over {batches} batches: {launches}; plain NTT on CUDA: {plain_on_cuda}")
+    log(f"[{path}] peak device memory during serving: {peak} bytes ({peak / 2**30:.3f} GiB)")
 
     t0 = time.perf_counter()
     for indices, responses in zip(all_indices, all_responses):
         for index, response in zip(indices, responses):
             got = client.decrypt(response, [index], sk)
             if got != [database[index].tobytes()]:
-                raise AssertionError(f"query for entry {index} decrypted to {got}")
-    log(f"all {batches * BATCH} answers decrypt to their entries ({time.perf_counter() - t0:.3f} s)")
+                raise AssertionError(f"[{path}] query for entry {index} decrypted to {got}")
+    log(f"[{path}] all {batches * BATCH} answers decrypt to their entries ({time.perf_counter() - t0:.3f} s)")
 
+    t0 = time.perf_counter()
+    single_ctx = ctx.ciphertext_context.get_context(1)
+    budgets = []
+    for responses in all_responses:
+        stacked = torch.stack([r.ciphertexts[0][0].stacked() for r in responses])  # [B, 2, 1, N]
+        budgets.append(bfv.noise_budget(bfv.Ciphertext.from_stacked(ctx, stacked, single_ctx), sk))
+    min_budget = min(budgets)
+    if not min_budget > 0:
+        raise AssertionError(f"[{path}] a response has no noise budget left: {min_budget}")
+    log(f"[{path}] smallest noise budget of the {batches * BATCH} responses: {min_budget:.3f} bits "
+        f"({time.perf_counter() - t0:.3f} s)")
+
+    t0 = time.perf_counter()
     reference = ip.MulPirServer(parameter, ctx, [processed])
     want = reference.compute_response(all_queries[0][0], ek)
     got = all_responses[0][0]
     for wc, gc in zip(want.ciphertexts[0], got.ciphertexts[0]):
         for wp, gp in zip(wc.polys, gc.polys):
             if not torch.equal(wp.data, gp.data):
-                raise AssertionError("batched response differs from the per-query server")
-    log("batched response of query 0 is bit-identical to the per-query server's")
+                raise AssertionError(f"[{path}] batched response differs from the per-query server")
+    log(f"[{path}] batched response of query 0 is bit-identical to the per-query server's "
+        f"({time.perf_counter() - t0:.3f} s)")
 
     steady = batch_s[1:] or batch_s
-    profiled = profile_batch(server, all_queries[0], ek)
+    profiled = profile_batch(path, server, all_queries[0], ek)
     # the profiler slows the host; against the unprofiled batch time the
     # same device work leaves this idle share
     profiled["idle_share_of_steady_batch"] = 1 - profiled["busy_ms"] / (1e3 * statistics.median(steady))
-    log(f"device idle share of the median unprofiled batch: {profiled['idle_share_of_steady_batch']:.3f}")
+    log(f"[{path}] device idle share of the median unprofiled batch: {profiled['idle_share_of_steady_batch']:.3f}")
     return dict(
-        profile=profiled,
+        path=path, params=params, scalar_bits=scalar_bits, fresh_queries=fresh_queries,
+        profile=profiled, min_noise_budget=min_budget,
         process_s=process_s, batch_s=batch_s, first_batch_s=batch_s[0],
         median_s_per_batch=statistics.median(steady), max_s_per_batch=max(steady),
         steady_batches=len(steady), queries_per_s=BATCH / statistics.median(steady),
@@ -402,31 +427,40 @@ def run(args) -> int:
             log(f"  {name}: {line}")
 
     checked = kernel_phase(args.seed)
-    path = main_path(args.seed, args.batches)
-    shapes = shape_timing(path["launch_shapes"], path["batches"])
+    paths, shapes = {}, {"ntt_forward": [], "ntt_inverse": []}
+    for path in PATHS:
+        paths[path] = main_path(path, args.seed, args.batches)
+        for name, rows in shape_timing(path, paths[path]["launch_shapes"], args.batches).items():
+            shapes[name].extend(rows)
+        torch.cuda.empty_cache()
 
     kernels = []
     for name, line in (("ntt_forward", 217), ("ntt_inverse", 261)):
-        widest = max(shapes[name], key=lambda r: r["rows"])
+        widest = max(shapes[name], key=lambda r: prod(r["shape"]))
         kernels.append(dict(
             name=name, route="cuda", source="she_tpu_torch/csrc/ntt.cu",
-            replaces=f"she_tpu/ops/ntt_pallas.py:{line}", launches=path["launches"][name],
-            max_abs_err=checked["max_abs_err"][name], ms=widest["ms"],
-            plain_ms=widest["plain_ms"], bound_ms=widest["bound_ms"],
-            bound_by="bytes", library_ms=None, widest_shape=widest["shape"],
+            replaces=f"she_tpu/ops/ntt_pallas.py:{line}",
+            launches=sum(p["launches"][name] for p in paths.values()),
+            max_abs_err=max([checked["max_abs_err"][name]] + [r["max_abs_err"] for r in shapes[name]]),
+            ms=widest["ms"], plain_ms=widest["plain_ms"], bound_ms=widest["bound_ms"],
+            bound_by="bytes", library_ms=None, widest_shape=widest["shape"], widest_path=widest["path"],
+            launches_by_path={p: v["launches"][name] for p, v in paths.items()},
             shapes=shapes[name], route64=checked["route64"][name],
         ))
-    path["launch_shapes"] = [dict(name=k[0], shape=list(k[1]), moduli=list(k[2]), launches=v)
-                             for k, v in path["launch_shapes"].items()]
+    for p in paths.values():
+        p["launch_shapes"] = [dict(name=k[0], shape=list(k[1]), moduli=list(k[2]), launches=v)
+                              for k, v in p["launch_shapes"].items()]
     summary = dict(card=card, device=torch.cuda.get_device_name(0), kernel_build_s=built,
-                   kernels=kernels, main_path=path)
+                   kernels=kernels, paths=paths)
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump(summary, f, indent=1)
-    log(f"main path: database processing {path['process_s']:.3f} s, first batch "
-        f"{path['first_batch_s']:.4f} s, then median {path['median_s_per_batch']:.4f} s/batch "
-        f"(max {path['max_s_per_batch']:.4f} s over {path['steady_batches']} batches), "
-        f"{path['queries_per_s']:.2f} queries/s, peak {path['peak_bytes']} bytes, on {card}")
+    for path, p in paths.items():
+        log(f"{path} path ({p['params']}): database processing {p['process_s']:.3f} s, first batch "
+            f"{p['first_batch_s']:.4f} s, then median {p['median_s_per_batch']:.4f} s/batch "
+            f"(max {p['max_s_per_batch']:.4f} s over {p['steady_batches']} batches), "
+            f"{p['queries_per_s']:.2f} queries/s, peak {p['peak_bytes']} bytes, smallest noise budget "
+            f"{p['min_noise_budget']:.3f} bits, on {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

@@ -15,6 +15,7 @@ in the reference (Bfv.swift:31-41).
 
 from __future__ import annotations
 
+import math
 import os
 from dataclasses import dataclass
 from functools import lru_cache
@@ -265,6 +266,9 @@ def _plaintext_translate(ct: Ciphertext, pt: Plaintext, subtract: bool) -> Ciphe
     tool = context.get_rns_tool(ct.moduli_count)
     ct_ctx = ct.polys[0].context
     t = context.plaintext_modulus
+    if t >= ma.INT64_ROUTE_MAX:
+        # qModT * m would need more than 63 bits
+        raise errors.InvalidEncryptionParameters(f"plaintext modulus {t} >= 2^31")
     m = pt.poly.data  # [..., 1, N] values < t
     # adjust = floor((qModT * m + tThreshold) / t) < t
     adjust = torch.div(m * (tool.q_mod_t % t) + tool.t_threshold, t, rounding_mode="floor")
@@ -303,6 +307,26 @@ def _dot_product_with_key(ct: Ciphertext, secret_key: SecretKey) -> PolyRq:
         if idx != len(polys) - 2:
             sk_power = polymod.mul_eval(sk_power, sk)
     return polymod.inverse_ntt(acc)
+
+
+def noise_budget(ct: Ciphertext, secret_key: SecretKey) -> float:
+    """log2(Q / (2 |v*t|_inf)) with a host CRT composition
+    (reference Bfv+Decrypt.swift:116-174). Secret-leaking diagnostic. A
+    ciphertext with batch axes gets the smallest budget of its batch."""
+    dot = _dot_product_with_key(ct, secret_key)
+    L = len(dot.moduli)
+    vt = polymod.mul_scalar_rows(dot, [ct.context.plaintext_modulus] * L)
+    tool = ct.context.get_rns_tool(L)
+    Q = dot.context.q_product
+    q_div_2 = (Q + 1) >> 1
+    rows = np.moveaxis(vt.to_values(), -2, 0).reshape(L, -1)  # [L, batch * N]
+    norm = 0
+    for c in tool.crt_compose(rows):
+        c = int(c)
+        norm = max(norm, Q - c if c > q_div_2 else c)
+    if norm == 0:
+        return float("inf")
+    return math.log2(Q / (2 * norm))
 
 
 def decrypt(ct: Ciphertext, secret_key: SecretKey) -> Plaintext:
@@ -425,6 +449,11 @@ def drop_extended_base(ct: Ciphertext) -> Ciphertext:
     )
 
 
+def ct_mul(a: Ciphertext, b: Ciphertext) -> Ciphertext:
+    """Full BEHZ ct*ct, yielding a 3-poly ciphertext (relinearize to get 2)."""
+    return drop_extended_base(multiply_without_scaling(a, b))
+
+
 def inner_product_ct_ct_stacked(lhs: Ciphertext, rhs: Ciphertext, axis: int = -3) -> Ciphertext:
     """sum over `axis` of lhs_k * rhs_k for ciphertexts whose polys carry a
     K axis at `axis` of their [..., K, L, N] data: the products accumulate
@@ -435,9 +464,7 @@ def inner_product_ct_ct_stacked(lhs: Ciphertext, rhs: Ciphertext, axis: int = -3
     q = ext_ctx.q_col
     polys = []
     for p in prod.polys:
-        # K values < q_i < 2^31 each: the plain sum stays far below 2^63
-        summed = torch.remainder(p.data.sum(dim=axis), q)
-        polys.append(PolyRq(summed, ext_ctx, EVAL))
+        polys.append(PolyRq(ma.sum_mod(p.data, q, axis), ext_ctx, EVAL))
     return drop_extended_base(Ciphertext(prod.context, polys, prod.correction_factor))
 
 

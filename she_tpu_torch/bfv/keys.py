@@ -8,7 +8,8 @@ full key-switching context with q_ks * currentKey folded into c0.
 The update is written in the row-vectorized form of she_tpu's
 _compute_key_switching_update_w32: every decomposition digit is reduced
 mod every key-switching modulus, transformed by ONE batched forward NTT,
-multiplied into the key with one lazy int64 MAC, and the result goes
+multiplied into the key with one lazy MAC (int64 at w32, the exact wide
+route of ops/wide.py at w64, she_tpu keys.py:312-347), and the result goes
 through ONE batched inverse NTT before q_ks is dropped. It is bit-identical
 to she_tpu's per-modulus _compute_key_switching_update, and it works on a
 target with any leading batch axes.

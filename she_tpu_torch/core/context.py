@@ -16,6 +16,7 @@ import torch
 from .. import errors
 from ..ops import modarith
 from ..ops import ntt as nttmod
+from ..ops import wide
 from ..utils import nt
 
 
@@ -79,10 +80,12 @@ class PolyContext:
         return nttmod.build_ntt_tables(self.moduli, self.degree, self.device)
 
     def max_signed_lazy_product_count(self) -> int:
-        """How many q_i^2-sized products fit in a signed int64 accumulator
-        (half of the reference's maxLazyProductAccumulationCount,
-        PolyContext.swift:246-253, which counts an unsigned double word)."""
-        return modarith.signed_lazy_product_count(self.moduli)
+        """How many q_i^2-sized products the lazy accumulator of this
+        context's route takes between reductions: on the int64 route (every
+        q < 2^31) half of the reference's maxLazyProductAccumulationCount
+        (PolyContext.swift:246-253, which counts an unsigned double word),
+        on the wide route ops/wide.lazy_product_count."""
+        return modarith.lazy_product_count(self.moduli)
 
     # -- device constants --------------------------------------------------
 
@@ -94,12 +97,14 @@ class PolyContext:
     def column(self, values) -> torch.Tensor:
         """Per-row host ints [L] -> [L, 1] int64 tensor on the device, made
         once per distinct values: a host-to-device copy waits for the device
-        to drain its queue, so the serving path must not make one per call."""
+        to drain its queue, so the serving path must not make one per call.
+        The column carries its host values (wide.tag), so it can serve as a
+        modulus argument of ops/modarith."""
         key = tuple(int(v) for v in values)
         col = self._columns.get(key)
         if col is None:
             col = torch.tensor([[v] for v in key], dtype=torch.int64, device=self.device)
-            self._columns[key] = col
+            self._columns[key] = wide.tag(col, key)
         return col
 
     @cached_property

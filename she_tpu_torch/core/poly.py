@@ -132,7 +132,7 @@ def divide_and_round_q_last_data(data: torch.Tensor, ctx: PolyContext) -> torch.
     L = len(ctx.moduli)
     last = data[..., L - 1 :, :]
     last_plus = torch.remainder(last + half, q_last)  # [..., 1, N] in [0, q_last)
-    qs = ctx.q_col[: L - 1]
+    qs = ctx.column(ctx.moduli[:-1])
     tmp = torch.remainder(last_plus, qs)  # [..., L-1, N]
     half_mod = ctx.column(half % q for q in ctx.moduli[:-1])
     coeff = ma.add_mod(data[..., : L - 1, :], half_mod, qs)

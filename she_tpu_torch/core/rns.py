@@ -3,9 +3,12 @@
 The port of she_tpu/core/rns.py (and the reference's _RnsBaseConverter /
 _RnsTool, RnsBaseConverter.swift:14-144, RnsTool.swift:18-475). Constants
 are precomputed on the host with Python big ints; the device path is
-modular multiply-adds over int64 [..., L, N] tensors whose lazy sums are
-bounded by modarith.signed_lazy_product_count. Every step is exact modular
-arithmetic, so fully reduced results equal she_tpu's bit for bit.
+modular multiply-adds over int64 [..., L, N] tensors through ops/modarith,
+whose lazy sums are bounded by modarith.lazy_product_count: the int64
+route at 32-bit scalars, the exact wide route (ops/wide.py) at 64 bits,
+where m~ = 2^32, gamma = 2^62 - 40797 and 61-bit B_sk primes make every
+conversion wide. Every step is exact modular arithmetic, so fully reduced
+results equal she_tpu's bit for bit.
 
 As in she_tpu, every level gets a consistent [B_level, m_sk, m~] base drawn
 from one shared B_sk prime pool.
@@ -21,6 +24,18 @@ import torch
 from ..ops import modarith as ma
 from ..utils import nt
 from .context import PolyContext, get_poly_context
+
+
+def mul_mod_power_of_two(r: torch.Tensor, c: int, m: int) -> torch.Tensor:
+    """r * c mod m for r, c in [0, m), m = 2^k, without overflow: one
+    product while (m-1)^2 fits int64, else with c split at k/2 bits, so each
+    partial product stays below 2^(3k/2)."""
+    mask = m - 1
+    if (m - 1) ** 2 < ma.INT63:
+        return (r * c) & mask
+    half = (m.bit_length() - 1) // 2
+    c_lo, c_hi = c & ((1 << half) - 1), c >> half
+    return (r * c_lo + (((r * c_hi) & ((1 << (m.bit_length() - 1 - half)) - 1)) << half)) & mask
 
 
 class RnsBaseConverter:
@@ -46,7 +61,9 @@ class RnsBaseConverter:
         self.inv_punctured = input_context.column(
             nt.inverse_mod((Q // qi) % qi, qi) for qi in in_moduli
         )
-        self.cap = ma.signed_lazy_product_count(in_moduli + out_moduli)
+        # products of an input residue and an output constant
+        self.bound = max(in_moduli + out_moduli)
+        self.cap = ma.lazy_product_count(in_moduli + out_moduli)
 
     def convert_approximate_products(self, x: torch.Tensor) -> torch.Tensor:
         """x: [..., L_in, N] -> scaled products x_i * (q/q_i)^{-1} mod q_i."""
@@ -58,7 +75,7 @@ class RnsBaseConverter:
             (products[..., i : i + 1, :], self.punctured_cols[i])
             for i in range(len(self.input_context.moduli))
         )
-        return ma.sum_products_mod(terms, self.output_context.q_col, self.cap)
+        return ma.sum_products_mod(terms, self.output_context.q_col, self.cap, self.bound)
 
     def convert_approximate(self, x: torch.Tensor) -> torch.Tensor:
         """x: [..., L_in, N] coeff -> [..., L_out, N]."""
@@ -190,7 +207,7 @@ class RnsTool:
         m_tilde = self.m_tilde
         r = y[..., L_bsk : L_bsk + 1, :]  # m~ row, in [0, m~)
         # r_mtilde = -(Q^{-1}) * r mod m~ (m~ is a power of two)
-        r_mtilde = (r * self.neg_inverse_q_mod_m_tilde) & (m_tilde - 1)
+        r_mtilde = mul_mod_power_of_two(r, self.neg_inverse_q_mod_m_tilde, m_tilde)
         # centered: r_mtilde - m~ if r_mtilde >= m~/2, represented mod bsk
         rm = torch.where(
             r_mtilde < (m_tilde >> 1), r_mtilde, r_mtilde + bctx.q_col - m_tilde
@@ -228,8 +245,9 @@ class RnsTool:
         exceeds = alpha > (m_sk >> 1)
         out = self.convert_b_to_q.convert_approximate(x_b)
         q = ctx.q_col
-        adj_gt = ma.mul_mod(m_sk - alpha, self.b_mod_q, q)
-        adj_le = ma.mul_mod(alpha, self.neg_b_mod_q, q)
+        # alpha and m_sk - alpha are below m_sk, which may exceed q
+        adj_gt = ma.mul_mod(m_sk - alpha, self.b_mod_q, q, bound=m_sk + 1)
+        adj_le = ma.mul_mod(alpha, self.neg_b_mod_q, q, bound=m_sk)
         return ma.add_mod(out, torch.where(exceeds, adj_gt, adj_le), q)
 
     def floor_qbsk_to_q(self, y: torch.Tensor) -> torch.Tensor:

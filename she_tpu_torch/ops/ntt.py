@@ -11,9 +11,10 @@ takes the plain PyTorch version below, a CUDA tensor the hand-written
 kernel of ops/ntt_cuda.py, and anything else raises. The plain version runs
 the radix-2 stage order of she_tpu's forward_ntt_arrays /
 inverse_ntt_arrays, including the n^-1 fold of inv_final_stage, with every
-stage fully reduced (so it needs q < 2^31: a product of residues must fit
-int64). `plain_calls_on_cuda` counts plain transforms of CUDA tensors,
-which only a comparison against the kernel should make.
+stage fully reduced by ops/modarith.mul_mod: the int64 route for moduli
+below 2^31, the exact wide route (ops/wide.py) up to the kernel's 2^62.
+`plain_calls_on_cuda` counts plain transforms of CUDA tensors, which only
+a comparison against the kernel should make.
 
 The kernel's word follows the moduli (`ntt_word_bits`): 32 bits when every
 q < 2^30, she_tpu's one-limb rule, with the 32-bit Shoup tables of
@@ -31,9 +32,10 @@ import torch
 from ..utils import nt
 from ..utils.refimpl import ntt_root_tables
 from . import ntt_cuda
-from .modarith import add_mod, sub_mod
+from . import wide
+from .modarith import add_mod, mul_mod, sub_mod
 
-PLAIN_MAX_MODULUS = 1 << 31
+PLAIN_MAX_MODULUS = 1 << 62
 W32_MAX_MODULUS = 1 << 30  # Harvey's lazy range [0, 4q) fits one 32-bit word
 
 plain_calls_on_cuda = {"forward": 0, "inverse": 0}
@@ -126,7 +128,7 @@ def _check_plain(x: torch.Tensor, tables: NttTables, direction: str) -> None:
     if x.dim() < 2 or tuple(x.shape[-2:]) != (L, n):
         raise ValueError(f"NTT expects [..., {L}, {n}], got {tuple(x.shape)}")
     if max(tables.moduli) >= PLAIN_MAX_MODULUS:
-        raise ValueError("the plain NTT takes moduli below 2^31")
+        raise ValueError("the plain NTT takes moduli below 2^62")
     if x.device.type == "cuda":
         plain_calls_on_cuda[direction] += 1
 
@@ -136,13 +138,13 @@ def forward_ntt_plain(x: torch.Tensor, tables: NttTables) -> torch.Tensor:
     _check_plain(x, tables, "forward")
     n, L = tables.degree, len(tables.moduli)
     batch = tuple(x.shape[:-2])
-    q = tables.q.view(L, 1, 1)
+    q = wide.tag(tables.q.view(L, 1, 1), tables.moduli)
     log2n = nt.log2_exact(n)
     for log2m in range(log2n):
         m, t = 1 << log2m, n >> (log2m + 1)
         v = x.reshape(batch + (L, m, 2, t))
         a, b = v[..., 0, :], v[..., 1, :]
-        wb = torch.remainder(b * tables.roots[:, m : 2 * m, None], q)
+        wb = mul_mod(b, tables.roots[:, m : 2 * m, None], q)
         x = torch.stack((add_mod(a, wb, q), sub_mod(a, wb, q)), dim=-2)
     return x.reshape(batch + (L, n))
 
@@ -152,20 +154,20 @@ def inverse_ntt_plain(x: torch.Tensor, tables: NttTables) -> torch.Tensor:
     _check_plain(x, tables, "inverse")
     n, L = tables.degree, len(tables.moduli)
     batch = tuple(x.shape[:-2])
-    q = tables.q.view(L, 1, 1)
+    q = wide.tag(tables.q.view(L, 1, 1), tables.moduli)
     log2n = nt.log2_exact(n)
     for log2m in range(log2n - 1, 0, -1):
         m, t = 1 << log2m, n >> (log2m + 1)
         v = x.reshape(batch + (L, m, 2, t))
         a, b = v[..., 0, :], v[..., 1, :]
-        d = torch.remainder(sub_mod(a, b, q) * tables.inv_roots[:, m : 2 * m, None], q)
+        d = mul_mod(sub_mod(a, b, q), tables.inv_roots[:, m : 2 * m, None], q)
         x = torch.stack((add_mod(a, b, q), d), dim=-2)
     # final stage (m = 1): n^-1 on the x half, n^-1 * w^-1 on the y half
     v = x.reshape(batch + (L, 2, n // 2))
     a, b = v[..., 0, :], v[..., 1, :]
-    q1 = tables.q
-    lo = torch.remainder(add_mod(a, b, q1) * tables.n_inv, q1)
-    hi = torch.remainder(sub_mod(a, b, q1) * tables.n_inv_w, q1)
+    q1 = wide.tag(tables.q.view(L, 1), tables.moduli)
+    lo = mul_mod(add_mod(a, b, q1), tables.n_inv, q1)
+    hi = mul_mod(sub_mod(a, b, q1), tables.n_inv_w, q1)
     return torch.cat((lo, hi), dim=-1)
 
 

@@ -1,16 +1,23 @@
-"""Batched MulPIR serving on one torch device (w32 path).
+"""Batched MulPIR serving on one torch device, at 32- and 64-bit scalars.
 
-The port of she_tpu/pir/serving.py's w32 path: throughput comes from
+The port of she_tpu/pir/serving.py's batched server: throughput comes from
 batching whole query batches through tensors with leading batch axes, not
-from one program per query.
+from one program per query. Both scalar widths run the same code: the
+modular arithmetic routes by modulus width (ops/modarith.py), so the w64
+path (55-bit moduli, 61-bit B_sk primes) takes the exact wide route of
+ops/wide.py and the w32 path the int64 route. she_tpu's _StagedResponder
+(one cached jit per stage, to keep XLA compile times linear at w64) has no
+counterpart: eager PyTorch already runs one program per stage, and the
+contract it keeps, bit-identical responses, is this module's.
 
 * Level-batched oblivious expansion: every node at one level of the
   expansion tree applies the same Galois element, so each level is ONE
   batched Galois + key switch over a [nodes * queries, 2, L, N] tensor
   held in a slot pool [slots, queries, 2, L, N].
 * Dim-0 ct-pt inner products for all columns at once against the database
-  chunk packed on the device as [C, d0, L, N], a lazy int64 MAC streamed
-  over d0 (the [C, d0, 2B, L, N] product is never materialized).
+  chunk packed on the device as [C, d0, L, N], a lazy MAC streamed over d0
+  (the [C, d0, 2B, L, N] product is never materialized): int64 at w32,
+  (hi, lo) pairs at w64 (she_tpu's _dim0_inner_products_w64).
 * Higher dimensions: BEHZ ct-ct inner products and relinearization over
   [queries, d, ...] tensors, then the mod switch down to one modulus.
 
@@ -147,22 +154,22 @@ def dim0_inner_products(db_chunk: torch.Tensor, query_eval: torch.Tensor, ct_ctx
     """db_chunk [C, d0, L, N]; query_eval [d0, P, L, N] (P = 2 polys per
     query) -> [C, P, L, N] fully reduced out[c, p] = sum_j db[c, j] * q[j, p].
 
-    Streams a lazy int64 MAC over d0, reducing every
-    max_signed_lazy_product_count products (she_tpu serving.py:318-341)."""
+    Streams a lazy MAC over d0, reducing every
+    max_signed_lazy_product_count products of the context's route
+    (she_tpu serving.py:318-370)."""
     d0 = db_chunk.shape[1]
     terms = ((db_chunk[:, j, None], query_eval[j]) for j in range(d0))
     return ma.sum_products_mod(terms, ct_ctx.q_col, ct_ctx.max_signed_lazy_product_count())
 
 
 class BatchedMulPirServer:
-    """Serves whole query batches with batched tensor ops (w32 parameters).
+    """Serves whole query batches with batched tensor ops (32- or 64-bit
+    scalars).
 
     The database is packed on the context's device once, as one
     [C, d0, L, N] tensor per chunk."""
 
     def __init__(self, parameter: ip.IndexPirParameter, context, databases: list):
-        if context.params.scalar_bits != 32:
-            raise errors.PirError("the batched server serves scalar_bits=32 parameters")
         self.parameter = parameter
         self.context = context
         self.ct_ctx = context.ciphertext_context

@@ -8,16 +8,19 @@ she_tpu), so it also runs on a machine without jax:
 
 Both kernel routes are covered: 32-bit words (every modulus below 2^30,
 here the three largest NTT primes below 2^30) and 64-bit words (moduli in
-[2^30, 2^31), which the plain version still takes, and the 55-bit moduli
-of n_8192_logq_3x55_logt_24 against the big-int reference).
+[2^30, 2^31), and the 55-bit moduli of n_8192_logq_3x55_logt_24, which the
+plain version takes through the wide route, and against the big-int
+reference). The wide modular arithmetic (ops/wide.py, plain PyTorch) is
+held bit-equal between CUDA and CPU tensors.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from she_tpu_torch.ops import modarith as ma
 from she_tpu_torch.ops import ntt as tntt
-from she_tpu_torch.ops import ntt_cuda
+from she_tpu_torch.ops import ntt_cuda, wide
 from she_tpu_torch.utils import nt, refimpl
 
 ROUTE_MODULI = {
@@ -26,6 +29,9 @@ ROUTE_MODULI = {
 }
 W32_MODULI = ((1 << 27) - 40959, (1 << 28) - 65535, (1 << 28) - 73727)
 W64_MODULI = ((1 << 55) - 311295, (1 << 55) - 1392639, (1 << 55) - 1507327)
+SERVED_MODULI = (36028797018652673, 36028797017571329, 36028797017456641)  # 3x55, N=8192
+WIDE_MODULI = ((1 << 31) + 11, 36028797018652673, 1152921504606830593, 2305843009213554689,
+               (1 << 62) - 40797, 1 << 32)
 
 
 def _card() -> torch.device:
@@ -91,3 +97,50 @@ def test_dispatch_launches_kernel_for_cuda_tensors():
     tntt.forward_ntt(x, tables)
     assert ntt_cuda.launches["ntt_forward"] == before + 1
     assert tntt.plain_calls_on_cuda == plain_before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,nmod", [(1, 1), (1, 3), (5, 1)], ids=["1row", "3rows", "5rows"])
+@pytest.mark.parametrize("fill", ["zero", "max", "random"])
+def test_kernel_matches_plain_at_served_55_bit_moduli(fill, batch, nmod):
+    """The 64-bit route at N=8192 against the plain version, which takes
+    55-bit moduli through the wide route."""
+    dev = _card()
+    moduli = SERVED_MODULI[:nmod]
+    tables = tntt.build_ntt_tables(moduli, 8192, dev)
+    assert tables.word_bits == 64
+    x = _rows(moduli, 8192, batch, seed=55, fill=fill).to(dev)
+    fwd = ntt_cuda.forward(x, tables)
+    assert torch.equal(fwd, tntt.forward_ntt_plain(x, tables))
+    inv = ntt_cuda.inverse(fwd, tables)
+    assert torch.equal(inv, tntt.inverse_ntt_plain(fwd, tables))
+    assert torch.equal(inv, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", WIDE_MODULI)
+def test_wide_arithmetic_on_cuda_equals_cpu(q):
+    """mul_mod, the reduction and the lazy sums of ops/wide.py give the same
+    bits on CUDA tensors as on CPU tensors (and as Python ints)."""
+    dev = _card()
+    rng = np.random.default_rng(q % 1000)
+    shape = (7, 3, 4096)
+    moduli = (q, q - 2 if q % 2 else q - 1, 17)
+    a = np.stack([rng.integers(0, m, size=(7, 4096)) for m in moduli], axis=1)
+    b = np.stack([rng.integers(0, m, size=(7, 4096)) for m in moduli], axis=1)
+    a[0, :, :2], b[0, :, :2] = np.array(moduli)[:, None] - 1, np.array(moduli)[:, None] - 1
+    assert a.shape == shape
+
+    def run(device):
+        col = wide.tag(torch.tensor([[m] for m in moduli], device=device), moduli)
+        ta, tb = torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
+        cap = ma.lazy_product_count(moduli)
+        terms = [(ta[i], tb[(i + 1) % 7]) for i in range(7)]
+        hi, lo = wide.mul_wide(ta, tb)
+        return [ma.mul_mod(ta, tb, col, bound=max(moduli)), ma.sum_products_mod(terms, col, cap, max(moduli)),
+                wide.reduce_pair(torch.remainder(hi, col), lo, col), wide.mul_mod(ta, tb, q)]
+
+    for got, want in zip(run(dev), run(torch.device("cpu"))):
+        assert torch.equal(got.cpu(), want)
+    want = [[(int(x) * int(y)) % m for x, y in zip(a[1, i, :64], b[1, i, :64])] for i, m in enumerate(moduli)]
+    assert run(dev)[0][1, :, :64].tolist() == want

@@ -17,6 +17,7 @@ from she_tpu_torch.ops import ntt as tntt
 from she_tpu_torch.ops import ntt_cuda
 
 W32_MODULI = ((1 << 28) - 65535, (1 << 28) - 73727)
+W64_MODULI = (36028797018652673, 288230376151748609, 1152921504606830593)  # 55, 59, 60 bits
 CPU = torch.device("cpu")
 
 
@@ -32,12 +33,12 @@ def _u32(tensor):
     return tensor.numpy().view(np.uint32)
 
 
-def _jax_word(rows):
-    return wordmod.as_word(wordmod.pack(rows.astype(object), 1))
+def _jax_word(rows, nlimbs=1):
+    return wordmod.as_word(wordmod.pack(rows.astype(object), nlimbs))
 
 
 def _jax_values(word):
-    return np.asarray(word[0]).astype(np.int64)
+    return wordmod.unpack(np.stack([np.asarray(w) for w in word])).astype(np.int64)
 
 
 @pytest.mark.parametrize("degree", [8, 256, 512])
@@ -152,6 +153,45 @@ def test_kernel_wrapper_refuses_what_it_does_not_take(case, error, match):
 
 
 def test_plain_refuses_wide_moduli():
-    tables = tntt.build_ntt_tables(((1 << 55) - 311295,), 8, CPU)
-    with pytest.raises(ValueError):
+    """Moduli up to the kernel's 2^62 are taken (below); a wider one has
+    no exact plain transform and raises."""
+    q = next(q for q in range((1 << 62) + 17, (1 << 62) + (1 << 20), 16) if tntt.nt.is_prime(q))
+    tables = tntt.build_ntt_tables((q,), 8, CPU)
+    with pytest.raises(ValueError, match="below 2\\^62"):
         tntt.forward_ntt(torch.zeros((1, 8), dtype=torch.int64), tables)
+
+
+def test_plain_ntt_limit_is_the_kernels():
+    assert tntt.PLAIN_MAX_MODULUS == ntt_cuda.MAX_MODULUS == 1 << 62
+
+
+@pytest.mark.parametrize("degree", [8, 256, 512])
+def test_plain_takes_wide_moduli(degree):
+    """55/59/60-bit moduli: the plain NTT (wide route) against she_tpu's
+    staged NTT with two-limb tables and the big-int reference."""
+    tables = tntt.build_ntt_tables(W64_MODULI, degree, CPU)
+    assert tables.word_bits == 64
+    jt = jntt.build_ntt_tables(W64_MODULI, degree, 2)
+    rows = _rows(W64_MODULI, degree, batch=3, seed=degree + 1)
+    rows[0, :, :2] = np.array(W64_MODULI)[:, None] - 1  # the largest residue
+    fwd = tntt.forward_ntt(torch.from_numpy(rows), tables)
+    fwd_j = jntt.forward_ntt(_jax_word(rows, 2), jt)
+    np.testing.assert_array_equal(fwd.numpy(), _jax_values(fwd_j))
+    assert fwd[1, 2].tolist() == refimpl.forward_ntt([int(v) for v in rows[1, 2]], W64_MODULI[2])
+    inv = tntt.inverse_ntt(fwd, tables)
+    np.testing.assert_array_equal(inv.numpy(), _jax_values(jntt.inverse_ntt(fwd_j, jt)))
+    np.testing.assert_array_equal(inv.numpy(), rows)
+
+
+@pytest.mark.parametrize("degree", [256, 512])
+def test_plain_wide_matches_pallas_interpret(monkeypatch, degree):
+    monkeypatch.setenv("SHE_TPU_NTT_PALLAS", "1")
+    jt = jntt.build_ntt_tables(W64_MODULI, degree, 2)
+    assert ntt_pallas.use_pallas(jt)
+    tables = tntt.build_ntt_tables(W64_MODULI, degree, CPU)
+    rows = _rows(W64_MODULI, degree, batch=2, seed=11)
+    fwd_p = ntt_pallas.forward_ntt(_jax_word(rows, 2), jt)
+    fwd = tntt.forward_ntt(torch.from_numpy(rows), tables)
+    np.testing.assert_array_equal(fwd.numpy(), _jax_values(fwd_p))
+    inv_p = ntt_pallas.inverse_ntt(fwd_p, jt)
+    np.testing.assert_array_equal(tntt.inverse_ntt(fwd, tables).numpy(), _jax_values(inv_p))
