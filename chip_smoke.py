@@ -4,7 +4,9 @@
 Batched MulPIR serving (she_tpu_torch.pir.serving.BatchedMulPirServer)
 against a 1,000,000-entry x 1-byte database, 128 queries per batch, on two
 paths: w32 (n_4096_logq_27_28_28_logt_5 at 32-bit scalars) and w64
-(n_8192_logq_3x55_logt_24 at 64-bit scalars, exact wide arithmetic):
+(n_8192_logq_3x55_logt_24 at 64-bit scalars, exact wide arithmetic); then
+keyword PIR (BatchedKeywordPirServer) over a 1,000,000-keyword cuckoo table
+of 1-byte values, 128 keyword queries per batch, through the wire format:
 
 1. require a CUDA card; print its name and power limit (nvidia-smi);
 2. build the CUDA kernels from she_tpu_torch/csrc with nvcc;
@@ -18,9 +20,20 @@ paths: w32 (n_4096_logq_27_28_28_logt_5 at 32-bit scalars) and w64
    with the kernels' launch counts (and launch shapes) read around the
    serving run, then profile one more batch (device time by kernel, idle
    share);
-5. at every shape a serving run launched a kernel with: hold the kernel
+5. keyword PIR (keyword_path): process the database through
+   process_database.process (cuckoo table, then one batched NTT), send
+   each batch's queries as seeded ciphertext bytes, deserialize, serve and
+   serialize the answers for decryption (skip LSBs); the client reads and
+   decrypts them: every present keyword must come back with its value,
+   every absent one as None; serve the same batches again through
+   compute_response_stream, which must answer the same; check one answer
+   (and its bytes) against the per-query KeywordPirServer and the noise
+   budget, split one batch's device time by stage with CUDA events, and
+   profile one more; then serve 32 keywords whose 3,000-byte values take
+   two plaintexts a bucket (large_value_path);
+6. at every shape a serving run launched a kernel with: hold the kernel
    bit-equal to its plain version, and time both with CUDA events;
-6. print one JSON line with every kernel's numbers, and as the last line
+7. print one JSON line with every kernel's numbers, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without the last line. Run from the repository
@@ -47,6 +60,11 @@ PATHS = {
     "w64": ("n_8192_logq_3x55_logt_24", 64, False),
 }
 PARAMS = PATHS["w32"][0]
+KEYWORD_CELL = "keyword_1m_x_1B_w32_b128"
+KEYWORD_COUNT = 1_000_000  # distinct 8-byte keywords, 1-byte values
+ABSENT_EVERY = 8  # one query in 8 asks for a keyword that is not in the table
+# the multi-chunk route: (keywords, value bytes, queries in one batch)
+LARGE_VALUES = (4096, 3000, 32)
 
 
 def log(msg: str) -> None:
@@ -408,6 +426,356 @@ def main_path(path: str, seed: int, batches: int) -> dict:
     )
 
 
+def keyword_rows(seed: int, count: int, value_size: int, absent: int):
+    """`count` distinct 8-byte keywords with `value_size`-byte values, and
+    `absent` further distinct keywords that are not in the table."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    raw = np.unique(rng.integers(0, 2**63 - 1, size=count + absent + 16, dtype=np.int64))
+    raw = rng.permutation(raw)[: count + absent]
+    if raw.size != count + absent:
+        raise AssertionError("too few distinct keywords drawn")
+    blob = raw.astype(">u8").tobytes()
+    keywords = [blob[8 * i : 8 * i + 8] for i in range(count + absent)]
+    values = rng.integers(0, 256, size=count * value_size, dtype=np.uint8).tobytes()
+    rows = {keywords[i]: values[i * value_size : (i + 1) * value_size] for i in range(count)}
+    return rows, keywords[count:]
+
+
+def keyword_batches(rng, present: list, absent: list, batches: int, batch: int) -> list:
+    """Per batch, `batch` keywords; every ABSENT_EVERY-th is absent."""
+    out = []
+    for _ in range(batches):
+        kws = []
+        for i in range(batch):
+            pool = absent if i % ABSENT_EVERY == ABSENT_EVERY - 1 else present
+            kws.append(pool[int(rng.integers(0, len(pool)))])
+        out.append(kws)
+    return out
+
+
+def assert_same_responses(label: str, got: list, want: list) -> None:
+    import torch
+
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} responses, expected {len(want)}")
+    for g, w in zip(got, want):
+        for g_reply, w_reply in zip(g.ciphertexts, w.ciphertexts, strict=True):
+            for gc, wc in zip(g_reply, w_reply, strict=True):
+                if not torch.equal(gc.stacked(), wc.stacked()):
+                    raise AssertionError(f"{label}: responses differ")
+
+
+def serve_over_wire(ctx, server, wire_queries: list, ek, indices_count: int):
+    """The server's side of one batch: query bytes in, answer bytes out.
+    Returns (queries, responses, answer bytes, deserialize s, serve s,
+    serialize s); the serve time ends in a synchronize."""
+    import torch
+
+    from she_tpu_torch.core.poly import COEFF
+    from she_tpu_torch.io import serialize as ser
+    from she_tpu_torch.pir import index_pir as ip
+
+    t0 = time.perf_counter()
+    flat = ser.deserialize_ciphertexts([s for q in wire_queries for s in q], ctx, COEFF)
+    n = len(wire_queries[0])
+    queries = [ip.Query(flat[i * n : (i + 1) * n], indices_count) for i in range(len(wire_queries))]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    responses = server.compute_response_batch(queries, ek)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    answers = [
+        [[ser.serialize_ciphertext(ct, for_decryption=True) for ct in reply] for reply in r.ciphertexts]
+        for r in responses
+    ]
+    t3 = time.perf_counter()
+    return queries, responses, answers, t1 - t0, t2 - t1, t3 - t2
+
+
+def read_answer(ctx, answer: list):
+    """The client's side: answer bytes -> ip.Response."""
+    from she_tpu_torch.core.poly import COEFF
+    from she_tpu_torch.io import serialize as ser
+    from she_tpu_torch.pir import index_pir as ip
+
+    return ip.Response([ser.deserialize_ciphertexts(reply, ctx, COEFF, moduli_count=1) for reply in answer])
+
+
+def stage_split(server, queries: list, ek, want: list) -> dict:
+    """One batch through compute_response_batch with a CUDA event recorded
+    at each of its stage marks: device ms of stacking, expansion, dim-0
+    (query to Eval, MAC, columns to Coeff), BEHZ + relinearization, and mod
+    switch, each span ending at its stage's mark. The answers must equal
+    `want`, the same batch's earlier answers."""
+    import torch
+
+    names = {"stack": "stack", "expand": "expansion", "dim0": "dim0",
+             "fold_dimensions": "behz_relinearize", "mod_switch": "mod_switch"}
+    marks = []
+
+    def mark(stage: str) -> None:
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append((names[stage], e))
+
+    torch.cuda.synchronize()
+    mark("stack")  # the start: the first span is the stacking
+    got = server.compute_response_batch(queries, ek, on_stage=mark)
+    torch.cuda.synchronize()
+    assert_same_responses("stage split", got, want)
+    ms = dict.fromkeys(names.values(), 0.0)
+    for (_, a), (stage, b) in zip(marks, marks[1:]):
+        ms[stage] += a.elapsed_time(b)
+    ms["total"] = marks[0][1].elapsed_time(marks[-1][1])
+    return ms
+
+
+def keyword_path(seed: int, batches: int) -> dict:
+    """Keyword PIR as a user drives it: process_database, the client, the
+    wire, BatchedKeywordPirServer (cell keyword_1m_x_1B_w32_b128)."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from she_tpu_torch import params as paramsmod
+    from she_tpu_torch.bfv import bfv
+    from she_tpu_torch.io import serialize as ser
+    from she_tpu_torch.ops import ntt, ntt_cuda
+    from she_tpu_torch.pir import index_pir as ip
+    from she_tpu_torch.pir import keyword_pir as kp
+    from she_tpu_torch.pir import process_database as pd
+    from she_tpu_torch.pir import serving
+    from she_tpu_torch.rng.ctr_drbg import nist_aes128_ctr
+
+    label = "keyword"
+    ep = paramsmod.from_predefined(PARAMS, scalar_bits=32)
+    ctx = bfv.get_bfv_context(ep)  # the CUDA card
+    absent_count = batches * BATCH // ABSENT_EVERY
+    t0 = time.perf_counter()
+    rows, absent = keyword_rows(seed + 1, KEYWORD_COUNT, 1, absent_count)
+    log(f"[{label}] {len(rows)} keywords x 1 byte and {len(absent)} absent keywords made in "
+        f"{time.perf_counter() - t0:.3f} s")
+    bucket_size = kp.default_max_serialized_bucket_size(1, ep.bytes_per_plaintext)
+    config = kp.KeywordPirConfig(
+        dimension_count=2, cuckoo_table_config=kp.CuckooTableConfig.default_keyword_pir(bucket_size),
+        uneven_dimensions=True, key_compression=ip.PirKeyCompression.NO_COMPRESSION,
+    )
+    arguments = pd.Arguments(pd.KeywordDatabaseConfig(kp.Sharding("shardCount", 1), config), ep)
+    events = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    processed = pd.process(rows, arguments, rng=random.Random(seed),
+                           on_event=lambda kind, detail: events.append((kind, detail, time.perf_counter())))
+    torch.cuda.synchronize()
+    process_s = time.perf_counter() - t0
+    cuckoo_s = [e[2] for e in events if e[0] == "insertedEntry"][-1] - t0
+    shard = processed.shards["0"]
+    parameter = shard.pir_parameter
+    expansions = [e[1] for e in events if e[0] == "expandedTable"]
+    log(f"[{label}] cuckoo table: bucket bound {bucket_size} bytes, created with "
+        f"{[e[1] for e in events if e[0] == 'createdTable']} buckets, expanded to {expansions}; "
+        f"built in {cuckoo_s:.3f} s; processed in {process_s:.3f} s in all")
+    log(f"[{label}] PIR parameter: {parameter.entry_count} buckets per table of at most "
+        f"{parameter.entry_size_in_bytes} bytes, dims {parameter.dimensions}, "
+        f"{parameter.expanded_query_count * 2} expanded ciphertexts per query, "
+        f"{shard.database.count} plaintexts ({int(shard.database.present.sum())} non-zero), "
+        f"{shard.database.data.numel() * 8} bytes on the device")
+
+    t0 = time.perf_counter()
+    sk = bfv.generate_secret_key(ctx, nist_aes128_ctr(seed.to_bytes(4, "little") * 8))
+    client = kp.KeywordPirClient(shard.keyword_pir_parameter, parameter, ctx)
+    ek_client = client.generate_evaluation_key(sk, nist_aes128_ctr(b"evaluation-key-err-seed-32-bytes"))
+    ek = ser.deserialize_evaluation_key(ser.serialize_evaluation_key(ek_client), ctx)
+    server = serving.BatchedKeywordPirServer(ctx, shard)
+    torch.cuda.synchronize()
+    log(f"[{label}] keys made, sent through the wire, and server ready in {time.perf_counter() - t0:.3f} s")
+
+    rng = np.random.default_rng(seed + 2)
+    present = list(rows)
+    all_keywords = keyword_batches(rng, present, absent, batches, BATCH)
+    t0 = time.perf_counter()
+    wire_batches = [
+        [[ser.serialize_ciphertext(ct) for ct in client.generate_query(kw, sk).ciphertexts] for kw in kws]
+        for kws in all_keywords
+    ]
+    query_s = time.perf_counter() - t0
+    if any(s.kind != "seeded" for batch in wire_batches for q in batch for s in q):
+        raise AssertionError("a fresh query ciphertext was not serialized seeded")
+    query_bytes = sum(len(s.polys) + len(s.seed) for s in wire_batches[0][0])
+    log(f"[{label}] {batches * BATCH} keyword queries generated and serialized in {query_s:.3f} s "
+        f"({query_bytes} bytes each, seeded)")
+
+    # the main path, with the launch counts read around it
+    ntt_cuda.reset_launches()
+    for k in ntt.plain_calls_on_cuda:
+        ntt.plain_calls_on_cuda[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    served, batch_s, wire_in_s, wire_out_s, segments = [], [], [], [], []
+    for wire_queries in wire_batches:
+        before = torch.cuda.memory_stats()
+        queries, responses, answers, d_s, s_s, o_s = serve_over_wire(ctx, server, wire_queries, ek, 2)
+        after = torch.cuda.memory_stats()
+        # device segments the caching allocator had to allocate (cudaMalloc)
+        # and retries after freeing its cache, in this batch
+        segments.append({k: after.get(k, 0) - before.get(k, 0)
+                         for k in ("segment.all.allocated", "num_alloc_retries")})
+        served.append((queries, responses, answers))
+        batch_s.append(s_s)
+        wire_in_s.append(d_s)
+        wire_out_s.append(o_s)
+    launches = dict(ntt_cuda.launches)
+    launch_shapes = dict(ntt_cuda.launch_shapes)
+    plain_on_cuda = dict(ntt.plain_calls_on_cuda)
+    peak = torch.cuda.max_memory_allocated()
+    for i in range(batches):
+        log(f"[{label}] batch {i}: served in {batch_s[i]:.4f} s ({BATCH / batch_s[i]:.2f} keyword queries/s); "
+            f"wire: {wire_in_s[i]:.4f} s to read {BATCH} queries, {wire_out_s[i]:.4f} s to write the answers; "
+            f"allocator: {segments[i]}")
+    if any(v == 0 for v in launches.values()):
+        raise AssertionError(f"a kernel of the keyword path never launched: {launches}")
+    if any(plain_on_cuda.values()):
+        raise AssertionError(f"the plain NTT ran on CUDA tensors: {plain_on_cuda}")
+    log(f"[{label}] NTT kernel launches over {batches} batches (wire included): {launches}; "
+        f"plain NTT on CUDA: {plain_on_cuda}")
+    log(f"[{label}] peak device memory during serving: {peak} bytes ({peak / 2**30:.3f} GiB)")
+
+    t0 = time.perf_counter()
+    answer_bytes = 0
+    for kws, (_, _, answers) in zip(all_keywords, served):
+        for kw, answer in zip(kws, answers):
+            answer_bytes = sum(len(s.polys) for reply in answer for s in reply)
+            got = client.decrypt(read_answer(ctx, answer), kw, sk)
+            if got != rows.get(kw):
+                raise AssertionError(f"[{label}] keyword {kw.hex()} decrypted to {got!r}, expected {rows.get(kw)!r}")
+    n_absent = sum(kw not in rows for kws in all_keywords for kw in kws)
+    log(f"[{label}] all {batches * BATCH} answers read back: {batches * BATCH - n_absent} present keywords "
+        f"gave their values, {n_absent} absent ones None ({answer_bytes} bytes an answer; "
+        f"{time.perf_counter() - t0:.3f} s)")
+
+    t0 = time.perf_counter()
+    budgets = []
+    single_ctx = ctx.ciphertext_context.get_context(1)
+    for _, responses, _ in served:
+        for qi in range(2):
+            stacked = torch.stack([r.ciphertexts[qi][0].stacked() for r in responses])
+            budgets.append(bfv.noise_budget(bfv.Ciphertext.from_stacked(ctx, stacked, single_ctx), sk))
+    min_budget = min(budgets)
+    if not min_budget > 0:
+        raise AssertionError(f"[{label}] a response has no noise budget left: {min_budget}")
+    log(f"[{label}] smallest noise budget of the answers: {min_budget:.3f} bits ({time.perf_counter() - t0:.3f} s)")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stream = server.compute_response_stream([q for q, _, _ in served], ek)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    assert_same_responses("stream", stream, [r for _, responses, _ in served for r in responses])
+    log(f"[{label}] compute_response_stream over the {batches} batches: {stream_s:.4f} s, "
+        f"{stream_s / batches:.4f} s a batch, answers equal to the batched ones")
+
+    t0 = time.perf_counter()
+    queries0, responses0, answers0 = served[0]
+    want = kp.KeywordPirServer(ctx, shard).compute_response(queries0[0], ek)
+    assert_same_responses("per-query server", [responses0[0]], [want])
+    want_bytes = [[ser.serialize_ciphertext(ct, for_decryption=True) for ct in reply] for reply in want.ciphertexts]
+    if want_bytes != answers0[0]:
+        raise AssertionError(f"[{label}] answer bytes differ from the per-query server's")
+    log(f"[{label}] batched answer of query 0 and its bytes are identical to the per-query server's "
+        f"({time.perf_counter() - t0:.3f} s)")
+
+    stages = stage_split(server, queries0, ek, responses0)
+    log(f"[{label}] device ms by stage (CUDA events, one batch): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    steady = batch_s[1:] or batch_s
+    profiled = profile_batch(label, server, queries0, ek)
+    profiled["idle_share_of_steady_batch"] = 1 - profiled["busy_ms"] / (1e3 * statistics.median(steady))
+    log(f"[{label}] device idle share of the median unprofiled batch: {profiled['idle_share_of_steady_batch']:.3f}")
+    wire_s = [a + b for a, b in zip(wire_in_s, wire_out_s)]
+    return dict(
+        path=label, cell=KEYWORD_CELL, params=PARAMS, scalar_bits=32, keywords=len(rows),
+        bucket_size=bucket_size, dimensions=list(parameter.dimensions), buckets_per_table=parameter.entry_count,
+        entry_size=parameter.entry_size_in_bytes, expansions=expansions, cuckoo_s=cuckoo_s, process_s=process_s,
+        query_s=query_s, query_bytes=query_bytes, answer_bytes=answer_bytes, batch_s=batch_s,
+        first_batch_s=batch_s[0], median_s_per_batch=statistics.median(steady), max_s_per_batch=max(steady),
+        steady_batches=len(steady), queries_per_s=BATCH / statistics.median(steady), wire_in_s=wire_in_s,
+        wire_out_s=wire_out_s, wire_s_per_batch=statistics.median(wire_s), stream_s=stream_s, segments=segments,
+        stages_ms=stages, profile=profiled, min_noise_budget=min_budget, peak_bytes=peak, launches=launches,
+        launches_per_batch={k: v / batches for k, v in launches.items()}, launch_shapes=launch_shapes,
+        batches=batches, absent_queries=n_absent,
+    )
+
+
+def large_value_path(seed: int) -> dict:
+    """Keyword PIR with values larger than half a plaintext: every bucket
+    spans two plaintexts (the multi-chunk route of database processing and
+    of the batched server)."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from she_tpu_torch import params as paramsmod
+    from she_tpu_torch.bfv import bfv
+    from she_tpu_torch.ops import ntt, ntt_cuda
+    from she_tpu_torch.pir import index_pir as ip
+    from she_tpu_torch.pir import keyword_pir as kp
+    from she_tpu_torch.pir import serving
+    from she_tpu_torch.rng.ctr_drbg import nist_aes128_ctr
+
+    label = "keyword_large"
+    count, value_size, n_queries = LARGE_VALUES
+    ep = paramsmod.from_predefined(PARAMS, scalar_bits=32)
+    ctx = bfv.get_bfv_context(ep)
+    rows, _ = keyword_rows(seed + 3, count, value_size, 0)
+    bucket_size = kp.default_max_serialized_bucket_size(value_size, ep.bytes_per_plaintext)
+    config = kp.KeywordPirConfig(2, kp.CuckooTableConfig.default_keyword_pir(bucket_size))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    processed = kp.KeywordPirServer.process(list(rows.items()), config, ctx, rng=random.Random(seed))
+    torch.cuda.synchronize()
+    process_s = time.perf_counter() - t0
+    parameter = processed.pir_parameter
+    chunks = ip.chunk_count(parameter, ctx)
+    if chunks < 2:
+        raise AssertionError(f"[{label}] buckets of {parameter.entry_size_in_bytes} bytes fit one plaintext")
+    sk = bfv.generate_secret_key(ctx, nist_aes128_ctr((seed + 1).to_bytes(4, "little") * 8))
+    client = kp.KeywordPirClient(processed.keyword_pir_parameter, parameter, ctx)
+    ek = client.generate_evaluation_key(sk, nist_aes128_ctr(b"evaluation-key-err-seed-32-bytes"))
+    rng = np.random.default_rng(seed + 4)
+    names = list(rows)
+    keywords = [names[int(i)] for i in rng.choice(count, size=n_queries, replace=False)]
+    queries = [client.generate_query(kw, sk) for kw in keywords]
+    server = serving.BatchedKeywordPirServer(ctx, processed)
+    ntt_cuda.reset_launches()
+    for k in ntt.plain_calls_on_cuda:
+        ntt.plain_calls_on_cuda[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    responses = server.compute_response_batch(queries, ek)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    launches = dict(ntt_cuda.launches)
+    launch_shapes = dict(ntt_cuda.launch_shapes)
+    if any(v == 0 for v in launches.values()) or any(ntt.plain_calls_on_cuda.values()):
+        raise AssertionError(f"[{label}] launches {launches}, plain NTT on CUDA {ntt.plain_calls_on_cuda}")
+    for kw, response in zip(keywords, responses):
+        if client.decrypt(response, kw, sk) != rows[kw]:
+            raise AssertionError(f"[{label}] keyword {kw.hex()} did not decrypt to its value")
+    want = kp.KeywordPirServer(ctx, processed).compute_response(queries[0], ek)
+    assert_same_responses(label, [responses[0]], [want])
+    log(f"[{label}] {count} keywords x {value_size} bytes: buckets of at most {parameter.entry_size_in_bytes} "
+        f"bytes in {chunks} plaintexts each, dims {parameter.dimensions}, processed in {process_s:.3f} s; "
+        f"{n_queries} queries served in one batch in {batch_s:.4f} s; every value came back; query 0's "
+        f"answer equals the per-query server's; NTT launches {launches}")
+    return dict(path=label, keywords=count, value_size=value_size, queries=n_queries, chunks=chunks,
+                dimensions=list(parameter.dimensions), process_s=process_s, batch_s=batch_s,
+                launches=launches, launch_shapes=launch_shapes, batches=1)
+
+
 def run(args) -> int:
     import torch
 
@@ -428,9 +796,12 @@ def run(args) -> int:
 
     checked = kernel_phase(args.seed)
     paths, shapes = {}, {"ntt_forward": [], "ntt_inverse": []}
-    for path in PATHS:
-        paths[path] = main_path(path, args.seed, args.batches)
-        for name, rows in shape_timing(path, paths[path]["launch_shapes"], args.batches).items():
+    phases = [(path, lambda path=path: main_path(path, args.seed, args.batches)) for path in PATHS]
+    phases += [("keyword", lambda: keyword_path(args.seed, args.batches)),
+               ("keyword_large", lambda: large_value_path(args.seed))]
+    for path, drive in phases:
+        paths[path] = drive()
+        for name, rows in shape_timing(path, paths[path]["launch_shapes"], paths[path]["batches"]).items():
             shapes[name].extend(rows)
         torch.cuda.empty_cache()
 
@@ -456,11 +827,24 @@ def run(args) -> int:
         with open(args.json_out, "w") as f:
             json.dump(summary, f, indent=1)
     for path, p in paths.items():
+        if path not in PATHS:
+            continue
         log(f"{path} path ({p['params']}): database processing {p['process_s']:.3f} s, first batch "
             f"{p['first_batch_s']:.4f} s, then median {p['median_s_per_batch']:.4f} s/batch "
             f"(max {p['max_s_per_batch']:.4f} s over {p['steady_batches']} batches), "
             f"{p['queries_per_s']:.2f} queries/s, peak {p['peak_bytes']} bytes, smallest noise budget "
             f"{p['min_noise_budget']:.3f} bits, on {card}")
+    k = paths["keyword"]
+    log(f"{KEYWORD_CELL} ({k['params']}, {k['keywords']} keywords, dims {k['dimensions']}): cuckoo table "
+        f"{k['cuckoo_s']:.3f} s, processing {k['process_s']:.3f} s in all; served median "
+        f"{k['median_s_per_batch']:.4f} s/batch (max {k['max_s_per_batch']:.4f} s, first {k['first_batch_s']:.4f} s), "
+        f"{k['queries_per_s']:.2f} keyword queries/s; wire (read queries + write answers) "
+        f"{k['wire_s_per_batch']:.4f} s/batch; stream {k['stream_s']:.4f} s for {k['batches']} batches; "
+        f"device ms by stage {k['stages_ms']}; peak {k['peak_bytes']} bytes; smallest noise budget "
+        f"{k['min_noise_budget']:.3f} bits; on {card}")
+    q = paths["keyword_large"]
+    log(f"keyword_large: {q['keywords']} keywords x {q['value_size']} bytes, {q['chunks']} plaintexts a bucket, "
+        f"{q['queries']} queries in {q['batch_s']:.4f} s, on {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

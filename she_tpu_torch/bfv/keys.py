@@ -74,6 +74,12 @@ class EvaluationKeyConfig:
     galois_elements: tuple[int, ...] = ()
     has_relinearization_key: bool = False
 
+    def union(self, other: "EvaluationKeyConfig") -> "EvaluationKeyConfig":
+        return EvaluationKeyConfig(
+            tuple(sorted(set(self.galois_elements) | set(other.galois_elements))),
+            self.has_relinearization_key or other.has_relinearization_key,
+        )
+
 
 def generate_key_switch_key(context, current_key: torch.Tensor, target_key, err_rng=None) -> KeySwitchKey:
     """Key-switch key from `current_key` (Eval [>= L_top, N] over the

@@ -1,10 +1,11 @@
-"""Fixed-width coefficient bit-packing (the part of she_tpu/io/serialize.py
-that PIR entry packing needs).
+"""Fixed-width coefficient bit-packing: the bit layer of
+she_tpu/io/serialize.py, under PIR entry packing and io/serialize.py.
 
 Big-endian bitstream of (bitsPerCoeff - skipLSBs)-bit fields, as in the
 reference (Sources/HomomorphicEncryption/CoefficientPacking.swift:34-217).
-`bytes_to_coefficients_rows` is the vectorized form used by database
-processing: it unpacks many equal-length byte rows in one numpy pass.
+`bytes_to_coefficients_rows` and `coefficients_to_bytes_rows` are the
+vectorized forms used by database processing and serialization: they
+unpack or pack many equal-length rows in one numpy pass.
 """
 
 from __future__ import annotations
@@ -41,19 +42,22 @@ def _validate(bits_per_coeff: int, skip_lsbs: int):
         )
 
 
-def coefficients_to_bytes(coeffs, bits_per_coeff: int, skip_lsbs: int = 0) -> bytes:
-    """coeffs: array of ints -> MSB-first bitstream of truncated coeffs."""
+def coefficients_to_bytes_rows(rows, bits_per_coeff: int, skip_lsbs: int = 0) -> np.ndarray:
+    """int [R, n] coefficient rows -> uint8 [R, bytes]: each row packed as
+    coefficients_to_bytes would pack it, in one numpy pass."""
     _validate(bits_per_coeff, skip_lsbs)
     sbc = bits_per_coeff - skip_lsbs
-    arr = np.asarray(coeffs).astype(np.uint64) >> np.uint64(skip_lsbs)
-    n = len(arr)
+    arr = np.asarray(rows).astype(np.uint64) >> np.uint64(skip_lsbs)
+    if arr.ndim != 2:
+        raise errors.SerializationError(f"expected [rows, coefficients], got {arr.shape}")
     shifts = np.arange(sbc - 1, -1, -1, dtype=np.uint64)
-    bits = ((arr[:, None] >> shifts[None, :]) & np.uint64(1)).astype(np.uint8)
-    flat = bits.reshape(-1)
-    nbytes = coefficients_to_bytes_byte_count(n, bits_per_coeff, skip_lsbs)
-    padded = np.zeros(nbytes * 8, dtype=np.uint8)
-    padded[: len(flat)] = flat
-    return np.packbits(padded).tobytes()
+    bits = ((arr[:, :, None] >> shifts) & np.uint64(1)).astype(np.uint8)
+    return np.packbits(bits.reshape(arr.shape[0], -1), axis=1)  # zero-pads each row's last byte
+
+
+def coefficients_to_bytes(coeffs, bits_per_coeff: int, skip_lsbs: int = 0) -> bytes:
+    """coeffs: array of ints -> MSB-first bitstream of truncated coeffs."""
+    return coefficients_to_bytes_rows(np.asarray(coeffs)[None, :], bits_per_coeff, skip_lsbs)[0].tobytes()
 
 
 def bytes_to_coefficients_rows(

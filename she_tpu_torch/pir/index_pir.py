@@ -129,6 +129,58 @@ class ProcessedDatabase:
             for i in range(self.count)
         ]
 
+    SERIALIZATION_VERSION = 1
+
+    def serialize(self) -> bytes:
+        """she_tpu's v1 bytes: version, u32-LE count, then per plaintext a
+        tag (0 skipped, 1 present) and the present plaintext's packed rows
+        (IndexPirProtocol.swift:249-379). Rows are packed per modulus in one
+        numpy pass."""
+        ctx = self.context.ciphertext_context
+        present = np.flatnonzero(self.present)
+        vals = self.data[torch.from_numpy(present).to(self.data.device)].cpu().numpy()
+        body = np.concatenate(
+            [coeffio.coefficients_to_bytes_rows(vals[:, i], coeffio.ceil_log2(q)) for i, q in enumerate(ctx.moduli)],
+            axis=1,
+        )
+        out = [bytes([self.SERIALIZATION_VERSION]), self.count.to_bytes(4, "little")]
+        rows = iter(body)
+        for p in self.present:
+            out.append(b"\x01" + next(rows).tobytes() if p else b"\x00")
+        return b"".join(out)
+
+    @classmethod
+    def deserialize(cls, data: bytes, context) -> "ProcessedDatabase":
+        if data[0] != cls.SERIALIZATION_VERSION:
+            raise errors.PirError(f"bad serialization version {data[0]}")
+        count = int.from_bytes(data[1:5], "little")
+        ctx = context.ciphertext_context
+        widths = [coeffio.coefficients_to_bytes_byte_count(ctx.degree, coeffio.ceil_log2(q)) for q in ctx.moduli]
+        nbytes = sum(widths)
+        present = np.zeros(count, dtype=bool)
+        starts = []
+        offset = 5
+        for i in range(count):
+            tag = data[offset]
+            offset += 1
+            if tag == 1:
+                present[i] = True
+                starts.append(offset)
+                offset += nbytes
+            elif tag != 0:
+                raise errors.PirError(f"bad plaintext tag {tag}")
+        buf = np.frombuffer(data, dtype=np.uint8)
+        if offset > buf.size:
+            raise errors.SerializationError("buffer too short for processed database")
+        body = buf[np.asarray(starts, dtype=np.int64)[:, None] + np.arange(nbytes)]
+        vals = np.zeros((count, len(ctx.moduli), ctx.degree), dtype=np.int64)
+        col = 0
+        for i, (q, w) in enumerate(zip(ctx.moduli, widths)):
+            coeffs = coeffio.bytes_to_coefficients_rows(body[:, col : col + w], coeffio.ceil_log2(q), decode=False)
+            vals[present, i] = coeffs[:, : ctx.degree]
+            col += w
+        return cls(context, torch.from_numpy(vals).to(context.device), present)
+
 
 # ---------------------------------------------------------------------------
 # MulPIR parameter generation
@@ -459,30 +511,42 @@ class MulPirServer:
     def process(cls, database, context: bfv.BfvContext, parameter: IndexPirParameter) -> ProcessedDatabase:
         """database: a list of `bytes` entries, or a uint8 array
         [entry_count, entry_size] of equal-size entries. Entries are packed
-        with numpy and all plaintexts are encoded with one batched NTT."""
+        with numpy and all plaintexts are encoded with one batched NTT.
+
+        An entry that fits a plaintext shares it with its neighbours
+        (MulPir.swift _processPackEntries); a larger one is split into
+        chunk_count plaintext-sized pieces, and the database is stored
+        chunk-major, chunk k's plaintexts after chunk k-1's
+        (she_tpu's _process_split_large_entries). A plaintext of zeros is
+        marked not present."""
         if len(database) != parameter.entry_count:
             raise errors.PirError(f"{len(database)} entries, expected {parameter.entry_count}")
-        if chunk_count(parameter, context) > 1:
-            raise errors.PirError(
-                "entries larger than one plaintext are not supported by the port yet"
-            )
-        flat = _encoded_entries(database, parameter).reshape(-1)
+        entries = _encoded_entries(database, parameter)
         bpp = context.params.bytes_per_plaintext
-        entries_per_pt = bpp // parameter.encoded_entry_size
-        bytes_per_pt = entries_per_pt * parameter.encoded_entry_size
+        n_chunks = chunk_count(parameter, context)
         per_chunk = per_chunk_plaintext_count(parameter)
-        padded = np.zeros(per_chunk * bytes_per_pt, dtype=np.uint8)
-        padded[: flat.size] = flat
-        bits = coeffio.floor_log2(context.plaintext_modulus)
-        coeffs = coeffio.bytes_to_coefficients_rows(
-            padded.reshape(per_chunk, bytes_per_pt), bits, decode=False
-        )
-        rows = np.zeros((per_chunk, context.degree), dtype=np.int64)
-        rows[:, : coeffs.shape[1]] = coeffs
-        # reorder for sequential access at query time: plaintext k*R + s
-        # goes to position s*d0 + k (R = per_chunk / d0 columns)
+        if n_chunks == 1:
+            entries_per_pt = bpp // parameter.encoded_entry_size
+            bytes_per_pt = entries_per_pt * parameter.encoded_entry_size
+            flat = entries.reshape(-1)
+        else:
+            # entry i's piece k is bytes [k*bpp, (k+1)*bpp) of its encoding
+            bytes_per_pt = bpp
+            flat = np.zeros((entries.shape[0], n_chunks * bpp), dtype=np.uint8)
+            flat[:, : entries.shape[1]] = entries
+        padded = np.zeros((per_chunk * n_chunks * bytes_per_pt,), dtype=np.uint8)
+        padded[: flat.size] = flat.reshape(-1)
+        # [chunk, plaintext of the chunk, bytes]
+        pieces = padded.reshape(per_chunk, n_chunks, bytes_per_pt).transpose(1, 0, 2)
+        # reorder for sequential access at query time: within a chunk,
+        # plaintext k*R + s goes to position s*d0 + k (R = per_chunk / d0)
         d0 = parameter.dimensions[0]
-        rows = rows.reshape(d0, per_chunk // d0, -1).transpose(1, 0, 2).reshape(per_chunk, -1)
+        pieces = pieces.reshape(n_chunks, d0, per_chunk // d0, -1).transpose(0, 2, 1, 3)
+        pieces = pieces.reshape(n_chunks * per_chunk, bytes_per_pt)
+        bits = coeffio.floor_log2(context.plaintext_modulus)
+        coeffs = coeffio.bytes_to_coefficients_rows(pieces, bits, decode=False)
+        rows = np.zeros((n_chunks * per_chunk, context.degree), dtype=np.int64)
+        rows[:, : coeffs.shape[1]] = coeffs
         data = bfv.batch_encode_to_eval(context, rows)
         return ProcessedDatabase(context, data, rows.any(axis=1))
 

@@ -1,8 +1,10 @@
 """Polynomial samplers: uniform / ternary / centered binomial.
 
-A copy of she_tpu.rng.sampling with one change: samplers return int64
+A copy of she_tpu.rng.sampling with two changes: samplers return int64
 numpy arrays (every supported modulus is below 2^62) instead of object
-arrays, so the port uploads them to torch without a Python-int pass.
+arrays, so the port uploads them to torch without a Python-int pass; and
+`sample_uniform_many` draws the uniform polys of many seeds at once (a
+server expanding a batch of seeded ciphertexts).
 
 Byte-consumption order is bit-identical to the reference so that seeded
 uniform polynomials (ciphertext seed compression) interoperate
@@ -19,6 +21,24 @@ import math
 import numpy as np
 
 
+def _reduce_u128(data: np.ndarray, q: int) -> np.ndarray:
+    """uint8 [..., 16 n] little-endian u128s -> int64 [..., n] values mod q."""
+    if q < (1 << 32):
+        # exact u128 % q fully in uint64: MSB-first Horner over the four
+        # u32 limbs; r < q < 2^32 keeps r*2^32 + limb < 2^64.
+        limbs = np.ascontiguousarray(data).view("<u4").reshape(data.shape[:-1] + (-1, 4))
+        qv = np.uint64(q)
+        r = np.zeros(limbs.shape[:-1], dtype=np.uint64)
+        for j in (3, 2, 1, 0):
+            r = (r * np.uint64(1 << 32) + limbs[..., j].astype(np.uint64)) % qv
+        return r.astype(np.int64)
+    # u128 % q via two u64 halves (object big-int fallback)
+    u = np.ascontiguousarray(data).view("<u8").reshape(data.shape[:-1] + (-1, 2))
+    lo = u[..., 0].astype(object)
+    hi = u[..., 1].astype(object)
+    return ((hi * (1 << 64) + lo) % q).astype(np.int64)
+
+
 def sample_uniform(rng, moduli: list[int], degree: int) -> np.ndarray:
     """Uniform in [0, q_i) per RNS row.
 
@@ -28,28 +48,23 @@ def sample_uniform(rng, moduli: list[int], degree: int) -> np.ndarray:
     """
     chunk = min(degree, 1024)
     out = np.zeros((len(moduli), degree), dtype=np.int64)
-    radix = np.uint64(1 << 32)
     for rns_index, q in enumerate(moduli):
         for base in range(0, degree, chunk):
-            data = rng.random_bytes(chunk * 16)
-            if q < (1 << 32):
-                # exact u128 % q fully in uint64: MSB-first Horner over the
-                # four u32 limbs; r < q < 2^32 keeps r*2^32 + limb < 2^64.
-                limbs = np.frombuffer(data, dtype="<u4").reshape(chunk, 4)
-                qv = np.uint64(q)
-                r = np.zeros(chunk, dtype=np.uint64)
-                for j in (3, 2, 1, 0):
-                    r = (r * radix + limbs[:, j].astype(np.uint64)) % qv
-                out[rns_index, base : base + chunk] = r.astype(np.int64)
-            else:
-                # u128 % q via two u64 halves (object big-int fallback)
-                u = np.frombuffer(data, dtype="<u8").reshape(chunk, 2)
-                lo = u[:, 0].astype(object)
-                hi = u[:, 1].astype(object)
-                out[rns_index, base : base + chunk] = ((hi * (1 << 64) + lo) % q).astype(
-                    np.int64
-                )
+            data = np.frombuffer(rng.random_bytes(chunk * 16), dtype=np.uint8)
+            out[rns_index, base : base + chunk] = _reduce_u128(data, q)
     return out
+
+
+def sample_uniform_many(seeds: list, moduli: list[int], degree: int) -> np.ndarray:
+    """int64 [len(seeds), L, N]: sample_uniform(nist_aes128_ctr(seed)) for
+    every seed, with the generators run in lockstep. The requests of
+    sample_uniform read the buffered stream in order, so row i is bytes
+    [16 N i, 16 N (i + 1)) of the stream."""
+    from .ctr_drbg import nist_aes128_ctr_streams
+
+    stream = nist_aes128_ctr_streams(seeds, len(moduli) * degree * 16)
+    rows = stream.reshape(len(seeds), len(moduli), degree * 16)
+    return np.stack([_reduce_u128(rows[:, i], q) for i, q in enumerate(moduli)], axis=1)
 
 
 def sample_ternary(rng, moduli: list[int], degree: int) -> np.ndarray:
