@@ -32,8 +32,19 @@ of 1-byte values, 128 keyword queries per batch, through the wire format:
    profile one more; then serve 32 keywords whose 3,000-byte values take
    two plaintexts a bucket (large_value_path);
 6. at every shape a serving run launched a kernel with: hold the kernel
-   bit-equal to its plain version, and time both with CUDA events;
-7. print one JSON line with every kernel's numbers, and as the last line
+   bit-equal to its plain version, and time both with CUDA events; the
+   int8 dim-0 kernel (served by default on the w32 index and keyword
+   paths; the w64 path keeps the wide MAC, as she_tpu does) also against
+   the int64 MAC and a torch.bmm yardstick of its digit products, and once
+   at the w64 shape (8 digits);
+7. the PIR service (service_phase): the keyword cell's 1M-keyword
+   database behind PirService, a config request, an evaluation-key upload
+   and 8 PIR requests (one for an absent keyword) as protobuf bytes; then
+   Symmetric PIR (spir_phase): 512 keywords sealed through
+   process(..., symmetric_pir_config=...) and 16 lookups (2 absent)
+   through OPRF and PIR requests, each value unsealed with the port's
+   AES-GCM;
+8. print one JSON line with every kernel's numbers, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without the last line. Run from the repository
@@ -50,6 +61,7 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate (NVIDIA data sheet)
 ENTRY_COUNT = 1_000_000
 BATCH = 128
 # name -> (parameters, scalar bits, fresh queries per batch?): the w64 path
@@ -65,6 +77,9 @@ KEYWORD_COUNT = 1_000_000  # distinct 8-byte keywords, 1-byte values
 ABSENT_EVERY = 8  # one query in 8 asks for a keyword that is not in the table
 # the multi-chunk route: (keywords, value bytes, queries in one batch)
 LARGE_VALUES = (4096, 3000, 32)
+SERVICE_REQUESTS = 8  # PIR requests through the service, the last for an absent keyword
+SPIR = (512, 16, 2)  # Symmetric PIR: keywords sealed, lookups, of which absent
+DIM0_CUT_N = 64  # the n positions of the plain digit form's check at every served shape
 
 
 def log(msg: str) -> None:
@@ -107,7 +122,8 @@ def random_rows(moduli, shape, degree, seed):
 
 def ptxas_lines(name: str) -> list[str]:
     """ptxas -v's registers, spills and shared memory of the N=4096
-    instantiations of each kernel on both routes."""
+    instantiations of the NTT kernels on both routes, and of the dim-0
+    kernel."""
     import re
 
     from she_tpu_torch.ops import kernel_build
@@ -120,6 +136,8 @@ def ptxas_lines(name: str) -> list[str]:
         if m:
             word = "u32" if m.group(2) == "j" else "u64"
             label = f"{m.group(1)}<{word}, log2n={m.group(3)}>" if m.group(3) == "12" else None
+        elif "Compiling entry function" in line and "dim0_int8_kernel" in line:
+            label = "dim0_int8_kernel"
         elif label and ("Used" in line or "spill" in line):
             out.append(f"{label}: {line.strip()}")
     return out
@@ -130,6 +148,36 @@ def prod(shape) -> int:
     for d in shape:
         p *= d
     return p
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count and launch shapes, and the plain NTT's
+    count on CUDA tensors, set to 0: just before a path is driven."""
+    from she_tpu_torch.ops import dim0_cuda, ntt, ntt_cuda
+
+    ntt_cuda.reset_launches()
+    dim0_cuda.reset_launches()
+    for k in ntt.plain_calls_on_cuda:
+        ntt.plain_calls_on_cuda[k] = 0
+
+
+def read_counts(label: str, use_dim0_int8: bool) -> dict:
+    """The counts of the path just driven. Fails if a kernel of the path
+    never launched, if the int8 dim-0 kernel launched on a path that serves
+    the MAC form, or if the plain NTT ran on CUDA tensors."""
+    from she_tpu_torch.ops import dim0_cuda, ntt, ntt_cuda
+
+    launches = dict(ntt_cuda.launches) | dict(dim0_cuda.launches)
+    plain_on_cuda = dict(ntt.plain_calls_on_cuda)
+    path_kernels = ["ntt_forward", "ntt_inverse"] + (["dim0_int8"] if use_dim0_int8 else [])
+    if any(launches[k] == 0 for k in path_kernels):
+        raise AssertionError(f"[{label}] a kernel of the path never launched: {launches}")
+    if not use_dim0_int8 and launches["dim0_int8"]:
+        raise AssertionError(f"[{label}] the int8 dim-0 kernel ran on a MAC path: {launches}")
+    if any(plain_on_cuda.values()):
+        raise AssertionError(f"[{label}] the plain NTT ran on CUDA tensors: {plain_on_cuda}")
+    return dict(launches=launches, launch_shapes=dict(ntt_cuda.launch_shapes),
+                dim0_shapes=dict(dim0_cuda.launch_shapes))
 
 
 def kernel_bound_ms(shape, moduli, degree) -> float:
@@ -257,6 +305,119 @@ def shape_timing(path: str, launch_shapes, batches: int) -> dict:
     return out
 
 
+def random_residues(moduli, shape, degree, seed):
+    """int64 [*shape, L, N] uniform residues, drawn on the card."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    rows = [torch.randint(0, q, tuple(shape) + (degree,), generator=g, device="cuda") for q in moduli]
+    return torch.stack(rows, dim=-2)
+
+
+def dim0_bound(L, N, rows, d0, P, C, D) -> dict:
+    """The least time of one dim-0 launch: the bytes it must move (the
+    rows x d0 int8 digits of each (l, n), without the kernel's padding of
+    d0, the int64 query read once, the int64 result written once) over the
+    memory rate, and its int8 operations (2 D^2 C d0 P per (l, n)) over the
+    int8 tensor-core rate; the larger bounds it."""
+    nbytes = L * N * rows * d0 + d0 * P * L * N * 8 + C * P * L * N * 8
+    ops = 2 * D * D * C * d0 * P * L * N
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / INT8_OPS_PER_S
+    return dict(bytes=nbytes, operations=ops, bytes_ms=bytes_ms, operations_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def digit_bmm_ms(digits, query, D: int) -> float:
+    """The yardstick: the digit products alone as one torch.bmm over
+    float32 digit operands [L*N, C*D, d0] x [L*N, d0, P*D] with TF32 off
+    (every sum is an integer below 2^24, so float32 holds it exactly; held
+    equal to a float64 bmm on 64 of the (l, n) before it is timed). It
+    leaves out the digit split of the query and the recombination mod q."""
+    import torch
+
+    from she_tpu_torch.pir import serving
+
+    L, N, rows, _ = digits.shape
+    d0, P = query.shape[:2]
+    a = digits[..., :d0].reshape(L * N, rows, d0).float()
+    b = serving._query_digits(query, D).permute(1, 2, 3, 0, 4).reshape(L * N, d0, D * P).float()
+    previous = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = torch.bmm(a, b)
+        exact = torch.bmm(a[:64].double(), b[:64].double())
+        if not (torch.equal(out[:64].double(), exact) and float(exact.max()) < 2**24):
+            raise AssertionError("the float32 digit bmm is not exact")
+        del out, exact
+        return cuda_ms(lambda: torch.bmm(a, b), 5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = previous
+
+
+def dim0_case(label: str, moduli, C: int, d0: int, P: int, N: int, seed: int) -> dict:
+    """The int8 dim-0 kernel at one shape on random residues: equal to the
+    int64 / wide MAC (dim0_inner_products) bit for bit at the full shape
+    and to the plain digit form on the first DIM0_CUT_N n; then timed
+    (CUDA events: the kernel over 20 launches, the MAC over 3, the plain
+    digit form once) beside the digit-bmm yardstick and the bound."""
+    import torch
+
+    from she_tpu_torch.core.context import get_poly_context
+    from she_tpu_torch.ops import digits as dg
+    from she_tpu_torch.ops import dim0_cuda
+    from she_tpu_torch.pir import serving
+
+    D, L = dg.digit_count(moduli), len(moduli)
+    db = random_residues(moduli, (C, d0), N, seed)
+    query = random_residues(moduli, (d0, P), N, seed + 1)
+    ctx = get_poly_context(N, tuple(moduli), 64, db.device)
+    digits = serving.pack_database_chunk_digits(db, ctx)
+    got = dim0_cuda.dim0_int8(digits, query, ctx)
+    err_mac = int((got - serving.dim0_inner_products(db, query, ctx)).abs().max())
+    del got
+    cut = min(DIM0_CUT_N, N)
+    cut_digits = serving.pack_database_chunk_digits(db[..., :cut].contiguous(), ctx)
+    cut_query = query[..., :cut].contiguous()
+    err_plain = int((dim0_cuda.dim0_int8(cut_digits, cut_query, ctx)
+                     - serving.dim0_inner_products_int8(cut_digits, cut_query, ctx)).abs().max())
+    if err_mac or err_plain:
+        raise AssertionError(f"{label} dim0_int8 at C={C}, d0={d0}, P={P}, N={N}: max |kernel - MAC| = {err_mac}, "
+                             f"max |kernel - plain digit form| = {err_plain}")
+    ms = cuda_ms(lambda: dim0_cuda.dim0_int8(digits, query, ctx), 20)
+    mac_ms = cuda_ms(lambda: serving.dim0_inner_products(db, query, ctx), 3)
+    plain_ms = cuda_ms(lambda: serving.dim0_inner_products_int8(digits, query, ctx), 1)
+    library_ms = digit_bmm_ms(digits, query, D)
+    bound = dim0_bound(L, N, digits.shape[2], d0, P, C, D)
+    row = dict(path=label, digits_shape=list(digits.shape), query_shape=list(query.shape), moduli=list(moduli),
+               digits=D, C=C, d0=d0, P=P, max_abs_err=max(err_mac, err_plain), plain_check_n=cut, ms=ms,
+               mac_ms=mac_ms, plain_ms=plain_ms, library_ms=library_ms, **bound,
+               share_of_bound=bound["bound_ms"] / ms)
+    log(f"{label} dim0_int8 C={C} d0={d0} P={P} L={L} N={N} ({D} digits): equal to the MAC and (first {cut} n) "
+        f"to the plain digit form; kernel {ms:.4f} ms, MAC {mac_ms:.4f} ms, plain digit form {plain_ms:.4f} ms, "
+        f"digit bmm (float32, products only) {library_ms:.4f} ms; bound {bound['bound_ms']:.4f} ms by "
+        f"{bound['bound_by']} ({bound['bytes']} bytes, {bound['operations']} int8 operations), "
+        f"{100 * bound['bound_ms'] / ms:.1f}% of bound")
+    del db, query, digits, cut_digits, cut_query
+    torch.cuda.empty_cache()
+    return row
+
+
+def dim0_shape_timing(path: str, dim0_shapes, batches: int) -> list:
+    """dim0_case at every shape one path's serving run launched the int8
+    dim-0 kernel with."""
+    from she_tpu_torch.ops import digits as dg
+
+    out = []
+    for (digits_shape, query_shape, moduli), count in sorted(dim0_shapes.items(), key=lambda kv: -prod(kv[0][1])):
+        L, N, rows, _ = digits_shape
+        d0, P = query_shape[:2]
+        row = dim0_case(path, moduli, rows // dg.digit_count(moduli), d0, P, N, 60 + len(out))
+        row["launches_per_batch"] = count / batches
+        out.append(row)
+    return out
+
+
 def profile_batch(path: str, server, queries, ek) -> dict:
     """One more batch under torch.profiler: device time by kernel name,
     kernel count, and the device's idle share of the batch's wall time
@@ -282,17 +443,17 @@ def profile_batch(path: str, server, queries, ek) -> dict:
     busy_us = sum(by_name.values())
     if busy_us <= 0:
         raise AssertionError("the profiler saw no device work in the profiled batch")
-    ntt_ms = {k: sum(us for name, us in by_name.items() if f"{k}_kernel" in name) / 1e3
-              for k in ("ntt_forward", "ntt_inverse")}
+    kernel_ms = {k: sum(us for name, us in by_name.items() if f"{k}_kernel" in name) / 1e3
+                 for k in ("ntt_forward", "ntt_inverse", "dim0_int8")}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     log(f"[{path}] profiled batch: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
         f"idle share {1 - busy_us / wall_us:.3f}, {launches} device kernels and copies")
     for name, us in top:
         log(f"  {us / 1e3:9.3f} ms {100 * us / busy_us:5.1f}%  {name[:110]}")
-    log(f"[{path}]  NTT kernels in the profiled batch: {ntt_ms} ms, "
-        f"{100 * sum(ntt_ms.values()) * 1e3 / busy_us:.1f}% of device time")
+    log(f"[{path}]  the port's kernels in the profiled batch: {kernel_ms} ms, "
+        f"{100 * sum(kernel_ms.values()) * 1e3 / busy_us:.1f}% of device time")
     return dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3, idle_share=1 - busy_us / wall_us,
-                device_launches=launches, top_ms={k: v / 1e3 for k, v in top}, ntt_ms=ntt_ms)
+                device_launches=launches, top_ms={k: v / 1e3 for k, v in top}, kernel_ms=kernel_ms)
 
 
 def main_path(path: str, seed: int, batches: int) -> dict:
@@ -302,7 +463,6 @@ def main_path(path: str, seed: int, batches: int) -> dict:
 
     from she_tpu_torch import params as paramsmod
     from she_tpu_torch.bfv import bfv
-    from she_tpu_torch.ops import ntt, ntt_cuda
     from she_tpu_torch.pir import index_pir as ip
     from she_tpu_torch.pir import serving
     from she_tpu_torch.rng.ctr_drbg import nist_aes128_ctr
@@ -352,9 +512,7 @@ def main_path(path: str, seed: int, batches: int) -> dict:
         f"({'fresh queries in each batch' if fresh_queries else 'the same queries in each batch'})")
 
     # the main path, with the launch counts read around it
-    ntt_cuda.reset_launches()
-    for k in ntt.plain_calls_on_cuda:
-        ntt.plain_calls_on_cuda[k] = 0
+    reset_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     batch_s, all_responses = [], []
@@ -364,17 +522,14 @@ def main_path(path: str, seed: int, batches: int) -> dict:
         torch.cuda.synchronize()
         batch_s.append(time.perf_counter() - t0)
         all_responses.append(responses)
-    launches = dict(ntt_cuda.launches)
-    launch_shapes = dict(ntt_cuda.launch_shapes)
-    plain_on_cuda = dict(ntt.plain_calls_on_cuda)
+    counts = read_counts(path, server.use_dim0_int8)
+    launches = counts["launches"]
     peak = torch.cuda.max_memory_allocated()
     for i, s in enumerate(batch_s):
         log(f"[{path}] batch {i}: {s:.4f} s, {BATCH / s:.2f} queries/s")
-    if any(v == 0 for v in launches.values()):
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
-    if any(plain_on_cuda.values()):
-        raise AssertionError(f"the plain NTT ran on CUDA tensors: {plain_on_cuda}")
-    log(f"[{path}] NTT kernel launches over {batches} batches: {launches}; plain NTT on CUDA: {plain_on_cuda}")
+    log(f"[{path}] dim-0 form: {'int8 digits (dim0_int8 kernel)' if server.use_dim0_int8 else 'MAC'}; "
+        f"kernel launches over {batches} batches: {launches}, a batch: "
+        f"{ {k: v / batches for k, v in launches.items()} }; plain NTT on CUDA: none")
     log(f"[{path}] peak device memory during serving: {peak} bytes ({peak / 2**30:.3f} GiB)")
 
     t0 = time.perf_counter()
@@ -408,6 +563,9 @@ def main_path(path: str, seed: int, batches: int) -> dict:
     log(f"[{path}] batched response of query 0 is bit-identical to the per-query server's "
         f"({time.perf_counter() - t0:.3f} s)")
 
+    stages = stage_split(server, all_queries[0], ek, all_responses[0])
+    log(f"[{path}] device ms by stage (CUDA events, one batch): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
     steady = batch_s[1:] or batch_s
     profiled = profile_batch(path, server, all_queries[0], ek)
     # the profiler slows the host; against the unprofiled batch time the
@@ -416,13 +574,14 @@ def main_path(path: str, seed: int, batches: int) -> dict:
     log(f"[{path}] device idle share of the median unprofiled batch: {profiled['idle_share_of_steady_batch']:.3f}")
     return dict(
         path=path, params=params, scalar_bits=scalar_bits, fresh_queries=fresh_queries,
+        dim0_form="int8" if server.use_dim0_int8 else "mac", stages_ms=stages,
         profile=profiled, min_noise_budget=min_budget,
         process_s=process_s, batch_s=batch_s, first_batch_s=batch_s[0],
         median_s_per_batch=statistics.median(steady), max_s_per_batch=max(steady),
         steady_batches=len(steady), queries_per_s=BATCH / statistics.median(steady),
         peak_bytes=peak, launches=launches,
         launches_per_batch={k: v / batches for k, v in launches.items()},
-        launch_shapes=launch_shapes, batches=batches,
+        launch_shapes=counts["launch_shapes"], dim0_shapes=counts["dim0_shapes"], batches=batches,
     )
 
 
@@ -532,9 +691,11 @@ def stage_split(server, queries: list, ek, want: list) -> dict:
     return ms
 
 
-def keyword_path(seed: int, batches: int) -> dict:
+def keyword_path(seed: int, batches: int) -> tuple[dict, tuple]:
     """Keyword PIR as a user drives it: process_database, the client, the
-    wire, BatchedKeywordPirServer (cell keyword_1m_x_1B_w32_b128)."""
+    wire, BatchedKeywordPirServer (cell keyword_1m_x_1B_w32_b128). Returns
+    the path's numbers, and (context, processed database, rows, absent
+    keywords) for the service phase."""
     import random
 
     import numpy as np
@@ -543,7 +704,6 @@ def keyword_path(seed: int, batches: int) -> dict:
     from she_tpu_torch import params as paramsmod
     from she_tpu_torch.bfv import bfv
     from she_tpu_torch.io import serialize as ser
-    from she_tpu_torch.ops import ntt, ntt_cuda
     from she_tpu_torch.pir import index_pir as ip
     from she_tpu_torch.pir import keyword_pir as kp
     from she_tpu_torch.pir import process_database as pd
@@ -609,9 +769,7 @@ def keyword_path(seed: int, batches: int) -> dict:
         f"({query_bytes} bytes each, seeded)")
 
     # the main path, with the launch counts read around it
-    ntt_cuda.reset_launches()
-    for k in ntt.plain_calls_on_cuda:
-        ntt.plain_calls_on_cuda[k] = 0
+    reset_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     served, batch_s, wire_in_s, wire_out_s, segments = [], [], [], [], []
@@ -627,20 +785,17 @@ def keyword_path(seed: int, batches: int) -> dict:
         batch_s.append(s_s)
         wire_in_s.append(d_s)
         wire_out_s.append(o_s)
-    launches = dict(ntt_cuda.launches)
-    launch_shapes = dict(ntt_cuda.launch_shapes)
-    plain_on_cuda = dict(ntt.plain_calls_on_cuda)
+    use_int8 = server.index_server.use_dim0_int8
+    counts = read_counts(label, use_int8)
+    launches = counts["launches"]
     peak = torch.cuda.max_memory_allocated()
     for i in range(batches):
         log(f"[{label}] batch {i}: served in {batch_s[i]:.4f} s ({BATCH / batch_s[i]:.2f} keyword queries/s); "
             f"wire: {wire_in_s[i]:.4f} s to read {BATCH} queries, {wire_out_s[i]:.4f} s to write the answers; "
             f"allocator: {segments[i]}")
-    if any(v == 0 for v in launches.values()):
-        raise AssertionError(f"a kernel of the keyword path never launched: {launches}")
-    if any(plain_on_cuda.values()):
-        raise AssertionError(f"the plain NTT ran on CUDA tensors: {plain_on_cuda}")
-    log(f"[{label}] NTT kernel launches over {batches} batches (wire included): {launches}; "
-        f"plain NTT on CUDA: {plain_on_cuda}")
+    log(f"[{label}] dim-0 form: {'int8 digits (dim0_int8 kernel)' if use_int8 else 'MAC'}; kernel launches "
+        f"over {batches} batches (wire included): {launches}, a batch: "
+        f"{ {k: v / batches for k, v in launches.items()} }; plain NTT on CUDA: none")
     log(f"[{label}] peak device memory during serving: {peak} bytes ({peak / 2**30:.3f} GiB)")
 
     t0 = time.perf_counter()
@@ -704,9 +859,10 @@ def keyword_path(seed: int, batches: int) -> dict:
         steady_batches=len(steady), queries_per_s=BATCH / statistics.median(steady), wire_in_s=wire_in_s,
         wire_out_s=wire_out_s, wire_s_per_batch=statistics.median(wire_s), stream_s=stream_s, segments=segments,
         stages_ms=stages, profile=profiled, min_noise_budget=min_budget, peak_bytes=peak, launches=launches,
-        launches_per_batch={k: v / batches for k, v in launches.items()}, launch_shapes=launch_shapes,
-        batches=batches, absent_queries=n_absent,
-    )
+        launches_per_batch={k: v / batches for k, v in launches.items()}, launch_shapes=counts["launch_shapes"],
+        dim0_shapes=counts["dim0_shapes"], dim0_form="int8" if use_int8 else "mac", batches=batches,
+        absent_queries=n_absent,
+    ), (ctx, processed, rows, absent)
 
 
 def large_value_path(seed: int) -> dict:
@@ -720,7 +876,6 @@ def large_value_path(seed: int) -> dict:
 
     from she_tpu_torch import params as paramsmod
     from she_tpu_torch.bfv import bfv
-    from she_tpu_torch.ops import ntt, ntt_cuda
     from she_tpu_torch.pir import index_pir as ip
     from she_tpu_torch.pir import keyword_pir as kp
     from she_tpu_torch.pir import serving
@@ -750,18 +905,14 @@ def large_value_path(seed: int) -> dict:
     keywords = [names[int(i)] for i in rng.choice(count, size=n_queries, replace=False)]
     queries = [client.generate_query(kw, sk) for kw in keywords]
     server = serving.BatchedKeywordPirServer(ctx, processed)
-    ntt_cuda.reset_launches()
-    for k in ntt.plain_calls_on_cuda:
-        ntt.plain_calls_on_cuda[k] = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     responses = server.compute_response_batch(queries, ek)
     torch.cuda.synchronize()
     batch_s = time.perf_counter() - t0
-    launches = dict(ntt_cuda.launches)
-    launch_shapes = dict(ntt_cuda.launch_shapes)
-    if any(v == 0 for v in launches.values()) or any(ntt.plain_calls_on_cuda.values()):
-        raise AssertionError(f"[{label}] launches {launches}, plain NTT on CUDA {ntt.plain_calls_on_cuda}")
+    counts = read_counts(label, server.index_server.use_dim0_int8)
+    launches = counts["launches"]
     for kw, response in zip(keywords, responses):
         if client.decrypt(response, kw, sk) != rows[kw]:
             raise AssertionError(f"[{label}] keyword {kw.hex()} did not decrypt to its value")
@@ -770,10 +921,208 @@ def large_value_path(seed: int) -> dict:
     log(f"[{label}] {count} keywords x {value_size} bytes: buckets of at most {parameter.entry_size_in_bytes} "
         f"bytes in {chunks} plaintexts each, dims {parameter.dimensions}, processed in {process_s:.3f} s; "
         f"{n_queries} queries served in one batch in {batch_s:.4f} s; every value came back; query 0's "
-        f"answer equals the per-query server's; NTT launches {launches}")
+        f"answer equals the per-query server's; kernel launches {launches}")
     return dict(path=label, keywords=count, value_size=value_size, queries=n_queries, chunks=chunks,
                 dimensions=list(parameter.dimensions), process_s=process_s, batch_s=batch_s,
-                launches=launches, launch_shapes=launch_shapes, batches=1)
+                launches=launches, launch_shapes=counts["launch_shapes"], dim0_shapes=counts["dim0_shapes"],
+                batches=1)
+
+
+def _serve_request(service, usecase: str, request) -> tuple[bytes, float]:
+    """The server's side of one PIR request: bytes in, bytes out, and the
+    seconds it took (ending in a synchronize)."""
+    import torch
+
+    from she_tpu_torch.io import pb
+
+    t0 = time.perf_counter()
+    parsed = pb.api_pir_pb2.PIRRequest.FromString(request.SerializeToString())
+    answer = service.handle_pir_request(usecase, parsed).SerializeToString()
+    torch.cuda.synchronize()
+    return answer, time.perf_counter() - t0
+
+
+def _upload_keys(service, ctx, ek, identifier: bytes) -> int:
+    """The client's evaluation key through an EvaluationKeys message, as
+    bytes; returns their size."""
+    from she_tpu_torch.io import pb
+    from she_tpu_torch.io import proto_conversion as pc
+
+    keys = pb.api_shared_pb2.EvaluationKeys()
+    entry = keys.keys.add()
+    entry.metadata.timestamp = 1
+    entry.metadata.identifier = identifier
+    entry.evaluation_key.CopyFrom(pc.evaluation_key_to_proto(ek))
+    raw = keys.SerializeToString()
+    service.store_evaluation_keys(pb.api_shared_pb2.EvaluationKeys.FromString(raw), ctx)
+    return len(raw)
+
+
+def _pir_request(query, config_id: bytes, shard_id: str, identifier: bytes):
+    from she_tpu_torch.io import pb
+    from she_tpu_torch.io import proto_conversion as pc
+
+    request = pb.api_pir_pb2.PIRRequest()
+    request.query.CopyFrom(pc.pir_query_to_proto(query))
+    request.evaluation_key_metadata.identifier = identifier
+    request.configuration_hash = config_id
+    request.shard_id = shard_id
+    return request
+
+
+def _read_response(ctx, answer: bytes):
+    from she_tpu_torch.io import pb
+    from she_tpu_torch.io import proto_conversion as pc
+
+    return pc.pir_response_from_proto(list(pb.api_pir_pb2.PIRResponse.FromString(answer).replies), ctx)
+
+
+def service_phase(ctx, processed, rows: dict, absent: list, seed: int) -> dict:
+    """The keyword cell's processed 1M-keyword database behind PirService,
+    driven as a client of the protobuf envelope: a ConfigRequest, an
+    EvaluationKeys upload and SERVICE_REQUESTS PIRRequests (the last for an
+    absent keyword), each sent and answered as bytes; every answer is
+    decrypted and checked. The service answers on the per-query
+    KeywordPirServer, as she_tpu's does."""
+    import numpy as np
+    import torch
+
+    from she_tpu_torch.bfv import bfv
+    from she_tpu_torch.io import pb
+    from she_tpu_torch.pir import keyword_pir as kp
+    from she_tpu_torch.pir import service as svc
+    from she_tpu_torch.rng.ctr_drbg import nist_aes128_ctr
+
+    label = "service"
+    service = svc.PirService()
+    service.add_keyword_pir_usecase(KEYWORD_CELL, ctx, processed)
+    request = pb.api_pb2.ConfigRequest()
+    request.usecases.append(KEYWORD_CELL)
+    config_bytes = service.handle_config_request(
+        pb.api_pb2.ConfigRequest.FromString(request.SerializeToString())).SerializeToString()
+    config = pb.api_pb2.ConfigResponse.FromString(config_bytes).configs[KEYWORD_CELL]
+    shard_config = config.pir_config.shard_configs[0]
+    shard = processed.shards[shard_config.shard_id]
+    if (list(shard_config.dimensions), shard_config.num_entries, shard_config.entry_size) != (
+            list(shard.pir_parameter.dimensions), shard.pir_parameter.entry_count,
+            shard.pir_parameter.entry_size_in_bytes):
+        raise AssertionError(f"[{label}] the served config does not describe the shard: {shard_config}")
+    sk = bfv.generate_secret_key(ctx, nist_aes128_ctr((seed + 7).to_bytes(4, "little") * 8))
+    client = kp.KeywordPirClient(shard.keyword_pir_parameter, shard.pir_parameter, ctx)
+    ek = client.generate_evaluation_key(sk, nist_aes128_ctr(b"service-evaluation-key-err-seed!"))
+    key_bytes = _upload_keys(service, ctx, ek, b"client-1")
+    rng = np.random.default_rng(seed + 8)
+    present = list(rows)
+    keywords = [present[int(i)] for i in rng.integers(0, len(present), size=SERVICE_REQUESTS - 1)] + [absent[0]]
+    reset_counts()
+    torch.cuda.synchronize()
+    request_s, answer_bytes = [], 0
+    for kw in keywords:
+        shard_id = str(processed.shards[shard_config.shard_id].keyword_pir_parameter.sharding_function.shard_index(
+            kw, len(processed.shards)))
+        request = _pir_request(client.generate_query(kw, sk), bytes(config.config_id), shard_id, b"client-1")
+        answer, seconds = _serve_request(service, KEYWORD_CELL, request)
+        request_s.append(seconds)
+        answer_bytes = len(answer)
+        got = client.decrypt(_read_response(ctx, answer), kw, sk)
+        if got != rows.get(kw):
+            raise AssertionError(f"[{label}] keyword {kw.hex()} came back as {got!r}, expected {rows.get(kw)!r}")
+    counts = read_counts(label, False)
+    log(f"[{label}] PirService over the {len(rows)}-keyword database: config {len(config_bytes)} bytes, "
+        f"evaluation keys {key_bytes} bytes; {len(keywords)} PIR requests as bytes ({len(keywords) - 1} present "
+        f"keywords gave their values, 1 absent gave None; {answer_bytes} bytes an answer); seconds a request "
+        f"(parse, serve, serialize): {[round(x, 4) for x in request_s]}, median {statistics.median(request_s):.4f} s; "
+        f"kernel launches {counts['launches']}")
+    return dict(path=label, requests=len(keywords), request_s=request_s, median_request_s=statistics.median(request_s),
+                config_bytes=len(config_bytes), evaluation_key_bytes=key_bytes, answer_bytes=answer_bytes,
+                launches=counts["launches"], launch_shapes=counts["launch_shapes"],
+                dim0_shapes=counts["dim0_shapes"], batches=1)
+
+
+def keyword_and_service(seed: int, batches: int) -> dict:
+    """The keyword cell, then the service phase over its processed
+    database (freed once both are done)."""
+    keyword, state = keyword_path(seed, batches)
+    return {"keyword": keyword, "service": service_phase(*state, seed)}
+
+
+def spir_phase(seed: int) -> dict:
+    """Symmetric PIR, a check phase: SPIR[0] keywords sealed through
+    process(..., symmetric_pir_config=...) (one pure-Python OPRF evaluation
+    a row, so not at the cell's million), then SPIR[1] lookups (SPIR[2]
+    absent) through PirService: an OPRFRequest for the oblivious keyword
+    and the entry key, then a PIRRequest for the oblivious keyword; each
+    value is unsealed with the port's AES-GCM and checked."""
+    import hashlib
+    import random
+
+    import torch
+
+    from she_tpu_torch import params as paramsmod
+    from she_tpu_torch.bfv import bfv
+    from she_tpu_torch.io import pb
+    from she_tpu_torch.pir import keyword_pir as kp
+    from she_tpu_torch.pir import oprf
+    from she_tpu_torch.pir import process_database as pd
+    from she_tpu_torch.pir import service as svc
+    from she_tpu_torch.pir import symmetric_pir as spir
+    from she_tpu_torch.rng.ctr_drbg import nist_aes128_ctr
+
+    label = "spir"
+    count, lookups, n_absent = SPIR
+    ep = paramsmod.from_predefined(PARAMS, scalar_bits=32)
+    ctx = bfv.get_bfv_context(ep)
+    rows, absent = keyword_rows(seed + 9, count, 1, n_absent)
+    spir_config = spir.SymmetricPirConfig(bytes(16) + hashlib.sha256(b"oprf key %d" % seed).digest())
+    sealed_size = 1 + spir_config.config_type.tag_size
+    bucket_size = kp.default_max_serialized_bucket_size(sealed_size, ep.bytes_per_plaintext)
+    config = kp.KeywordPirConfig(2, kp.CuckooTableConfig.default_keyword_pir(bucket_size))
+    arguments = pd.Arguments(pd.KeywordDatabaseConfig(kp.Sharding("shardCount", 1), config), ep,
+                             symmetric_pir_config=spir_config)
+    t0 = time.perf_counter()
+    processed = pd.process(rows, arguments, rng=random.Random(seed))
+    torch.cuda.synchronize()
+    process_s = time.perf_counter() - t0
+    service = svc.PirService()
+    service.add_keyword_pir_usecase(label, ctx, processed)
+    service.add_oprf_usecase(b"spir-oprf", spir_config)
+    config_id = bytes(service.handle_config_request(pb.api_pb2.ConfigRequest()).configs[label].config_id)
+    shard = processed.shards["0"]
+    oprf_client = spir.OprfClient(spir_config.client_config())
+    sk = bfv.generate_secret_key(ctx, nist_aes128_ctr((seed + 10).to_bytes(4, "little") * 8))
+    client = kp.KeywordPirClient(shard.keyword_pir_parameter, shard.pir_parameter, ctx)
+    _upload_keys(service, ctx, client.generate_evaluation_key(sk, nist_aes128_ctr(b"spir-evaluation-key-err-seed-32!")),
+                 b"spir-client")
+    keywords = list(rows)[: lookups - n_absent] + absent[:n_absent]
+    reset_counts()
+    torch.cuda.synchronize()
+    oprf_s, pir_s = [], []
+    for kw in keywords:
+        t0 = time.perf_counter()
+        blinded = oprf_client.query_context(kw)
+        request = pb.api_pir_pb2.OPRFRequest(query_element=blinded.query, config_id=b"spir-oprf")
+        raw = service.handle_oprf_request(
+            pb.api_pir_pb2.OPRFRequest.FromString(request.SerializeToString())).SerializeToString()
+        response = pb.api_pir_pb2.OPRFResponse.FromString(raw)
+        parsed = oprf_client.parse(oprf.BlindEvaluation(bytes(response.evaluated_element), bytes(response.proof)),
+                                   blinded)
+        oprf_s.append(time.perf_counter() - t0)
+        query = client.generate_query(parsed.oblivious_keyword, sk)
+        answer, seconds = _serve_request(service, label, _pir_request(query, config_id, "0", b"spir-client"))
+        pir_s.append(seconds)
+        sealed = client.decrypt(_read_response(ctx, answer), parsed.oblivious_keyword, sk)
+        got = None if sealed is None else oprf_client.decrypt(sealed, parsed)
+        if got != rows.get(kw):
+            raise AssertionError(f"[{label}] keyword {kw.hex()} came back as {got!r}, expected {rows.get(kw)!r}")
+    counts = read_counts(label, False)
+    log(f"[{label}] {count} keywords sealed (OPRF P-384 + AES-192-GCM) and processed in {process_s:.3f} s "
+        f"({1e3 * process_s / count:.1f} ms a row); {len(keywords)} lookups ({n_absent} absent): every present "
+        f"value unsealed to its value, every absent keyword gave None; OPRF round trip median "
+        f"{statistics.median(oprf_s):.4f} s, PIR request median {statistics.median(pir_s):.4f} s; "
+        f"kernel launches {counts['launches']}")
+    return dict(path=label, keywords=count, lookups=len(keywords), absent=n_absent, process_s=process_s,
+                oprf_s=oprf_s, pir_request_s=pir_s, launches=counts["launches"],
+                launch_shapes=counts["launch_shapes"], dim0_shapes=counts["dim0_shapes"], batches=1)
 
 
 def run(args) -> int:
@@ -785,6 +1134,7 @@ def run(args) -> int:
     card = card_line()
     log(f"card: {card}")
 
+    from she_tpu_torch import params as paramsmod
     from she_tpu_torch.ops import kernel_build
 
     t0 = time.perf_counter()
@@ -795,15 +1145,22 @@ def run(args) -> int:
             log(f"  {name}: {line}")
 
     checked = kernel_phase(args.seed)
-    paths, shapes = {}, {"ntt_forward": [], "ntt_inverse": []}
-    phases = [(path, lambda path=path: main_path(path, args.seed, args.batches)) for path in PATHS]
-    phases += [("keyword", lambda: keyword_path(args.seed, args.batches)),
-               ("keyword_large", lambda: large_value_path(args.seed))]
-    for path, drive in phases:
-        paths[path] = drive()
-        for name, rows in shape_timing(path, paths[path]["launch_shapes"], paths[path]["batches"]).items():
-            shapes[name].extend(rows)
+    paths, shapes, dim0_rows = {}, {"ntt_forward": [], "ntt_inverse": []}, []
+    # each phase returns its paths' results by name
+    phases = [lambda path=path: {path: main_path(path, args.seed, args.batches)} for path in PATHS]
+    phases += [lambda: keyword_and_service(args.seed, args.batches),
+               lambda: {"keyword_large": large_value_path(args.seed)},
+               lambda: {"spir": spir_phase(args.seed)}]
+    for drive in phases:
+        for path, result in drive().items():
+            paths[path] = result
+            for name, rows in shape_timing(path, result["launch_shapes"], result["batches"]).items():
+                shapes[name].extend(rows)
+            dim0_rows += dim0_shape_timing(path, result["dim0_shapes"], result["batches"])
         torch.cuda.empty_cache()
+    # the int8 form once at the w64 path's dim-0 shape (8 digits), which serves the MAC
+    w64_moduli = paramsmod.from_predefined(PATHS["w64"][0], scalar_bits=64).coefficient_moduli[:-1]
+    w64_check = dim0_case("w64_check", w64_moduli, 4, 11, 2 * BATCH, 8192, 90)
 
     kernels = []
     for name, line in (("ntt_forward", 217), ("ntt_inverse", 261)):
@@ -818,9 +1175,27 @@ def run(args) -> int:
             launches_by_path={p: v["launches"][name] for p, v in paths.items()},
             shapes=shapes[name], route64=checked["route64"][name],
         ))
+    if not dim0_rows:
+        raise AssertionError("no served path launched the int8 dim-0 kernel")
+    widest = max(dim0_rows, key=lambda r: r["bytes"])
+    kernels.append(dict(
+        name="dim0_int8", route="cuda", source="she_tpu_torch/csrc/dim0_int8.cu",
+        replaces="she_tpu/pir/serving.py:222",
+        launches=sum(p["launches"]["dim0_int8"] for p in paths.values()),
+        max_abs_err=max(r["max_abs_err"] for r in dim0_rows + [w64_check]),
+        ms=widest["ms"], plain_ms=widest["plain_ms"], bound_ms=widest["bound_ms"], bound_by=widest["bound_by"],
+        library_ms=widest["library_ms"],
+        library="torch.bmm, float32 digit operands, TF32 off: the digit products only",
+        mac_ms=widest["mac_ms"], widest_path=widest["path"], widest_digits_shape=widest["digits_shape"],
+        widest_query_shape=widest["query_shape"],
+        launches_by_path={p: v["launches"]["dim0_int8"] for p, v in paths.items()},
+        shapes=dim0_rows, w64_check=w64_check,
+    ))
     for p in paths.values():
         p["launch_shapes"] = [dict(name=k[0], shape=list(k[1]), moduli=list(k[2]), launches=v)
                               for k, v in p["launch_shapes"].items()]
+        p["dim0_shapes"] = [dict(digits_shape=list(k[0]), query_shape=list(k[1]), moduli=list(k[2]), launches=v)
+                            for k, v in p["dim0_shapes"].items()]
     summary = dict(card=card, device=torch.cuda.get_device_name(0), kernel_build_s=built,
                    kernels=kernels, paths=paths)
     if args.json_out:
@@ -845,6 +1220,15 @@ def run(args) -> int:
     q = paths["keyword_large"]
     log(f"keyword_large: {q['keywords']} keywords x {q['value_size']} bytes, {q['chunks']} plaintexts a bucket, "
         f"{q['queries']} queries in {q['batch_s']:.4f} s, on {card}")
+    v = paths["service"]
+    log(f"service: {v['requests']} PIR requests over {KEYWORD_CELL}, median {v['median_request_s']:.4f} s a "
+        f"request, on {card}")
+    v = paths["spir"]
+    log(f"spir: {v['keywords']} keywords sealed in {v['process_s']:.3f} s, {v['lookups']} lookups, on {card}")
+    log(f"dim0_int8 at the widest served shape ({widest['path']}, digits {widest['digits_shape']}, query "
+        f"{widest['query_shape']}): {widest['ms']:.4f} ms against a bound of {widest['bound_ms']:.4f} ms "
+        f"({100 * widest['share_of_bound']:.1f}%), MAC {widest['mac_ms']:.4f} ms, digit bmm "
+        f"{widest['library_ms']:.4f} ms; launches by path {kernels[-1]['launches_by_path']}, on {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

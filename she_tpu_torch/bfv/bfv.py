@@ -103,12 +103,43 @@ class BfvContext:
 # ---------------------------------------------------------------------------
 
 
-@dataclass
 class SecretKey:
     """Ternary secret stored in Eval over the secret-key context
-    (reference Bfv+Keys.swift:20-26)."""
+    (reference Bfv+Keys.swift:20-26).
 
-    poly: PolyRq  # eval, [L_all, N]
+    Lifecycle (she_tpu bfv/bfv.py:137-185; the reference zeroizes key
+    material on deinit, Keys.swift:19-50): `zeroize()` overwrites the key's
+    own storage with zeros in place, on the card or on the host, and drops
+    it; any use after that raises. Also a context manager
+    (`with generate_secret_key(ctx) as sk: ...`), and zeroized as a
+    best-effort fallback when garbage-collected."""
+
+    def __init__(self, poly: PolyRq):
+        self._poly = poly  # eval, [L_all, N]
+
+    @property
+    def poly(self) -> PolyRq:
+        if self._poly is None:
+            raise errors.InvalidArgument("the secret key was zeroized")
+        return self._poly
+
+    def zeroize(self) -> None:
+        poly, self._poly = getattr(self, "_poly", None), None
+        if poly is not None:
+            poly.data.zero_()
+
+    def __enter__(self) -> "SecretKey":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.zeroize()
+        return False
+
+    def __del__(self):  # best-effort deinit scrub, as in the reference
+        try:
+            self.zeroize()
+        except Exception:
+            pass
 
 
 @dataclass

@@ -15,8 +15,13 @@ contract it keeps, bit-identical responses, is this module's.
   batched Galois + key switch over a [nodes * queries, 2, L, N] tensor
   held in a slot pool [slots, queries, 2, L, N].
 * Dim-0 ct-pt inner products for all columns at once against the database
-  chunk packed on the device as [C, d0, L, N], a lazy MAC streamed over d0
-  (the [C, d0, 2B, L, N] product is never materialized): int64 at w32,
+  chunk packed on the device, in one of two forms. The int8 digit form
+  (dim0_int8, the default on a CUDA card at 32-bit scalars, as she_tpu
+  serves its MXU form on an accelerator at w32):
+  base-2^7 digits, int8 x int8 -> int32 digit dots, recombined mod q; on
+  the card it is the kernel of csrc/dim0_int8.cu. The MAC form
+  (dim0_inner_products, the default otherwise): a lazy MAC streamed over
+  d0 (the [C, d0, 2B, L, N] product is never materialized), int64 at w32,
   (hi, lo) pairs at w64 (she_tpu's _dim0_inner_products_w64).
 * Higher dimensions: BEHZ ct-ct inner products and relinearization over
   [queries, d, ...] tensors, then the mod switch down to one modulus.
@@ -38,6 +43,8 @@ from .. import errors
 from ..bfv import bfv
 from ..core.poly import COEFF, EVAL
 from ..io import coeffs as coeffio
+from ..ops import digits as dg
+from ..ops import dim0_cuda
 from ..ops import modarith as ma
 from . import index_pir as ip
 from . import keyword_pir as kp
@@ -170,24 +177,92 @@ def dim0_inner_products(db_chunk: torch.Tensor, query_eval: torch.Tensor, ct_ctx
     return ma.sum_products_mod(terms, ct_ctx.q_col, ct_ctx.max_signed_lazy_product_count())
 
 
+def pack_database_chunk_digits(chunk: torch.Tensor, ct_ctx) -> torch.Tensor:
+    """[C, d0, L, N] int64 chunk -> int8 digits [L, N, D * C, K] on the
+    chunk's device, made once per chunk: row i * C + c holds digit i of
+    column c, and the d0 axis is zero-padded to K, a multiple of the
+    kernel's MMA depth (she_tpu serving.py:189 lays the same digits out
+    as [D, L, N, C, d0])."""
+    D = dg.digit_count(ct_ctx.moduli)
+    C, d0, L, N = chunk.shape
+    out = torch.zeros((L, N, D * C, dim0_cuda.padded_depth(d0)), dtype=torch.int8, device=chunk.device)
+    digit_view = out[..., :d0].view(L, N, D, C, d0)
+    for i, dig in enumerate(dg.value_digits(chunk, D)):
+        digit_view[:, :, i] = dig.permute(2, 3, 0, 1)
+    return out
+
+
+def _query_digits(query_eval: torch.Tensor, D: int) -> torch.Tensor:
+    """query_eval [d0, P, L, N] int64 -> int8 [D, L, N, d0, P]
+    (she_tpu serving.py:206)."""
+    return torch.stack(dg.value_digits(query_eval, D)).permute(0, 3, 4, 1, 2)
+
+
+def dim0_inner_products_int8(db_digits: torch.Tensor, query_eval: torch.Tensor, ct_ctx) -> torch.Tensor:
+    """The int8 digit form of dim0_inner_products, in plain PyTorch
+    (she_tpu serving.py:222 dim0_inner_products_mxu): db_digits
+    [L, N, D * C, K] int8 (pack_database_chunk_digits); query_eval
+    [d0, P, L, N] int64 in [0, q) -> [C, P, L, N] in [0, q), equal bit for
+    bit to dim0_inner_products.
+
+    Every residue is D base-2^7 digits; the D x D digit products of each
+    (l, n) are [C, d0] x [d0, P] dot products with int32 sums, streamed
+    over d0 (integer matmuls do not run on CUDA, and the whole product
+    would not fit on the card), summed by digit weight i + j into 2D - 1
+    partials and recombined mod q."""
+    D = dg.digit_count(ct_ctx.moduli)
+    d0, P, L, N = query_eval.shape
+    C = db_digits.shape[2] // D
+    dg.assert_int32_partial_bound(d0, D)
+    a = db_digits[..., :d0].reshape(L, N, D, C, d0).permute(2, 0, 1, 3, 4)  # [D, L, N, C, d0]
+    b = _query_digits(query_eval, D)  # [D, L, N, d0, P]
+    acc = torch.zeros((D, D, L, N, C, P), dtype=torch.int32, device=query_eval.device)
+    for j in range(d0):
+        acc += a[:, None, :, :, :, j, None].to(torch.int32) * b[None, :, :, :, j, None, :].to(torch.int32)
+    partials = [
+        sum(acc[i, k - i] for i in range(max(0, k - D + 1), min(k, D - 1) + 1)).permute(2, 3, 0, 1)
+        for k in range(2 * D - 1)
+    ]  # each [C, P, L, N]
+    return dg.recombine_partials(partials, ct_ctx.q_col)
+
+
+def dim0_int8(db_digits: torch.Tensor, query_eval: torch.Tensor, ct_ctx) -> torch.Tensor:
+    """The int8 digit form on the data's device: the CUDA kernel
+    (ops/dim0_cuda.py) for CUDA tensors, the plain form for CPU ones."""
+    if query_eval.device.type == "cuda":
+        return dim0_cuda.dim0_int8(db_digits, query_eval.contiguous(), ct_ctx)
+    if query_eval.device.type == "cpu":
+        return dim0_inner_products_int8(db_digits, query_eval, ct_ctx)
+    raise ValueError(f"no int8 dim-0 for device {query_eval.device}")
+
+
 class BatchedMulPirServer:
     """Serves whole query batches with batched tensor ops (32- or 64-bit
     scalars).
 
     The database is packed on the context's device once, as one
-    [C, d0, L, N] view per chunk of each database (no copy). A batch runs
+    [C, d0, L, N] view per chunk of each database (no copy), and, with the
+    int8 form of dim-0, as the chunk's digits (pack_database_chunk_digits).
+    `use_dim0_int8` picks the form of dim-0: None takes she_tpu's choice
+    (serving.py:773-779), the int8 form when the context's device is a
+    CUDA card and its scalars are 32-bit (the w32 route, every modulus
+    below 2^30), the MAC form otherwise; True or False forces one, for
+    tests and kernel checks. A batch runs
     four stages: `expand`, then per query index and chunk `dim0` (after
     `dim0_query`), `fold_dimensions` and `mod_switch`. A caller may pass
     `on_stage`, called with each stage's name once its work is issued
     ("stack", "expand", "dim0", "fold_dimensions", "mod_switch"), to mark
     the stages on the device's queue."""
 
-    def __init__(self, parameter: ip.IndexPirParameter, context, databases: list):
+    def __init__(self, parameter: ip.IndexPirParameter, context, databases: list, use_dim0_int8=None):
         self.parameter = parameter
         self.context = context
         self.ct_ctx = context.ciphertext_context
         d0 = parameter.dimensions[0]
         n_chunks = ip.chunk_count(parameter, context)
+        if use_dim0_int8 is None:
+            use_dim0_int8 = context.device.type == "cuda" and self.ct_ctx.scalar_bits == 32
+        self.use_dim0_int8 = use_dim0_int8
         self.chunks = []  # per database, per chunk: [C, d0, L, N] on the device
         for db in databases:
             per_chunk = db.count // n_chunks
@@ -198,6 +273,11 @@ class BatchedMulPirServer:
                     for s in range(0, db.count, per_chunk)
                 ]
             )
+        # per database, per chunk: [L, N, D * C, K] int8 digits on the device
+        self.chunk_digits = [
+            [pack_database_chunk_digits(chunk, self.ct_ctx) for chunk in chunks] if use_dim0_int8 else []
+            for chunks in self.chunks
+        ]
 
     @staticmethod
     def stack_queries(queries: list) -> tuple[list, int, int]:
@@ -252,8 +332,8 @@ class BatchedMulPirServer:
         """expanded: [per_query, B, 2, L, N] Coeff -> per chunk [B, 2, 1, N]."""
         query_eval, rest = self.dim0_query(expanded)
         reply = []
-        for chunk in self.chunks[db_index]:
-            columns = self.dim0(chunk, query_eval)
+        for chunk_index in range(len(self.chunks[db_index])):
+            columns = self.dim0(db_index, chunk_index, query_eval)
             _mark(on_stage, "dim0")
             columns = self.fold_dimensions(columns, rest, evaluation_key)
             _mark(on_stage, "fold_dimensions")
@@ -269,11 +349,16 @@ class BatchedMulPirServer:
         dim0 = bfv.ct_to_eval(_ct(self.context, expanded[:d0], self.ct_ctx))
         return dim0.stacked().reshape((d0, B * 2) + tuple(expanded.shape[-2:])), expanded[d0:]
 
-    def dim0(self, chunk: torch.Tensor, query_eval: torch.Tensor) -> torch.Tensor:
-        """Stage 2b: one chunk's columns as Coeff ciphertexts [B, C, 2, L, N].
-        An all-zero column gives zeros, the transparent zero of the
-        per-query server."""
-        results = dim0_inner_products(chunk, query_eval, self.ct_ctx)  # [C, 2B, L, N]
+    def dim0(self, db_index: int, chunk_index: int, query_eval: torch.Tensor) -> torch.Tensor:
+        """Stage 2b: one chunk's columns as Coeff ciphertexts [B, C, 2, L, N],
+        by the server's form of dim-0 (she_tpu serving.py:804 _dim0). An
+        all-zero column gives zeros, the transparent zero of the per-query
+        server."""
+        if self.use_dim0_int8:
+            results = dim0_int8(self.chunk_digits[db_index][chunk_index], query_eval, self.ct_ctx)
+        else:
+            results = dim0_inner_products(self.chunks[db_index][chunk_index], query_eval, self.ct_ctx)
+        # results: [C, 2B, L, N]
         C, B = results.shape[0], results.shape[1] // 2
         results = results.reshape((C, B, 2) + tuple(results.shape[-2:]))
         return bfv.ct_to_coeff(_ct(self.context, results.transpose(0, 1), self.ct_ctx, EVAL)).stacked()
@@ -326,9 +411,11 @@ class BatchedKeywordPirServer:
     serving.py:725-747). Each keyword query carries one index per hash
     function; index i is answered from sub-table i."""
 
-    def __init__(self, context, processed):
+    def __init__(self, context, processed, use_dim0_int8=None):
         self.context = context
-        self.index_server = BatchedMulPirServer(processed.pir_parameter, context, kp.sub_tables(processed))
+        self.index_server = BatchedMulPirServer(
+            processed.pir_parameter, context, kp.sub_tables(processed), use_dim0_int8
+        )
 
     def compute_response_batch(self, queries: list, evaluation_key, on_stage=None) -> list:
         return self.index_server.compute_response_batch(queries, evaluation_key, on_stage)

@@ -5,10 +5,12 @@ byte-for-byte like the reference's
 (Sources/HomomorphicEncryption/Random/NistCtrDrbg.swift:25-110,
 BufferedRng.swift:17-67, NistAes128Ctr.swift:17-40).
 
-AES-128 is implemented here in numpy, vectorized over the counter blocks of
+AES is implemented here in numpy, vectorized over the counter blocks of
 one keystream request, so the port needs no cryptography package: a request
 of B blocks costs ten rounds of table lookups and XORs on a [B, 16] byte
-array (rounds 1-9 as T-table lookups). The one state machine,
+array (rounds 1-9 as T-table lookups). The same rounds take 24-byte keys
+(12 rounds) for utils/aes_gcm.py, the port's one other user of AES. The
+one state machine,
 NistCtrDrbgBatch, runs many generators in lockstep, vectorized over their
 keys as well (a server expands many seeded ciphertexts at once);
 NistCtrDrbg is its single-generator case. CTR mode increments the full
@@ -20,6 +22,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+from ..utils.zeroize import zeroize
 
 _BLOCK = 16
 _KEYLEN = 16
@@ -60,21 +64,26 @@ _RCON = (0x01, 0x02, 0x04, 0x08, 0x10, 0x20, 0x40, 0x80, 0x1B, 0x36)
 
 
 def _expand_keys(keys: np.ndarray) -> np.ndarray:
-    """AES-128 key schedule of K keys at once: uint8 [K, 16] -> [K, 11, 16]
-    round keys in state byte order."""
-    w = np.zeros((keys.shape[0], 44, 4), dtype=np.uint8)
-    w[:, :4] = keys.reshape(-1, 4, 4)
-    for i in range(4, 44):
+    """AES key schedule (FIPS-197 5.2) of K keys of one length at once:
+    uint8 [K, 16 | 24] -> [K, rounds + 1, 16] round keys in state byte
+    order (10 or 12 rounds)."""
+    nk = keys.shape[1] // 4
+    if keys.shape[1] not in (16, 24):
+        raise ValueError(f"AES keys are 16 or 24 bytes here, got {keys.shape[1]}")
+    rounds = nk + 6
+    w = np.zeros((keys.shape[0], 4 * (rounds + 1), 4), dtype=np.uint8)
+    w[:, :nk] = keys.reshape(-1, nk, 4)
+    for i in range(nk, 4 * (rounds + 1)):
         t = w[:, i - 1]
-        if i % 4 == 0:
+        if i % nk == 0:
             t = _SBOX[np.roll(t, -1, axis=1)]  # RotWord, SubWord
-            t[:, 0] ^= _RCON[i // 4 - 1]
-        w[:, i] = w[:, i - 4] ^ t
-    return w.reshape(-1, 11, 16)
+            t[:, 0] ^= _RCON[i // nk - 1]
+        w[:, i] = w[:, i - nk] ^ t
+    return w.reshape(-1, rounds + 1, 16)
 
 
 def _expand_key(key: bytes) -> np.ndarray:
-    """AES-128 key schedule -> [11, 16] round keys in state byte order."""
+    """AES key schedule of one key -> [rounds + 1, 16] round keys."""
     return _expand_keys(np.frombuffer(key, dtype=np.uint8)[None, :])[0]
 
 
@@ -95,12 +104,14 @@ _T = _t_tables()
 
 
 def _aes_rounds(s: np.ndarray, rk) -> np.ndarray:
-    """AES-128 encryption of uint8 [..., 16] blocks; rk[r] is round r's
-    key, broadcast against the blocks. Rounds 1-9 are T-table lookups:
-    SubBytes, ShiftRows and MixColumns of column c gather byte r of column
-    (c + r) % 4 through table r."""
+    """AES encryption of uint8 [..., 16] blocks; rk[r] is round r's key,
+    broadcast against the blocks, and len(rk) - 1 the number of rounds.
+    The middle rounds are T-table lookups: SubBytes, ShiftRows and
+    MixColumns of column c gather byte r of column (c + r) % 4 through
+    table r."""
+    rounds = len(rk) - 1
     s = np.ascontiguousarray(s ^ rk[0])
-    for rnd in range(1, 10):
+    for rnd in range(1, rounds):
         cols = [
             np.take(_T[0], s[..., 4 * c]) ^ np.take(_T[1], s[..., 4 * ((c + 1) % 4) + 1])
             ^ np.take(_T[2], s[..., 4 * ((c + 2) % 4) + 2]) ^ np.take(_T[3], s[..., 4 * ((c + 3) % 4) + 3])
@@ -108,11 +119,12 @@ def _aes_rounds(s: np.ndarray, rk) -> np.ndarray:
         ]
         # as little-endian words, row r of a column is byte r
         s = np.stack(cols, axis=-1).astype("<u4", copy=False).view(np.uint8) ^ rk[rnd]
-    return np.take(_SBOX, s[..., _SHIFT_ROWS]) ^ rk[10]
+    return np.take(_SBOX, s[..., _SHIFT_ROWS]) ^ rk[rounds]
 
 
-def aes128_encrypt_blocks(key: bytes, blocks: np.ndarray) -> np.ndarray:
-    """AES-128 encryption of a [B, 16] uint8 array of blocks."""
+def aes_encrypt_blocks(key: bytes, blocks: np.ndarray) -> np.ndarray:
+    """AES-128 or AES-192 (by the key's length) of a [B, 16] uint8 array
+    of blocks."""
     return _aes_rounds(blocks, _expand_key(key))
 
 
@@ -182,6 +194,14 @@ class NistCtrDrbgBatch:
         self.reseed_counter += 1
         return out
 
+    def zeroize(self) -> None:
+        """Scrub the key and counter state in place and refuse further use
+        (reference Zeroization.swift:1-40)."""
+        zeroize(self.keys)
+        self.v_hi[:] = 0
+        self.v_lo[:] = 0
+        self.reseed_counter = self.RESEED_INTERVAL + 1
+
 
 class NistCtrDrbg:
     """One CTR_DRBG: NistCtrDrbgBatch with K = 1, returning bytes."""
@@ -196,6 +216,9 @@ class NistCtrDrbg:
     def generate(self, count: int) -> bytes:
         return self._batch.generate(count)[0].tobytes()
 
+    def zeroize(self) -> None:
+        self._batch.zeroize()
+
 
 class BufferedRng:
     """4096-byte buffered stream over a generator, matching BufferedRng.swift.
@@ -209,7 +232,7 @@ class BufferedRng:
 
     def __init__(self, rng: NistCtrDrbg):
         self.rng = rng
-        self._buf = b""
+        self._buf = bytearray()  # mutable, so that zeroize scrubs it in place
         self._off = 0
 
     def random_bytes(self, n: int) -> bytes:
@@ -217,13 +240,20 @@ class BufferedRng:
         need = n
         while need > 0:
             if self._off == len(self._buf):
-                self._buf = self.rng.generate(self.BUFFER_BYTES)
+                self._buf = bytearray(self.rng.generate(self.BUFFER_BYTES))
                 self._off = 0
             take = min(need, len(self._buf) - self._off)
             chunks.append(self._buf[self._off : self._off + take])
             self._off += take
             need -= take
         return b"".join(chunks)
+
+    def zeroize(self) -> None:
+        """Scrub the buffered bytes and the generator's state; the next
+        draw raises."""
+        zeroize(self._buf)
+        self._off = len(self._buf)
+        self.rng.zeroize()
 
     def next_u64(self) -> int:
         return int.from_bytes(self.random_bytes(8), "little")

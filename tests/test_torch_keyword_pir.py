@@ -215,8 +215,10 @@ def test_process_database_shards_and_unions(setup):
         elements |= set(p.pir_parameter.evaluation_key_config.galois_elements)
     assert processed.evaluation_key_config.galois_elements == tuple(sorted(elements))
     assert processed.evaluation_key_config.has_relinearization_key
-    with pytest.raises(errors.PirError, match="Symmetric PIR"):
-        tpd.Arguments(config, tctx.params, symmetric_pir_config=object())
+    # a Symmetric PIR config is honoured (tests/test_torch_symmetric_pir.py);
+    # an algorithm other than MulPIR is refused
+    with pytest.raises(errors.PirError, match="unsupported algorithm"):
+        tpd.Arguments(config, tctx.params, algorithm="simplePir")
 
 
 @pytest.mark.parametrize("batch", [1, 3])

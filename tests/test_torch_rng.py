@@ -20,8 +20,19 @@ def test_aes128_fips197_vector():
     """FIPS-197 Appendix C.1 known answer."""
     key = bytes.fromhex("000102030405060708090a0b0c0d0e0f")
     block = np.frombuffer(bytes.fromhex("00112233445566778899aabbccddeeff"), dtype=np.uint8)
-    out = tdrbg.aes128_encrypt_blocks(key, block[None, :])
+    out = tdrbg.aes_encrypt_blocks(key, block[None, :])
     assert out.tobytes().hex() == "69c4e0d86a7b0430d8cdb78070b4c55a"
+
+
+def test_aes192_fips197_vector():
+    """FIPS-197 Appendix C.2 known answer: the 24-byte key schedule that
+    AES-GCM's Symmetric PIR keys use."""
+    key = bytes(range(24))
+    block = np.frombuffer(bytes.fromhex("00112233445566778899aabbccddeeff"), dtype=np.uint8)
+    out = tdrbg.aes_encrypt_blocks(key, block[None, :])
+    assert out.tobytes().hex() == "dda97ca4864cdfe06eaf70a0ec0d7191"
+    with pytest.raises(ValueError):
+        tdrbg.aes_encrypt_blocks(bytes(32), block[None, :])
 
 
 def test_drbg_vector_with_intermediate_state():
