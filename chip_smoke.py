@@ -49,6 +49,10 @@ of 1-byte values, 128 keyword queries per batch, through the wire format:
 
 Any failure exits non-zero without the last line. Run from the repository
 root:  python3 chip_smoke.py [--batches 3] [--seed 0] [--json-out FILE]
+
+The default runs every phase. `--only dim0` builds the kernels and runs
+only step 6's int8 dim-0 cases, at every shape of DIM0_SERVED_SHAPES and
+the w64 check, then prints the kernels line and the last line.
 """
 
 from __future__ import annotations
@@ -80,6 +84,15 @@ LARGE_VALUES = (4096, 3000, 32)
 SERVICE_REQUESTS = 8  # PIR requests through the service, the last for an absent keyword
 SPIR = (512, 16, 2)  # Symmetric PIR: keywords sealed, lookups, of which absent
 DIM0_CUT_N = 64  # the n positions of the plain digit form's check at every served shape
+# every (C, d0, P, N) a serving run launches the int8 dim-0 kernel with, at
+# the w32 ciphertext moduli (4 digits): the full run fails on one not here
+DIM0_SERVED_SHAPES = {
+    "keyword": (31, 97, 256, 4096),
+    "w32": (9, 55, 256, 4096),
+    "keyword_large": (21, 228, 64, 4096),
+}
+# the int8 form once at the w64 path's dim-0 shape (8 digits), which serves the MAC
+DIM0_W64_CHECK = (4, 11, 2 * BATCH, 8192)
 
 
 def log(msg: str) -> None:
@@ -123,7 +136,7 @@ def random_rows(moduli, shape, degree, seed):
 def ptxas_lines(name: str) -> list[str]:
     """ptxas -v's registers, spills and shared memory of the N=4096
     instantiations of the NTT kernels on both routes, and of the dim-0
-    kernel."""
+    kernel's instances at 4 and 8 digits (the served and checked ones)."""
     import re
 
     from she_tpu_torch.ops import kernel_build
@@ -137,7 +150,8 @@ def ptxas_lines(name: str) -> list[str]:
             word = "u32" if m.group(2) == "j" else "u64"
             label = f"{m.group(1)}<{word}, log2n={m.group(3)}>" if m.group(3) == "12" else None
         elif "Compiling entry function" in line and "dim0_int8_kernel" in line:
-            label = "dim0_int8_kernel"
+            m = re.search(r"dim0_int8_kernelILi(\d)ELi(\d)E", line)
+            label = f"dim0_int8_kernel<D={m.group(1)}, MT={m.group(2)}>" if m and m.group(1) in "48" else None
         elif label and ("Used" in line or "spill" in line):
             out.append(f"{label}: {line.strip()}")
     return out
@@ -416,6 +430,29 @@ def dim0_shape_timing(path: str, dim0_shapes, batches: int) -> list:
         row["launches_per_batch"] = count / batches
         out.append(row)
     return out
+
+
+def dim0_w64_check() -> dict:
+    from she_tpu_torch import params as paramsmod
+
+    moduli = paramsmod.from_predefined(PATHS["w64"][0], scalar_bits=64).coefficient_moduli[:-1]
+    return dim0_case("w64_check", moduli, *DIM0_W64_CHECK, 90)
+
+
+def dim0_kernel_entry(rows: list, w64_check: dict, launches: int) -> dict:
+    """The int8 dim-0 kernel's entry of the kernels line, at the widest of
+    `rows` (dim0_case results)."""
+    widest = max(rows, key=lambda r: r["bytes"])
+    return dict(
+        name="dim0_int8", route="cuda", source="she_tpu_torch/csrc/dim0_int8.cu",
+        replaces="she_tpu/pir/serving.py:222", launches=launches,
+        max_abs_err=max(r["max_abs_err"] for r in rows + [w64_check]),
+        ms=widest["ms"], plain_ms=widest["plain_ms"], bound_ms=widest["bound_ms"], bound_by=widest["bound_by"],
+        library_ms=widest["library_ms"],
+        library="torch.bmm, float32 digit operands, TF32 off: the digit products only",
+        mac_ms=widest["mac_ms"], widest_path=widest["path"], widest_digits_shape=widest["digits_shape"],
+        widest_query_shape=widest["query_shape"], shapes=rows, w64_check=w64_check,
+    )
 
 
 def profile_batch(path: str, server, queries, ek) -> dict:
@@ -1134,7 +1171,6 @@ def run(args) -> int:
     card = card_line()
     log(f"card: {card}")
 
-    from she_tpu_torch import params as paramsmod
     from she_tpu_torch.ops import kernel_build
 
     t0 = time.perf_counter()
@@ -1144,23 +1180,23 @@ def run(args) -> int:
         for line in ptxas_lines(name):
             log(f"  {name}: {line}")
 
+    if args.only == "dim0":
+        return dim0_only(args, card)
+
     checked = kernel_phase(args.seed)
     paths, shapes, dim0_rows = {}, {"ntt_forward": [], "ntt_inverse": []}, []
-    # each phase returns its paths' results by name
-    phases = [lambda path=path: {path: main_path(path, args.seed, args.batches)} for path in PATHS]
-    phases += [lambda: keyword_and_service(args.seed, args.batches),
-               lambda: {"keyword_large": large_value_path(args.seed)},
-               lambda: {"spir": spir_phase(args.seed)}]
-    for drive in phases:
+    for _, drive in serving_phases(args):
         for path, result in drive().items():
             paths[path] = result
             for name, rows in shape_timing(path, result["launch_shapes"], result["batches"]).items():
                 shapes[name].extend(rows)
             dim0_rows += dim0_shape_timing(path, result["dim0_shapes"], result["batches"])
         torch.cuda.empty_cache()
-    # the int8 form once at the w64 path's dim-0 shape (8 digits), which serves the MAC
-    w64_moduli = paramsmod.from_predefined(PATHS["w64"][0], scalar_bits=64).coefficient_moduli[:-1]
-    w64_check = dim0_case("w64_check", w64_moduli, 4, 11, 2 * BATCH, 8192, 90)
+    served = {(r["C"], r["d0"], r["P"], r["digits_shape"][1]) for r in dim0_rows}
+    if not served <= set(DIM0_SERVED_SHAPES.values()):
+        raise AssertionError(f"served int8 dim-0 shapes {sorted(served - set(DIM0_SERVED_SHAPES.values()))} "
+                             f"are missing from DIM0_SERVED_SHAPES")
+    w64_check = dim0_w64_check()
 
     kernels = []
     for name, line in (("ntt_forward", 217), ("ntt_inverse", 261)):
@@ -1177,20 +1213,9 @@ def run(args) -> int:
         ))
     if not dim0_rows:
         raise AssertionError("no served path launched the int8 dim-0 kernel")
+    kernels.append(dim0_kernel_entry(dim0_rows, w64_check, sum(p["launches"]["dim0_int8"] for p in paths.values())))
+    kernels[-1]["launches_by_path"] = {p: v["launches"]["dim0_int8"] for p, v in paths.items()}
     widest = max(dim0_rows, key=lambda r: r["bytes"])
-    kernels.append(dict(
-        name="dim0_int8", route="cuda", source="she_tpu_torch/csrc/dim0_int8.cu",
-        replaces="she_tpu/pir/serving.py:222",
-        launches=sum(p["launches"]["dim0_int8"] for p in paths.values()),
-        max_abs_err=max(r["max_abs_err"] for r in dim0_rows + [w64_check]),
-        ms=widest["ms"], plain_ms=widest["plain_ms"], bound_ms=widest["bound_ms"], bound_by=widest["bound_by"],
-        library_ms=widest["library_ms"],
-        library="torch.bmm, float32 digit operands, TF32 off: the digit products only",
-        mac_ms=widest["mac_ms"], widest_path=widest["path"], widest_digits_shape=widest["digits_shape"],
-        widest_query_shape=widest["query_shape"],
-        launches_by_path={p: v["launches"]["dim0_int8"] for p, v in paths.items()},
-        shapes=dim0_rows, w64_check=w64_check,
-    ))
     for p in paths.values():
         p["launch_shapes"] = [dict(name=k[0], shape=list(k[1]), moduli=list(k[2]), launches=v)
                               for k, v in p["launch_shapes"].items()]
@@ -1236,14 +1261,55 @@ def run(args) -> int:
     return 0
 
 
-def main() -> int:
+def serving_phases(args) -> list:
+    """The serving phases of the default run, in order, as (name, drive):
+    each drive returns its paths' results by name (the keyword phase also
+    runs the service on the keyword cell's database)."""
+    phases = [(path, lambda path=path: {path: main_path(path, args.seed, args.batches)}) for path in PATHS]
+    return phases + [("keyword", lambda: keyword_and_service(args.seed, args.batches)),
+                     ("keyword_large", lambda: {"keyword_large": large_value_path(args.seed)}),
+                     ("spir", lambda: {"spir": spir_phase(args.seed)})]
+
+
+def dim0_only(args, card: str) -> int:
+    """--only dim0: the int8 dim-0 kernel at every served shape and the w64
+    check (dim0_case); then the kernels line (launches: those of this run's
+    checks and timings) and the last line."""
+    import torch
+
+    from she_tpu_torch import params as paramsmod
+    from she_tpu_torch.ops import dim0_cuda
+
+    moduli = paramsmod.from_predefined(PARAMS, scalar_bits=32).coefficient_moduli[:2]
+    dim0_cuda.reset_launches()
+    rows = [dim0_case(label, moduli, *shape, 60 + i) for i, (label, shape) in enumerate(DIM0_SERVED_SHAPES.items())]
+    w64_check = dim0_w64_check()
+    entry = dim0_kernel_entry(rows, w64_check, dim0_cuda.launches["dim0_int8"])
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump(dict(card=card, device=torch.cuda.get_device_name(0), kernels=[entry]), f, indent=1)
+    print(json.dumps({"kernels": [entry]}))
+    print(card)
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
+    print(json.dumps({"ok": True, "device": device}))
+    return 0
+
+
+def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batches", type=int, default=3, help="query batches to serve (>= 3)")
     parser.add_argument("--seed", type=int, default=0, help="seed of the database, keys and indices")
     parser.add_argument("--json-out", default=None, help="also write the full results to this file")
-    args = parser.parse_args()
+    parser.add_argument("--only", choices=["dim0"], default=None,
+                        help="run one phase alone: dim0, the int8 dim-0 kernel at every served shape")
+    args = parser.parse_args(argv)
     if args.batches < 3:
         parser.error("--batches must be at least 3")
+    return args
+
+
+def main() -> int:
+    args = parse_args()
     try:
         return run(args)
     except Exception as exc:  # any failed phase: report and exit non-zero

@@ -26,7 +26,11 @@ launch_shapes: Counter = Counter()
 
 MMA_DEPTH = 32  # k of mma.sync m16n8k32 for int8
 MAX_MODULUS = 1 << 56  # r * 2^7 + partial must fit 64 bits: at most 8 digits
-N_TILE = 8  # n positions a block
+N_TILE = 8  # N is a multiple of this: a block takes 8, 4 or 2 consecutive n
+# the deepest D * (K + 16) a block can hold: 2 n of 16 rows of every digit
+# plane (K + 16 bytes a row), the 64 KB query ring and an 8 KB output tile
+# in 227 KB of shared memory
+MAX_DIGIT_DEPTH = 4960
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -86,6 +90,8 @@ def _check(db_digits: torch.Tensor, query_eval: torch.Tensor, moduli: tuple) -> 
                          f"with {len(moduli)} moduli of {D} digits")
     if N % N_TILE:
         raise ValueError(f"int8 dim-0 kernel takes N a multiple of {N_TILE}, got {N}")
+    if D * (K + 16) > MAX_DIGIT_DEPTH:
+        raise ValueError(f"int8 dim-0 kernel takes D * (K + 16) <= {MAX_DIGIT_DEPTH}, got D = {D}, K = {K}")
     dg.assert_int32_partial_bound(d0, D)
     return rows // D, D
 

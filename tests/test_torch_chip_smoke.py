@@ -1,0 +1,39 @@
+"""chip_smoke.py's phase selection and its table of served int8 dim-0
+shapes, on the CPU: the script is imported (its top level needs only the
+standard library) and its arguments parsed; nothing runs on a card."""
+
+import pytest
+
+import chip_smoke
+
+
+def test_default_run_selects_every_phase():
+    """The default run drives every serving phase (run() iterates
+    serving_phases after the kernel phase; --only dim0 returns first)."""
+    args = chip_smoke.parse_args([])
+    assert (args.only, args.batches) == (None, 3)
+    names = [name for name, _ in chip_smoke.serving_phases(args)]
+    assert names == ["w32", "w64", "keyword", "keyword_large", "spir"]
+    assert names[:2] == list(chip_smoke.PATHS)
+
+
+def test_only_dim0_selects_the_dim0_cases():
+    assert chip_smoke.parse_args(["--only", "dim0"]).only == "dim0"
+
+
+@pytest.mark.parametrize("argv", [["--only", "keyword"], ["--only"], ["--batches", "2"]])
+def test_refused_arguments(argv):
+    with pytest.raises(SystemExit):
+        chip_smoke.parse_args(argv)
+
+
+def test_served_dim0_shapes():
+    """(C, d0, P, N) of every served int8 dim-0 launch: the keyword cell
+    (dims 97 x 31, 2 polynomials a query, 128 queries), the w32 index cell
+    (55 x 9) and the two-plaintext keyword buckets (228 x 21, 32 queries)."""
+    assert chip_smoke.DIM0_SERVED_SHAPES == {
+        "keyword": (31, 97, 256, 4096),
+        "w32": (9, 55, 256, 4096),
+        "keyword_large": (21, 228, 64, 4096),
+    }
+    assert chip_smoke.DIM0_W64_CHECK == (4, 11, 256, 8192)

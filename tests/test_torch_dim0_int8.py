@@ -274,9 +274,23 @@ def _card() -> torch.device:
     (W32, 31, 97, 256, 64),       # the keyword cell, cut in n
     (W32, 31, 97, 20, 16),        # a ragged last p tile
     (W64, 4, 11, 256, 64),        # the w64 shape, cut in n: 8 digits
-    ((262139, 262133), 2, 3, 2, 8),        # 3 digits: columns past D * TP
+    ((262139, 262133), 2, 3, 2, 8),        # 3 digits
     ((2147483647,), 5, 40, 9, 8),          # a 31-bit modulus: 5 digits
-], ids=["tiny", "index", "keyword", "ragged", "w64", "d3", "d5"])
+    (W32, 21, 228, 64, 64),       # the keyword_large cell, cut in n: K = 256, 4 n a block
+    (W32, 21, 228, 20, 16),       # 4 n a block, P not a multiple of its 16-p tile
+    (W32, 31, 97, 13, 16),        # 8 n a block, P not a multiple of its 8-p tile
+    (W32, 31, 97, 256, 8),        # N = 8: one n group
+    (W32, 7, 33, 24, 16),         # 28 rows: not a multiple of 16
+    (W32, 40, 33, 9, 16),         # C > 32: two blocks along c
+    (W64, 17, 11, 256, 16),       # 8 digits, 2 m tiles, the w64 check's p tiling
+    # deeper K than the first layouts hold: the launch falls back to smaller blocks
+    (W32, 31, 288, 20, 16),       # 8 n, one m tile a block, two blocks along c
+    (W32, 21, 260, 20, 16),       # the same layout at keyword_large's C
+    ((2147483647,), 17, 228, 20, 16),      # 5 digits: 4 n, one m tile a block
+    (W64, 17, 320, 20, 16),       # 8 digits: 2 n, one m tile a block
+    (W64, 3, 570, 9, 8),          # 8 digits, K = 576: the deepest the kernel takes
+], ids=["tiny", "index", "keyword", "ragged", "w64", "d3", "d5", "large", "large_ragged", "ragged8",
+        "one_group", "rows28", "c40", "w64_mt2", "k288", "k288_c21", "d5_c17", "w64_k320", "w64_k576"])
 def test_kernel_matches_plain(moduli, C, d0, P, N, fill):
     dev = _card()
     db, query = _operands(moduli, C, d0, P, N, seed=C + d0, fill=fill)
@@ -304,6 +318,11 @@ def test_kernel_refuses_what_it_does_not_take():
     ctx = get_poly_context(8, wide, 64, dev)
     digits = tserving.pack_database_chunk_digits(torch.from_numpy(db).to(dev), ctx)
     with pytest.raises(ValueError, match="2\\^56"):
+        dim0_cuda.dim0_int8(digits, torch.from_numpy(query).to(dev), ctx)
+    db, query = _operands(W64, 3, 600, 9, 8)  # K = 608 at 8 digits: no block holds it
+    ctx = get_poly_context(8, W64, 64, dev)
+    digits = tserving.pack_database_chunk_digits(torch.from_numpy(db).to(dev), ctx)
+    with pytest.raises(ValueError, match="K \\+ 16"):
         dim0_cuda.dim0_int8(digits, torch.from_numpy(query).to(dev), ctx)
 
 
