@@ -6,7 +6,9 @@ against a 1,000,000-entry x 1-byte database, 128 queries per batch, on two
 paths: w32 (n_4096_logq_27_28_28_logt_5 at 32-bit scalars) and w64
 (n_8192_logq_3x55_logt_24 at 64-bit scalars, exact wide arithmetic); then
 keyword PIR (BatchedKeywordPirServer) over a 1,000,000-keyword cuckoo table
-of 1-byte values, 128 keyword queries per batch, through the wire format:
+of 1-byte values, 128 keyword queries per batch, through the wire format;
+then PNNS (BatchedPnnsServer), 16 cosine-similarity queries a batch over a
+4,096 x 128 database at 32- and 64-bit scalars:
 
 1. require a CUDA card; print its name and power limit (nvidia-smi);
 2. build the CUDA kernels from she_tpu_torch/csrc with nvcc;
@@ -44,7 +46,16 @@ of 1-byte values, 128 keyword queries per batch, through the wire format:
    process(..., symmetric_pir_config=...) and 16 lookups (2 absent)
    through OPRF and PIR requests, each value unsealed with the port's
    AES-GCM;
-8. print one JSON line with every kernel's numbers, and as the last line
+8. PNNS (pnns_path), cells pnns_4096x128_w32_b16 and _w64_b16
+   (n_4096_logq_27_28_28_logt_17): process the database (diagonal BSGS
+   packing, one NTT mod t and one to Eval for the 128 diagonals), make 16
+   queries and the evaluation key with the port's client, serve a first
+   batch and 3 more of the same queries; check every score of every query
+   against the integer dot product of the rounded vectors, two responses
+   against the per-query pnns.Server and the stream against the batch;
+   split a batch's device time by stage and profile one more; the NTT is
+   held to its plain version at the set-up's launch shapes too;
+9. print one JSON line with every kernel's numbers, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without the last line. Run from the repository
@@ -93,6 +104,13 @@ DIM0_SERVED_SHAPES = {
 }
 # the int8 form once at the w64 path's dim-0 shape (8 digits), which serves the MAC
 DIM0_W64_CHECK = (4, 11, 2 * BATCH, 8192)
+# PNNS (bench.py bench_pnns, bench_pnns_w64): name -> (parameters, scalar bits)
+PNNS_PATHS = {
+    "pnns_4096x128_w32_b16": ("n_4096_logq_27_28_28_logt_17", 32),
+    "pnns_4096x128_w64_b16": ("n_4096_logq_27_28_28_logt_17", 64),
+}
+PNNS_DB = (4096, 128)  # database rows x vector dimension
+PNNS_BATCH = 16
 
 
 def log(msg: str) -> None:
@@ -699,16 +717,20 @@ def read_answer(ctx, answer: list):
     return ip.Response([ser.deserialize_ciphertexts(reply, ctx, COEFF, moduli_count=1) for reply in answer])
 
 
-def stage_split(server, queries: list, ek, want: list) -> dict:
+PIR_STAGES = {"stack": "stack", "expand": "expansion", "dim0": "dim0",
+              "fold_dimensions": "behz_relinearize", "mod_switch": "mod_switch"}
+
+
+def stage_split(server, queries: list, ek, want: list, names: dict = PIR_STAGES,
+                same=assert_same_responses) -> dict:
     """One batch through compute_response_batch with a CUDA event recorded
-    at each of its stage marks: device ms of stacking, expansion, dim-0
-    (query to Eval, MAC, columns to Coeff), BEHZ + relinearization, and mod
-    switch, each span ending at its stage's mark. The answers must equal
-    `want`, the same batch's earlier answers."""
+    at each of its stage marks: device ms of each stage (by default PIR's:
+    stacking, expansion, dim-0 (query to Eval, MAC, columns to Coeff),
+    BEHZ + relinearization, and mod switch), each span ending at its
+    stage's mark. The answers must equal `want`, the same batch's earlier
+    answers (checked by `same`)."""
     import torch
 
-    names = {"stack": "stack", "expand": "expansion", "dim0": "dim0",
-             "fold_dimensions": "behz_relinearize", "mod_switch": "mod_switch"}
     marks = []
 
     def mark(stage: str) -> None:
@@ -720,7 +742,7 @@ def stage_split(server, queries: list, ek, want: list) -> dict:
     mark("stack")  # the start: the first span is the stacking
     got = server.compute_response_batch(queries, ek, on_stage=mark)
     torch.cuda.synchronize()
-    assert_same_responses("stage split", got, want)
+    same("stage split", got, want)
     ms = dict.fromkeys(names.values(), 0.0)
     for (_, a), (stage, b) in zip(marks, marks[1:]):
         ms[stage] += a.elapsed_time(b)
@@ -1162,6 +1184,155 @@ def spir_phase(seed: int) -> dict:
                 launch_shapes=counts["launch_shapes"], dim0_shapes=counts["dim0_shapes"], batches=1)
 
 
+PNNS_STAGES = {"stack": "stacking", "baby_steps": "baby_step_rotations", "to_eval": "to_eval",
+               "bsgs_mac": "bsgs_mac", "inverse_ntt": "inverse_ntt", "rotate_and_sum": "giant_step_rotate_and_sum",
+               "mod_switch": "mod_switch"}
+
+
+def assert_same_pnns_responses(label: str, got: list, want: list) -> None:
+    import torch
+
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} responses, expected {len(want)}")
+    for g, w in zip(got, want):
+        for gm, wm in zip(g.ciphertext_matrices, w.ciphertext_matrices, strict=True):
+            for gc, wc in zip(gm.ciphertexts, wm.ciphertexts, strict=True):
+                if gc.poly_context() is not wc.poly_context() or not torch.equal(gc.stacked(), wc.stacked()):
+                    raise AssertionError(f"{label}: responses differ")
+
+
+def pnns_path(label: str, seed: int, batches: int) -> dict:
+    """PNNS as a user drives it (bench_pnns / bench_pnns_w64): a 4,096 x 128
+    float32 database processed with diagonal BSGS packing, the port's
+    client, BatchedPnnsServer serving PNNS_BATCH cosine-similarity queries
+    a batch; every score checked exactly, two queries against the
+    per-query server, the stream against the batch; the stage split and a
+    profiled batch."""
+    import numpy as np
+    import torch
+
+    from she_tpu_torch import params as paramsmod
+    from she_tpu_torch.bfv import bfv
+    from she_tpu_torch.ops import ntt_cuda
+    from she_tpu_torch.pnns import pnns
+    from she_tpu_torch.pnns import serving
+    from she_tpu_torch.rng.ctr_drbg import nist_aes128_ctr
+
+    params, scalar_bits = PNNS_PATHS[label]
+    rows, dim = PNNS_DB
+    ep = paramsmod.from_predefined(params, scalar_bits=scalar_bits)
+    reset_counts()  # the set-up's launch shapes are checked too
+    ctx = bfv.get_bfv_context(ep)  # the CUDA card
+    sf = pnns.max_scaling_factor(dim, [ep.plaintext_modulus])
+    ek_config = pnns.matmul_evaluation_key_config(ctx, pnns.MatrixDimensions(rows, dim), 1)
+    client_config = pnns.ClientConfig.create(ep, sf, pnns.MatrixPacking.dense_row(), dim, ek_config)
+    bsgs = pnns.BabyStepGiantStep.create(dim)
+    server_config = pnns.ServerConfig(client_config, pnns.MatrixPacking.diagonal(bsgs))
+    log(f"[{label}] {params} at {scalar_bits}-bit scalars, moduli {ep.coefficient_moduli}, t = {ep.plaintext_modulus}; "
+        f"{rows} x {dim} database, cosine similarity, scaling factor {sf}, BSGS baby step {bsgs.baby_step}, giant "
+        f"step {bsgs.giant_step}; Galois elements {ek_config.galois_elements}; {PNNS_BATCH} queries a batch")
+    rng = np.random.default_rng(seed)
+    vectors = rng.standard_normal((rows, dim)).astype(np.float32)
+    database = pnns.Database([pnns.DatabaseRow(i, b"", vectors[i]) for i in range(rows)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    processed = pnns.process_database(database, server_config)
+    torch.cuda.synchronize()
+    process_s = time.perf_counter() - t0
+    log(f"[{label}] database processed in {process_s:.4f} s: {len(processed.plaintext_matrices[0].plaintexts)} "
+        f"Eval plaintexts")
+
+    t0 = time.perf_counter()
+    client = pnns.Client(client_config)
+    sk = client.generate_secret_key(nist_aes128_ctr(seed.to_bytes(4, "little") * 8))
+    ek = client.generate_evaluation_key(sk, nist_aes128_ctr(b"pnns-evaluation-key-err-seed-32b"))
+    server = serving.BatchedPnnsServer(processed)
+    query_vectors = rng.standard_normal((PNNS_BATCH, 1, dim)).astype(np.float32)
+    queries = [client.generate_query(v, sk, err_rng=nist_aes128_ctr(bytes([i]) * 32))
+               for i, v in enumerate(query_vectors)]
+    torch.cuda.synchronize()
+    setup_shapes = dict(ntt_cuda.launch_shapes)
+    log(f"[{label}] keys, server and {PNNS_BATCH} queries ready in {time.perf_counter() - t0:.4f} s")
+
+    # the main path, with the launch counts read around it: the first batch
+    # and `batches` more of the same queries
+    served = batches + 1
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    batch_s, all_responses = [], []
+    for _ in range(served):
+        t0 = time.perf_counter()
+        responses = server.compute_response_batch(queries, ek)
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t0)
+        all_responses.append(responses)
+    counts = read_counts(label, False)
+    launches = counts["launches"]
+    peak = torch.cuda.max_memory_allocated()
+    steady = batch_s[1:]
+    for i, s in enumerate(batch_s):
+        log(f"[{label}] batch {i}{' (first)' if i == 0 else ''}: {s:.4f} s, {PNNS_BATCH / s:.2f} queries/s")
+    log(f"[{label}] median {statistics.median(steady):.4f} s/batch, max {max(steady):.4f} s over {len(steady)} "
+        f"batches, {PNNS_BATCH / statistics.median(steady):.2f} queries/s; kernel launches over {served} batches: "
+        f"{launches}, a batch: { {k: v / served for k, v in launches.items()} }; plain NTT on CUDA: none")
+    log(f"[{label}] peak device memory during serving: {peak} bytes ({peak / 2**30:.3f} GiB)")
+    for responses in all_responses[1:]:
+        assert_same_pnns_responses(f"[{label}] repeated batch", responses, all_responses[0])
+
+    t0 = time.perf_counter()
+    db_rounded = pnns.normalized_scaled_and_rounded(vectors, sf)
+    for qv, response in zip(query_vectors, all_responses[0]):
+        want = db_rounded @ pnns.normalized_scaled_and_rounded(qv, sf).T  # [rows, 1]
+        got = client.scores(response, sk)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"[{label}] scores differ from the integer dot products: "
+                                 f"{int((got != want).sum())} of {want.size}")
+    log(f"[{label}] all {PNNS_BATCH} x {rows} scores equal the integer dot products of the rounded vectors "
+        f"({time.perf_counter() - t0:.3f} s)")
+
+    single_ctx = ctx.ciphertext_context.get_context(1)
+    stacked = torch.stack([r.ciphertext_matrices[0].ciphertexts[0].stacked() for r in all_responses[0]])
+    min_budget = bfv.noise_budget(bfv.Ciphertext.from_stacked(ctx, stacked, single_ctx), sk)
+    if not min_budget > 0:
+        raise AssertionError(f"[{label}] a response has no noise budget left: {min_budget}")
+    log(f"[{label}] smallest noise budget of the {PNNS_BATCH} responses: {min_budget:.3f} bits")
+
+    t0 = time.perf_counter()
+    reference = pnns.Server(processed)
+    for i in (0, PNNS_BATCH - 1):
+        assert_same_pnns_responses(f"[{label}] per-query server, query {i}", [all_responses[0][i]],
+                                   [reference.compute_response(queries[i], ek)])
+    log(f"[{label}] batched responses of queries 0 and {PNNS_BATCH - 1} are bit-identical to the per-query "
+        f"server's ({time.perf_counter() - t0:.3f} s)")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stream = server.compute_response_stream([queries, queries], ek)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    assert_same_pnns_responses(f"[{label}] stream", stream, all_responses[0] + all_responses[0])
+    log(f"[{label}] compute_response_stream over 2 batches: {stream_s:.4f} s, answers equal to the batched ones")
+
+    stages = stage_split(server, queries, ek, all_responses[0], PNNS_STAGES, assert_same_pnns_responses)
+    log(f"[{label}] device ms by stage (CUDA events, one batch): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    profiled = profile_batch(label, server, queries, ek)
+    ntt_ms = profiled["kernel_ms"]["ntt_forward"] + profiled["kernel_ms"]["ntt_inverse"]
+    profiled["ntt_share"] = ntt_ms / profiled["busy_ms"]
+    profiled["idle_share_of_steady_batch"] = 1 - profiled["busy_ms"] / (1e3 * statistics.median(steady))
+    log(f"[{label}] NTT kernels {ntt_ms:.3f} ms, {100 * profiled['ntt_share']:.1f}% of the profiled batch's device "
+        f"time; device idle share of the median unprofiled batch: {profiled['idle_share_of_steady_batch']:.3f}")
+    return dict(
+        path=label, params=params, scalar_bits=scalar_bits, rows=rows, dim=dim, batch=PNNS_BATCH,
+        baby_step=bsgs.baby_step, giant_step=bsgs.giant_step, process_s=process_s, batch_s=batch_s,
+        first_batch_s=batch_s[0], median_s_per_batch=statistics.median(steady), max_s_per_batch=max(steady),
+        steady_batches=len(steady), queries_per_s=PNNS_BATCH / statistics.median(steady), stream_s=stream_s,
+        stages_ms=stages, profile=profiled, min_noise_budget=min_budget, peak_bytes=peak, launches=launches,
+        launches_per_batch={k: v / served for k, v in launches.items()}, launch_shapes=counts["launch_shapes"],
+        dim0_shapes=counts["dim0_shapes"], batches=served, setup_launch_shapes=setup_shapes,
+    )
+
+
 def run(args) -> int:
     import torch
 
@@ -1190,6 +1361,9 @@ def run(args) -> int:
             paths[path] = result
             for name, rows in shape_timing(path, result["launch_shapes"], result["batches"]).items():
                 shapes[name].extend(rows)
+            if "setup_launch_shapes" in result:  # the set-up's NTTs (PNNS: SIMD encoding at t, to Eval)
+                for name, rows in shape_timing(f"{path}:setup", result["setup_launch_shapes"], 1).items():
+                    shapes[name].extend(rows)
             dim0_rows += dim0_shape_timing(path, result["dim0_shapes"], result["batches"])
         torch.cuda.empty_cache()
     served = {(r["C"], r["d0"], r["P"], r["digits_shape"][1]) for r in dim0_rows}
@@ -1217,8 +1391,9 @@ def run(args) -> int:
     kernels[-1]["launches_by_path"] = {p: v["launches"]["dim0_int8"] for p, v in paths.items()}
     widest = max(dim0_rows, key=lambda r: r["bytes"])
     for p in paths.values():
-        p["launch_shapes"] = [dict(name=k[0], shape=list(k[1]), moduli=list(k[2]), launches=v)
-                              for k, v in p["launch_shapes"].items()]
+        for key in ("launch_shapes", "setup_launch_shapes"):
+            if key in p:
+                p[key] = [dict(name=k[0], shape=list(k[1]), moduli=list(k[2]), launches=v) for k, v in p[key].items()]
         p["dim0_shapes"] = [dict(digits_shape=list(k[0]), query_shape=list(k[1]), moduli=list(k[2]), launches=v)
                             for k, v in p["dim0_shapes"].items()]
     summary = dict(card=card, device=torch.cuda.get_device_name(0), kernel_build_s=built,
@@ -1250,6 +1425,15 @@ def run(args) -> int:
         f"request, on {card}")
     v = paths["spir"]
     log(f"spir: {v['keywords']} keywords sealed in {v['process_s']:.3f} s, {v['lookups']} lookups, on {card}")
+    for label in PNNS_PATHS:
+        v = paths[label]
+        log(f"{label} ({v['params']} at {v['scalar_bits']}-bit scalars, {v['rows']} x {v['dim']}, {v['batch']} "
+            f"queries a batch): database processing {v['process_s']:.4f} s, first batch {v['first_batch_s']:.4f} s, "
+            f"then median {v['median_s_per_batch']:.4f} s/batch (max {v['max_s_per_batch']:.4f} s over "
+            f"{v['steady_batches']} batches), {v['queries_per_s']:.2f} queries/s; device ms by stage "
+            f"{ {k: round(x, 3) for k, x in v['stages_ms'].items()} }; NTT {100 * v['profile']['ntt_share']:.1f}% of "
+            f"device time, idle share {v['profile']['idle_share_of_steady_batch']:.3f}; peak {v['peak_bytes']} "
+            f"bytes; smallest noise budget {v['min_noise_budget']:.3f} bits; on {card}")
     log(f"dim0_int8 at the widest served shape ({widest['path']}, digits {widest['digits_shape']}, query "
         f"{widest['query_shape']}): {widest['ms']:.4f} ms against a bound of {widest['bound_ms']:.4f} ms "
         f"({100 * widest['share_of_bound']:.1f}%), MAC {widest['mac_ms']:.4f} ms, digit bmm "
@@ -1268,7 +1452,8 @@ def serving_phases(args) -> list:
     phases = [(path, lambda path=path: {path: main_path(path, args.seed, args.batches)}) for path in PATHS]
     return phases + [("keyword", lambda: keyword_and_service(args.seed, args.batches)),
                      ("keyword_large", lambda: {"keyword_large": large_value_path(args.seed)}),
-                     ("spir", lambda: {"spir": spir_phase(args.seed)})]
+                     ("spir", lambda: {"spir": spir_phase(args.seed)})] + [
+        (label, lambda label=label: {label: pnns_path(label, args.seed, args.batches)}) for label in PNNS_PATHS]
 
 
 def dim0_only(args, card: str) -> int:

@@ -29,7 +29,9 @@ from ..core import rns as rnsmod
 from ..core.context import PolyContext, get_poly_context
 from ..core.poly import COEFF, EVAL, PolyRq
 from ..device import resolve_device
+from ..ops import galois as galoismod
 from ..ops import modarith as ma
+from ..ops import ntt as nttmod
 from ..params import EncryptionParameters
 from ..rng import sampling
 from ..rng.ctr_drbg import SystemRng, nist_aes128_ctr
@@ -74,6 +76,8 @@ class BfvContext:
             ]
         else:
             self.key_switching_contexts = []
+        self.simd_matrix = self._generate_encoding_matrix()
+        self.simd_index = None if self.simd_matrix is None else torch.from_numpy(self.simd_matrix).to(device)
         self._bsk_pool = rnsmod.bsk_prime_pool(degree, len(ct_moduli), bits)
         self._rns_tools: dict[int, rnsmod.RnsTool] = {}
 
@@ -86,6 +90,10 @@ class BfvContext:
         return self.params.plaintext_modulus
 
     @property
+    def supports_simd_encoding(self) -> bool:
+        return self.simd_matrix is not None
+
+    @property
     def supports_evaluation_key(self) -> bool:
         return self.params.supports_evaluation_key
 
@@ -96,6 +104,31 @@ class BfvContext:
                 ctx, self.plaintext_modulus, self._bsk_pool
             )
         return self._rns_tools[moduli_count]
+
+    def _generate_encoding_matrix(self) -> np.ndarray | None:
+        """SIMD slot -> Eval index, from powers of g=3, bit-reversed
+        (reference Encoding.swift:197-219); None where t is not
+        NTT-friendly for N."""
+        t = self.params.plaintext_modulus
+        n = self.params.poly_degree
+        if not nt.is_ntt_modulus(t, n):
+            return None
+        log2n = nt.log2_exact(n)
+        row_size = n >> 1
+        mask = (n << 1) - 1
+        idx = np.zeros(n, dtype=np.int64)
+        g_pow = 1
+        for i in range(row_size):
+            idx[i] = nt.reverse_bits((g_pow - 1) >> 1, log2n)
+            idx[row_size | i] = nt.reverse_bits((mask - g_pow) >> 1, log2n)
+            g_pow = (g_pow * 3) & mask
+        return idx
+
+    def simd_dimensions(self) -> tuple[int, int] | None:
+        """(rows, columns) of the SIMD slots, or None without SIMD."""
+        if not self.supports_simd_encoding:
+            return None
+        return (2, self.degree // 2)
 
 
 # ---------------------------------------------------------------------------
@@ -181,6 +214,31 @@ class Ciphertext:
         polys = [PolyRq(data[..., p, :, :], poly_context, fmt) for p in range(data.shape[-3])]
         return cls(context, polys, correction_factor)
 
+    # operator ergonomics (reference Ciphertext.swift:115-500)
+    def __add__(self, other):
+        if isinstance(other, Plaintext):
+            return ct_add_pt(self, other)
+        return ct_add(self, other)
+
+    def __sub__(self, other):
+        if isinstance(other, Plaintext):
+            return ct_sub_pt(self, other)
+        return ct_sub(self, other)
+
+    def __neg__(self):
+        return ct_neg(self)
+
+    def __mul__(self, other):
+        if isinstance(other, Plaintext):
+            return ct_mul_pt(self, other)
+        return ct_mul(self, other)
+
+    def decrypt(self, secret_key):
+        return decrypt(self, secret_key)
+
+    def noise_budget(self, secret_key):
+        return noise_budget(self, secret_key)
+
 
 # ---------------------------------------------------------------------------
 # Key generation
@@ -201,27 +259,74 @@ def generate_secret_key(context: BfvContext, rng=None) -> SecretKey:
 # ---------------------------------------------------------------------------
 
 
-def encode(context: BfvContext, values) -> Plaintext:
-    """Unsigned values in [0, t) -> Coeff plaintext, coefficient encoding
-    (reference Encoding.swift:160-234)."""
+def _checked_values(context: BfvContext, values) -> np.ndarray:
+    """values -> int64 array [..., k], k <= N, every value in [0, t)."""
     t = context.plaintext_modulus
-    n = context.degree
-    vals = np.asarray(list(values), dtype=np.int64)
-    if len(vals) > n:
-        raise errors.EncodingError(f"{len(vals)} values > degree {n}")
-    if len(vals) and (vals.min() < 0 or vals.max() >= t):
+    vals = np.asarray(values if isinstance(values, np.ndarray) else list(values), dtype=np.int64)
+    if vals.shape[-1:] and vals.shape[-1] > context.degree:
+        raise errors.EncodingError(f"{vals.shape[-1]} values > degree {context.degree}")
+    if vals.size and (vals.min() < 0 or vals.max() >= t):
         raise errors.EncodingError(f"value out of range [0, {t})")
-    row = np.zeros((1, n), dtype=np.int64)
-    row[0, : len(vals)] = vals
-    return Plaintext(context, PolyRq.from_values(row, context.plaintext_context, COEFF))
+    return vals
 
 
-def decode(context: BfvContext, plaintext: Plaintext) -> list[int]:
-    """Coefficient decoding of a plaintext (reference Encoding.swift)."""
+def encode(context: BfvContext, values, fmt: str = "coefficient") -> Plaintext:
+    """Unsigned values in [0, t) -> Coeff plaintext, in coefficient or SIMD
+    format (reference Encoding.swift:160-234)."""
+    vals = _checked_values(context, values)
+    if fmt == "coefficient":
+        row = np.zeros((1, context.degree), dtype=np.int64)
+        row[0, : len(vals)] = vals
+        return Plaintext(context, PolyRq.from_values(row, context.plaintext_context, COEFF))
+    if fmt == "simd":
+        data = encode_simd_batch(context, vals[None])[0]
+        return Plaintext(context, PolyRq(data, context.plaintext_context, COEFF))
+    raise errors.EncodingError(f"unknown format {fmt}")
+
+
+def encode_simd_batch(context: BfvContext, rows) -> torch.Tensor:
+    """SIMD-encode many plaintexts at once: integer array [B, k] (k <= N)
+    of values in [0, t) -> int64 [B, 1, N] Coeff data mod t on the
+    context's device. The values go to their slots' Eval positions, then
+    ONE inverse NTT mod t transforms the whole batch; row b equals
+    encode(context, rows[b], fmt="simd")."""
+    if not context.supports_simd_encoding:
+        raise errors.SimdEncodingNotSupported(str(context.params))
+    vals = _checked_values(context, rows)
+    B, k = vals.shape
+    ev = torch.zeros((B, 1, context.degree), dtype=torch.int64, device=context.device)
+    ev[:, 0, context.simd_index[:k]] = torch.from_numpy(vals).to(context.device)
+    return nttmod.inverse_ntt(ev, context.plaintext_context.ntt_tables)
+
+
+def encode_signed(context: BfvContext, values, fmt: str = "coefficient") -> Plaintext:
+    """Signed values in [-(t // 2), (t - 1) // 2] -> plaintext."""
+    t = context.plaintext_modulus
+    vals = np.asarray(list(values), dtype=np.int64)
+    lo, hi = -(t >> 1), (t - 1) >> 1
+    if vals.size and (vals.min() < lo or vals.max() > hi):
+        raise errors.EncodingError(f"signed value out of [{lo}, {hi}]")
+    return encode(context, np.mod(vals, t), fmt)
+
+
+def decode(context: BfvContext, plaintext: Plaintext, fmt: str = "coefficient") -> list[int]:
+    """Coefficient or SIMD decoding of a plaintext (reference Encoding.swift)."""
     pt = plaintext
     if pt.poly.fmt == EVAL or pt.poly.context is not context.plaintext_context:
         pt = plaintext_to_coeff(plaintext)
-    return [int(v) for v in pt.poly.to_values()[0]]
+    if fmt == "coefficient":
+        return [int(v) for v in pt.poly.to_values()[0]]
+    if fmt == "simd":
+        if not context.supports_simd_encoding:
+            raise errors.SimdEncodingNotSupported(str(context.params))
+        ev = polymod.forward_ntt(pt.poly).data[0]
+        return [int(v) for v in ev.index_select(-1, context.simd_index).cpu().numpy()]
+    raise errors.EncodingError(f"unknown format {fmt}")
+
+
+def decode_signed(context: BfvContext, plaintext: Plaintext, fmt: str = "coefficient") -> list[int]:
+    t = context.plaintext_modulus
+    return [v - t if v > (t - 1) >> 1 else v for v in decode(context, plaintext, fmt)]
 
 
 def centered_lift(coeffs: torch.Tensor, t: int, poly_ctx: PolyContext) -> torch.Tensor:
@@ -231,15 +336,27 @@ def centered_lift(coeffs: torch.Tensor, t: int, poly_ctx: PolyContext) -> torch.
     return torch.where(small, c, c + (poly_ctx.q_col - t))
 
 
-def batch_encode_to_eval(context: BfvContext, coeff_rows) -> torch.Tensor:
+def plaintext_to_eval(context: BfvContext, plaintext: Plaintext, moduli_count: int | None = None) -> Plaintext:
+    """Coeff (mod t) -> Eval (mod q_0..q_{c-1}) via the centered lift and
+    ONE forward NTT (reference Plaintext.convertToEvalFormat,
+    Plaintext.swift:149-171). The plaintext's data may carry leading batch
+    axes, [..., 1, N]: every plaintext of the batch is converted at once."""
+    if plaintext.poly.fmt == EVAL:
+        return plaintext
+    c = moduli_count or len(context.ciphertext_context.moduli)
+    poly_ctx = context.ciphertext_context.get_context(c)
+    lifted = centered_lift(plaintext.poly.data[..., 0, :], context.plaintext_modulus, poly_ctx)
+    return Plaintext(context, polymod.forward_ntt(PolyRq(lifted, poly_ctx, COEFF)))
+
+
+def batch_encode_to_eval(context: BfvContext, coeff_rows, moduli_count: int | None = None) -> torch.Tensor:
     """Batch-encode coefficient-format plaintexts (integer array [B, N] of
-    values mod t) into Eval form over the ciphertext moduli with ONE batched
-    NTT: returns int64 [B, L, N] on the context's device (database
-    processing, she_tpu's batch_encode_to_eval)."""
-    poly_ctx = context.ciphertext_context
+    values mod t) into Eval form over the first `moduli_count` ciphertext
+    moduli with ONE batched NTT: returns int64 [B, L, N] on the context's
+    device (database processing, she_tpu's batch_encode_to_eval)."""
     rows = torch.as_tensor(np.asarray(coeff_rows, dtype=np.int64), device=context.device)
-    lifted = centered_lift(rows, context.plaintext_modulus, poly_ctx)
-    return polymod.forward_ntt(PolyRq(lifted, poly_ctx, COEFF)).data
+    pt = Plaintext(context, PolyRq(rows.unsqueeze(-2), context.plaintext_context, COEFF))
+    return plaintext_to_eval(context, pt, moduli_count).poly.data
 
 
 def plaintext_to_coeff(plaintext: Plaintext) -> Plaintext:
@@ -400,6 +517,33 @@ def ct_sub(a: Ciphertext, b: Ciphertext) -> Ciphertext:
     )
 
 
+def ct_neg(a: Ciphertext) -> Ciphertext:
+    return Ciphertext(a.context, [polymod.neg(p) for p in a.polys], a.correction_factor)
+
+
+def ct_add_pt(a: Ciphertext, pt: Plaintext) -> Ciphertext:
+    return _plaintext_translate(a, pt, subtract=False)
+
+
+def ct_sub_pt(a: Ciphertext, pt: Plaintext) -> Ciphertext:
+    return _plaintext_translate(a, pt, subtract=True)
+
+
+def ct_mul_pt(a: Ciphertext, pt: Plaintext) -> Ciphertext:
+    """Eval ciphertext x Eval plaintext, pointwise
+    (reference Bfv.swift mulAssign(_:_:EvalPlaintext))."""
+    if a.fmt != EVAL or pt.poly.fmt != EVAL:
+        raise errors.InvalidFormat("ct*pt requires Eval formats")
+    if pt.poly.context is not a.polys[0].context:
+        raise errors.IncompatibleContexts("plaintext context mismatch")
+    return Ciphertext(a.context, [polymod.mul_eval(p, pt.poly) for p in a.polys], a.correction_factor)
+
+
+def is_transparent(a: Ciphertext) -> bool:
+    """All polys except the first are zero (reference Bfv+Encrypt.swift:48-62)."""
+    return not any(bool(torch.any(p.data != 0)) for p in a.polys[1:])
+
+
 def ct_to_eval(a: Ciphertext) -> Ciphertext:
     if a.fmt == EVAL:
         return a
@@ -533,7 +677,7 @@ def inner_product_ct_pt(cts: list[Ciphertext], pts: list) -> Ciphertext:
 
 
 # ---------------------------------------------------------------------------
-# Key switching: relinearize / Galois
+# Key switching: relinearize / Galois / rotations
 # ---------------------------------------------------------------------------
 
 
@@ -558,7 +702,6 @@ def relinearize(ct: Ciphertext, evaluation_key) -> Ciphertext:
 
 def apply_galois(ct: Ciphertext, element: int, evaluation_key) -> Ciphertext:
     """f(x) -> f(x^element) with key switching (reference Bfv.swift:174-198)."""
-    from ..ops import galois as galoismod
     from . import keys as keysmod
 
     if len(ct.polys) != 2:
@@ -577,6 +720,21 @@ def apply_galois(ct: Ciphertext, element: int, evaluation_key) -> Ciphertext:
     )
     c0 = polymod.add(PolyRq(perm[..., 0, :, :], ct_ctx, COEFF), u0)
     return Ciphertext(ct.context, [c0, u1], ct.correction_factor)
+
+
+def rotate_columns(ct: Ciphertext, step: int, evaluation_key) -> Ciphertext:
+    """SIMD column rotation (reference HeScheme.swift:1463-1470):
+    rotate_columns(ct, 1, ek) moves every slot of each row right by one."""
+    return apply_galois(ct, galoismod.rotating_columns_element(step, ct.context.degree), evaluation_key)
+
+
+def swap_rows(ct: Ciphertext, evaluation_key) -> Ciphertext:
+    """SIMD row swap (reference HeScheme.swift:1472-1477)."""
+    return apply_galois(ct, galoismod.swapping_rows_element(ct.context.degree), evaluation_key)
+
+
+def ct_mul_relin(a: Ciphertext, b: Ciphertext, evaluation_key) -> Ciphertext:
+    return relinearize(ct_mul(a, b), evaluation_key)
 
 
 def multiply_power_of_x(ct: Ciphertext, power: int) -> Ciphertext:

@@ -80,6 +80,15 @@ class EvaluationKeyConfig:
             self.has_relinearization_key or other.has_relinearization_key,
         )
 
+    def contains(self, other: "EvaluationKeyConfig") -> bool:
+        return set(other.galois_elements) <= set(self.galois_elements) and (
+            self.has_relinearization_key or not other.has_relinearization_key
+        )
+
+    @property
+    def key_count(self) -> int:
+        return len(self.galois_elements) + (1 if self.has_relinearization_key else 0)
+
 
 def generate_key_switch_key(context, current_key: torch.Tensor, target_key, err_rng=None) -> KeySwitchKey:
     """Key-switch key from `current_key` (Eval [>= L_top, N] over the

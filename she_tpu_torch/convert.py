@@ -5,9 +5,9 @@ she_tpu stores a polynomial as a uint32 limb array [W, ..., L, N]
 stores one int64 word per coefficient, [..., L, N]. The functions here
 convert plain numpy arrays in both directions, and rebuild the port's
 secret key, evaluation key, processed database and queries from such
-arrays, so both packages can be fed the same state. Evaluation-key
-generation draws fresh seeds, so a comparison has to carry keys across,
-not regenerate them. This module works on arrays only and imports nothing
+arrays (PNNS processed databases, queries and responses too), so both
+packages can be fed the same state. Evaluation-key generation draws fresh
+seeds, so a comparison has to carry keys across, not regenerate them. This module works on arrays only and imports nothing
 of she_tpu.
 """
 
@@ -143,3 +143,47 @@ def processed_database_to_limbs(db: ip.ProcessedDatabase) -> list:
     nl = _nlimbs(db.context)
     arr = int64_to_limbs(db.data.cpu().numpy(), nl)  # [W, count, L, N]
     return [arr[:, i] if db.present[i] else None for i in range(db.count)]
+
+
+# -- PNNS -------------------------------------------------------------------------
+
+
+def pnns_processed_database_from_limbs(config, contexts: list, dimensions, matrices: list, entry_ids: list,
+                                       entry_metadatas: list):
+    """A PNNS processed database from she_tpu's arrays. config: the port's
+    pnns.ServerConfig; contexts: the port's BFV context per plaintext
+    modulus; dimensions: (rows, columns); matrices: per plaintext modulus,
+    per plaintext, uint32 [W, L, N] Eval limbs."""
+    from .pnns import pnns
+
+    dims = pnns.MatrixDimensions(*dimensions)
+    plaintext_matrices = []
+    for ctx, pts in zip(contexts, matrices):
+        data = tensor_from_limbs(np.stack([np.asarray(p) for p in pts], axis=1), ctx.device)  # [P, L, N]
+        poly_ctx = ctx.ciphertext_context.get_context(data.shape[-2])
+        plaintexts = [bfv.Plaintext(ctx, PolyRq(d, poly_ctx, EVAL)) for d in data]
+        plaintext_matrices.append(pnns.PlaintextMatrix(dims, config.database_packing, plaintexts, ctx))
+    return pnns.ProcessedDatabase(contexts, plaintext_matrices, list(entry_ids), list(entry_metadatas), config)
+
+
+def pnns_processed_database_to_limbs(db) -> list:
+    """Per plaintext modulus, per plaintext, uint32 [W, L, N] Eval limbs."""
+    return [[limbs_from_tensor(pt.poly.data, _nlimbs(m.context)) for pt in m.plaintexts]
+            for m in db.plaintext_matrices]
+
+
+def pnns_query_from_limbs(contexts: list, dimensions, packing, matrices: list):
+    """A PNNS query from she_tpu's arrays. matrices: per plaintext modulus,
+    per ciphertext, per poly uint32 [W, L, N] Coeff limbs."""
+    from .pnns import pnns
+
+    dims = pnns.MatrixDimensions(*dimensions)
+    return pnns.Query([
+        pnns.CiphertextMatrix(dims, packing, [ciphertext_from_limbs(ctx, ct) for ct in cts], ctx)
+        for ctx, cts in zip(contexts, matrices)
+    ])
+
+
+def pnns_response_to_limbs(response) -> list:
+    """Per plaintext modulus, per ciphertext, per poly uint32 [W, L, N]."""
+    return [[ciphertext_to_limbs(ct) for ct in m.ciphertexts] for m in response.ciphertext_matrices]

@@ -4,19 +4,24 @@ ApplicationProtobuf conversions).
 The HE and PIR half of she_tpu/io/proto_conversion.py:18-287: encryption
 parameters, ciphertexts (seeded, full, and the skip-LSB form for
 decryption), key-switch, evaluation and secret keys, sharding functions,
-PIR parameters, the keyword database, and PIR queries and responses. The
-bytes inside the messages are io/serialize.py's, so both packages write
-the same messages. The PNNS half waits for PNNS.
+PIR parameters, the keyword database, and PIR queries and responses; and
+the PNNS half (:288-422): matrix packings, plaintext and ciphertext
+matrices, client and server configs, and the vector database. The bytes
+inside the messages are io/serialize.py's, so both packages write the same
+messages.
 """
 
 from __future__ import annotations
 
+import numpy as np
+
 from .. import errors
 from .. import params as paramsmod
 from ..bfv import keys as keysmod
-from ..core.poly import COEFF
+from ..core.poly import COEFF, EVAL
 from ..pir import index_pir as ip
 from ..pir import keyword_pir as kp
+from ..pnns import pnns
 from . import pb
 from . import serialize as ser
 
@@ -264,3 +269,123 @@ def pir_response_to_proto(response: ip.Response) -> list:
 
 def pir_response_from_proto(vecs, context) -> ip.Response:
     return ip.Response([ciphertexts_from_proto(vec.ciphertexts, context, moduli_count=1) for vec in vecs])
+
+
+# -- PNNS ---------------------------------------------------------------------------
+
+
+def matrix_packing_to_proto(packing: pnns.MatrixPacking):
+    msg = pb.pnns_pb2.MatrixPacking()
+    if packing.kind == "denseRow":
+        msg.dense_row.SetInParent()
+    elif packing.kind == "denseColumn":
+        msg.dense_column.SetInParent()
+    else:
+        b = msg.diagonal.baby_step_giant_step
+        b.vector_dimension = packing.bsgs.vector_dimension
+        b.baby_step = packing.bsgs.baby_step
+        b.giant_step = packing.bsgs.giant_step
+    return msg
+
+
+def matrix_packing_from_proto(msg) -> pnns.MatrixPacking:
+    which = msg.WhichOneof("matrix_packing_type")
+    if which == "dense_row":
+        return pnns.MatrixPacking.dense_row()
+    if which == "dense_column":
+        return pnns.MatrixPacking.dense_column()
+    b = msg.diagonal.baby_step_giant_step
+    return pnns.MatrixPacking.diagonal(
+        pnns.BabyStepGiantStep(int(b.vector_dimension), int(b.baby_step), int(b.giant_step))
+    )
+
+
+def plaintext_matrix_to_proto(matrix: pnns.PlaintextMatrix):
+    msg = pb.pnns_pb2.SerializedPlaintextMatrix()
+    msg.num_rows = matrix.dimensions.row_count
+    msg.num_columns = matrix.dimensions.column_count
+    msg.packing.CopyFrom(matrix_packing_to_proto(matrix.packing))
+    for pt in matrix.plaintexts:
+        msg.plaintexts.append(serialized_plaintext_to_proto(ser.serialize_plaintext(pt)))
+    return msg
+
+
+def plaintext_matrix_from_proto(msg, context, fmt=EVAL) -> pnns.PlaintextMatrix:
+    pts = [ser.deserialize_plaintext(bytes(p.poly), context, fmt) for p in msg.plaintexts]
+    return pnns.PlaintextMatrix(
+        pnns.MatrixDimensions(int(msg.num_rows), int(msg.num_columns)),
+        matrix_packing_from_proto(msg.packing), pts, context,
+    )
+
+
+def ciphertext_matrix_to_proto(matrix: pnns.CiphertextMatrix):
+    msg = pb.pnns_pb2.SerializedCiphertextMatrix()
+    msg.num_rows = matrix.dimensions.row_count
+    msg.num_columns = matrix.dimensions.column_count
+    msg.packing.CopyFrom(matrix_packing_to_proto(matrix.packing))
+    for ct in matrix.ciphertexts:
+        msg.ciphertexts.append(ciphertext_to_proto(ct))
+    return msg
+
+
+def ciphertext_matrix_from_proto(msg, context, fmt=COEFF, moduli_count=None) -> pnns.CiphertextMatrix:
+    return pnns.CiphertextMatrix(
+        pnns.MatrixDimensions(int(msg.num_rows), int(msg.num_columns)),
+        matrix_packing_from_proto(msg.packing),
+        ciphertexts_from_proto(msg.ciphertexts, context, fmt, moduli_count),
+        context,
+    )
+
+
+def pnns_client_config_to_proto(config: pnns.ClientConfig):
+    msg = pb.pnns_pb2.ClientConfig()
+    msg.encryption_parameters.CopyFrom(encryption_parameters_to_proto(config.encryption_parameters[0]))
+    msg.scaling_factor = config.scaling_factor
+    msg.query_packing.CopyFrom(matrix_packing_to_proto(config.query_packing))
+    msg.vector_dimension = config.vector_dimension
+    msg.galois_elements.extend(config.evaluation_key_config.galois_elements)
+    msg.distance_metric = pb.pnns_pb2.DISTANCE_METRIC_COSINE_SIMILARITY
+    msg.extra_plaintext_moduli.extend(config.extra_plaintext_moduli)
+    return msg
+
+
+def pnns_client_config_from_proto(msg, scalar_bits: int = 64) -> pnns.ClientConfig:
+    return pnns.ClientConfig.create(
+        encryption_parameters_from_proto(msg.encryption_parameters, scalar_bits),
+        int(msg.scaling_factor),
+        matrix_packing_from_proto(msg.query_packing),
+        int(msg.vector_dimension),
+        keysmod.EvaluationKeyConfig(tuple(int(e) for e in msg.galois_elements)),
+        extra_plaintext_moduli=tuple(int(t) for t in msg.extra_plaintext_moduli),
+    )
+
+
+def pnns_server_config_to_proto(config: pnns.ServerConfig):
+    msg = pb.pnns_pb2.ServerConfig()
+    msg.client_config.CopyFrom(pnns_client_config_to_proto(config.client_config))
+    msg.database_packing.CopyFrom(matrix_packing_to_proto(config.database_packing))
+    return msg
+
+
+def pnns_server_config_from_proto(msg, scalar_bits: int = 64) -> pnns.ServerConfig:
+    return pnns.ServerConfig(
+        pnns_client_config_from_proto(msg.client_config, scalar_bits),
+        matrix_packing_from_proto(msg.database_packing),
+    )
+
+
+def pnns_database_to_proto(database: pnns.Database):
+    msg = pb.pnns_pb2.Database()
+    for row in database.rows:
+        r = msg.rows.add()
+        r.entry_id = row.entry_id
+        r.entry_metadata = bytes(row.entry_metadata)
+        r.vector.extend(float(v) for v in row.vector)
+    return msg
+
+
+def pnns_database_from_proto(msg) -> pnns.Database:
+    return pnns.Database([
+        pnns.DatabaseRow(int(r.entry_id), bytes(r.entry_metadata), np.array(r.vector, dtype=np.float32))
+        for r in msg.rows
+    ])

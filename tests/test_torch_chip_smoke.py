@@ -13,8 +13,21 @@ def test_default_run_selects_every_phase():
     args = chip_smoke.parse_args([])
     assert (args.only, args.batches) == (None, 3)
     names = [name for name, _ in chip_smoke.serving_phases(args)]
-    assert names == ["w32", "w64", "keyword", "keyword_large", "spir"]
+    assert names == ["w32", "w64", "keyword", "keyword_large", "spir",
+                     "pnns_4096x128_w32_b16", "pnns_4096x128_w64_b16"]
     assert names[:2] == list(chip_smoke.PATHS)
+    assert names[-2:] == list(chip_smoke.PNNS_PATHS)
+
+
+def test_pnns_cells():
+    """The PNNS phases serve bench.py's bench_pnns and bench_pnns_w64: a
+    4,096 x 128 database at n_4096_logq_27_28_28_logt_17, 32- and 64-bit
+    scalars, 16 queries a batch."""
+    assert chip_smoke.PNNS_PATHS == {
+        "pnns_4096x128_w32_b16": ("n_4096_logq_27_28_28_logt_17", 32),
+        "pnns_4096x128_w64_b16": ("n_4096_logq_27_28_28_logt_17", 64),
+    }
+    assert (chip_smoke.PNNS_DB, chip_smoke.PNNS_BATCH) == ((4096, 128), 16)
 
 
 def test_only_dim0_selects_the_dim0_cases():

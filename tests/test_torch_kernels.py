@@ -144,3 +144,50 @@ def test_wide_arithmetic_on_cuda_equals_cpu(q):
         assert torch.equal(got.cpu(), want)
     want = [[(int(x) * int(y)) % m for x, y in zip(a[1, i, :64], b[1, i, :64])] for i, m in enumerate(moduli)]
     assert run(dev)[0][1, :, :64].tolist() == want
+
+
+SIMD_MODULUS = (1 << 16) + 1  # t of n_4096_logq_27_28_28_logt_17: 17 bits, 1 mod 2N up to N = 32768
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [(), (16,), (128,)], ids=["one", "16", "128"])
+@pytest.mark.parametrize("degree", [8, 4096])
+def test_kernel_matches_plain_at_the_plaintext_modulus(degree, batch):
+    """SIMD encoding's NTTs: one 17-bit NTT-friendly modulus (L = 1), at
+    [..., 1, N] (one plaintext, a query batch, the PNNS database's 128
+    diagonals), on the 32-bit route."""
+    dev = _card()
+    tables = tntt.build_ntt_tables((SIMD_MODULUS,), degree, dev)
+    assert tables.word_bits == 32
+    x = _rows((SIMD_MODULUS,), degree, max(1, int(np.prod(batch))), seed=degree).reshape(batch + (1, degree)).to(dev)
+    fwd = ntt_cuda.forward(x.contiguous(), tables)
+    assert torch.equal(fwd, tntt.forward_ntt_plain(x, tables))
+    inv = ntt_cuda.inverse(x.contiguous(), tables)
+    assert torch.equal(inv, tntt.inverse_ntt_plain(x, tables))
+    assert torch.equal(ntt_cuda.inverse(fwd, tables), x)
+
+
+@pytest.mark.gpu
+def test_simd_encoding_on_the_card_equals_the_cpu():
+    """bfv.encode_simd_batch and SIMD decoding at n_4096_logq_27_28_28_logt_17
+    launch the kernels on the card and give the CPU's bits."""
+    from she_tpu_torch import params as tparams
+    from she_tpu_torch.bfv import bfv
+    from she_tpu_torch.core.poly import COEFF, PolyRq
+
+    dev = _card()
+    ep = tparams.from_predefined("n_4096_logq_27_28_28_logt_17", 32)
+    rows = np.random.default_rng(17).integers(0, ep.plaintext_modulus, size=(8, 4096))
+    got = {}
+    for device in (dev, torch.device("cpu")):
+        ctx = bfv.get_bfv_context(ep, device=device)
+        before = dict(ntt_cuda.launches)
+        data = bfv.encode_simd_batch(ctx, rows)
+        pt = bfv.Plaintext(ctx, PolyRq(data[3], ctx.plaintext_context, COEFF))
+        got[device.type] = (data.cpu(), bfv.decode(ctx, pt, "simd"),
+                            bfv.plaintext_to_eval(ctx, pt).poly.data.cpu())
+        launched = {k: ntt_cuda.launches[k] - before[k] for k in ("ntt_forward", "ntt_inverse")}
+        on_card = device.type == "cuda"
+        assert launched == {"ntt_forward": 2 * on_card, "ntt_inverse": 1 * on_card}
+    assert torch.equal(got["cuda"][0], got["cpu"][0]) and torch.equal(got["cuda"][2], got["cpu"][2])
+    assert got["cuda"][1] == got["cpu"][1] == rows[3].tolist()
