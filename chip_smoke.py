@@ -55,7 +55,18 @@ then PNNS (BatchedPnnsServer), 16 cosine-similarity queries a batch over a
    against the per-query pnns.Server and the stream against the batch;
    split a batch's device time by stage and profile one more; the NTT is
    held to its plain version at the set-up's launch shapes too;
-9. print one JSON line with every kernel's numbers, and as the last line
+9. SimplePIR (simple_pir_path), cell simplepir_256k_x_4KiB_b32: a 1 GiB
+   database of 262,144 entries x 4 KiB processed on the card (packing,
+   then the hint through the NTT kernel), 32 queries made with the port's
+   client, 3 batches of their 32 stacked request rows and one per-query
+   call through the simple_pir_matmul kernel; every answer must decrypt to
+   its entry; the kernel held bit-equal to its plain version at both
+   launched shapes and timed beside its bound and a float64 torch.matmul;
+10. the command-line tools (cli_phase), in process on the card: generate,
+   shard and process a keyword database, an mmap dictionary of it, a PNNS
+   database generated and processed, 16,384 x 4 KiB entries processed for
+   SimplePIR, and the warm tool for PIR and PNNS;
+11. print one JSON line with every kernel's numbers, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without the last line. Run from the repository
@@ -64,6 +75,9 @@ root:  python3 chip_smoke.py [--batches 3] [--seed 0] [--json-out FILE]
 The default runs every phase. `--only dim0` builds the kernels and runs
 only step 6's int8 dim-0 cases, at every shape of DIM0_SERVED_SHAPES and
 the w64 check, then prints the kernels line and the last line.
+`--only simple_pir` builds the kernels and runs step 9 alone (its NTT
+shapes held and timed too), then prints the kernels line and the last
+line.
 """
 
 from __future__ import annotations
@@ -111,6 +125,23 @@ PNNS_PATHS = {
 }
 PNNS_DB = (4096, 128)  # database rows x vector dimension
 PNNS_BATCH = 16
+# SimplePIR (Henzinger et al., USENIX Security 2023, evaluate a 1 GB
+# database): 262,144 entries x 4 KiB from default_rng(seed); p = 9 as
+# she_tpu's tool defaults (cli/simple_pir_process_database.py:27); b = 32
+# and n = 2048 in place of its b = 21, n = 1024, at which no answer
+# decrypts (q' - 2^21 = 4097 > Delta / 2 = 2048); b = 32 is within the
+# 128-bit table at n = 2048 (41 bits)
+SIMPLE_PIR_CELL = "simplepir_256k_x_4KiB_b32"
+SIMPLE_PIR_DB = (262_144, 4096)  # entries x bytes
+SIMPLE_PIR_PARAMS = (9, 32, 2048)  # plaintext bits p, ciphertext bits b, lattice dimension n
+SIMPLE_PIR_BATCH = 32
+# the CLI phase: keyword rows (1 B values, 2 shards), the warm tool's PIR
+# entries and batch, SimplePIR entries x bytes at the tool's defaults
+CLI_KEYWORD_ROWS = 10_000
+CLI_WARM_PIR = (100_000, 16)
+CLI_SIMPLE_PIR_DB = (16_384, 4096)
+CLI_SIMPLE_PIR_ROWS = 3641  # ceil(8 * 4096 / 9): the hint's rows
+CLI_SIMPLE_PIR_DEGREE = 1024  # the tool's default lattice dimension
 
 
 def log(msg: str) -> None:
@@ -185,31 +216,36 @@ def prod(shape) -> int:
 def reset_counts() -> None:
     """Every kernel's launch count and launch shapes, and the plain NTT's
     count on CUDA tensors, set to 0: just before a path is driven."""
-    from she_tpu_torch.ops import dim0_cuda, ntt, ntt_cuda
+    from she_tpu_torch.ops import dim0_cuda, ntt, ntt_cuda, simple_pir_cuda
 
     ntt_cuda.reset_launches()
     dim0_cuda.reset_launches()
+    simple_pir_cuda.reset_launches()
     for k in ntt.plain_calls_on_cuda:
         ntt.plain_calls_on_cuda[k] = 0
 
 
-def read_counts(label: str, use_dim0_int8: bool) -> dict:
+def read_counts(label: str, use_dim0_int8: bool, simple_pir: bool = False) -> dict:
     """The counts of the path just driven. Fails if a kernel of the path
     never launched, if the int8 dim-0 kernel launched on a path that serves
-    the MAC form, or if the plain NTT ran on CUDA tensors."""
-    from she_tpu_torch.ops import dim0_cuda, ntt, ntt_cuda
+    the MAC form, if the SimplePIR kernel launched on another protocol's
+    path, or if the plain NTT ran on CUDA tensors."""
+    from she_tpu_torch.ops import dim0_cuda, ntt, ntt_cuda, simple_pir_cuda
 
-    launches = dict(ntt_cuda.launches) | dict(dim0_cuda.launches)
+    launches = dict(ntt_cuda.launches) | dict(dim0_cuda.launches) | dict(simple_pir_cuda.launches)
     plain_on_cuda = dict(ntt.plain_calls_on_cuda)
-    path_kernels = ["ntt_forward", "ntt_inverse"] + (["dim0_int8"] if use_dim0_int8 else [])
+    path_kernels = (["ntt_forward", "ntt_inverse"] + (["dim0_int8"] if use_dim0_int8 else [])
+                    + (["simple_pir_matmul"] if simple_pir else []))
     if any(launches[k] == 0 for k in path_kernels):
         raise AssertionError(f"[{label}] a kernel of the path never launched: {launches}")
     if not use_dim0_int8 and launches["dim0_int8"]:
         raise AssertionError(f"[{label}] the int8 dim-0 kernel ran on a MAC path: {launches}")
+    if not simple_pir and launches["simple_pir_matmul"]:
+        raise AssertionError(f"[{label}] the SimplePIR kernel ran on another path: {launches}")
     if any(plain_on_cuda.values()):
         raise AssertionError(f"[{label}] the plain NTT ran on CUDA tensors: {plain_on_cuda}")
     return dict(launches=launches, launch_shapes=dict(ntt_cuda.launch_shapes),
-                dim0_shapes=dict(dim0_cuda.launch_shapes))
+                dim0_shapes=dict(dim0_cuda.launch_shapes), simple_pir_shapes=dict(simple_pir_cuda.launch_shapes))
 
 
 def kernel_bound_ms(shape, moduli, degree) -> float:
@@ -1333,6 +1369,344 @@ def pnns_path(label: str, seed: int, batches: int) -> dict:
     )
 
 
+def simple_pir_bound(pd: int, rows: int, k: int, columns: int, bits: int, plaintext_bits: int) -> dict:
+    """The least time of one SimplePIR product: the D planes the work needs
+    (P_D * R * C bytes, without the padding of C), the int64 query read
+    once and the int64 output written once over the memory rate, and its
+    u8 operations (2 P_D P_Q R C k) over the int8 tensor-core rate. Beside
+    it, `data_bound_ms`: the same with D read at p bits an entry, the floor
+    of any layout (the planes spend P_D bytes on p bits)."""
+    from she_tpu_torch.ops import simple_pir_cuda
+
+    io_bytes = 8 * k * columns + 8 * k * rows
+    nbytes = pd * rows * columns + io_bytes
+    data_bytes = -(-rows * columns * plaintext_bits // 8) + io_bytes
+    ops = 2 * pd * simple_pir_cuda.plane_count(bits) * rows * columns * k
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / INT8_OPS_PER_S
+    return dict(bytes=nbytes, operations=ops, bytes_ms=bytes_ms, operations_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                data_bytes=data_bytes, data_bound_ms=1e3 * data_bytes / HBM_BYTES_PER_S)
+
+
+def float64_product_ms(database, queries, bits: int, want) -> tuple[float, int]:
+    """The yardstick: one float64 torch.matmul of the database (held as
+    float64) by the queries cut into 16-bit pieces side by side ([R, C] x
+    [C, pieces * k]), exact while (2^p - 1) (2^16 - 1) C < 2^53; the pieces'
+    sums recombined mod 2^b must equal `want` (the kernel's answer). Returns
+    (ms of the matmul alone, pieces)."""
+    import torch
+
+    pieces = -(-bits // 16)
+    columns = database.shape[1]
+    top = int(database.max())
+    if top * 0xFFFF * columns >= 1 << 53:
+        raise AssertionError("the float64 yardstick is not exact at this shape")
+    d = database.to(torch.float64)
+    q = torch.cat([((queries >> (16 * j)) & 0xFFFF) for j in range(pieces)]).to(torch.float64).T.contiguous()
+    out = torch.matmul(d, q).to(torch.int64)  # [R, pieces * k]
+    k = queries.shape[0]
+    got = sum((out[:, j * k : (j + 1) * k] & ((1 << bits) - 1)) << (16 * j) for j in range(pieces)) & ((1 << bits) - 1)
+    if not torch.equal(got.T, want):
+        raise AssertionError("the float64 yardstick disagrees with the kernel")
+    ms = cuda_ms(lambda: torch.matmul(d, q), 3)
+    del d, q, out, got
+    torch.cuda.empty_cache()
+    return ms, pieces
+
+
+def simple_pir_case(label: str, planes, queries, database, bits: int, plaintext_bits: int, count: int,
+                    batches: int) -> dict:
+    """simple_pir_matmul at one launched shape, on the served planes and
+    request rows: bit-equal to its plain version (float64 plane products on
+    the card), then timed with CUDA events (the kernel over 20 launches,
+    the plain version and the float64 yardstick over 3) beside its bound."""
+    import torch
+
+    from she_tpu_torch.ops import simple_pir_cuda
+
+    got = simple_pir_cuda.simple_pir_matmul_cuda(planes, queries, bits)
+    err = int((got - simple_pir_cuda.simple_pir_matmul_plain(planes, queries, bits)).abs().max())
+    if err:
+        raise AssertionError(f"{label} simple_pir_matmul at planes {tuple(planes.data.shape)}, queries "
+                             f"{tuple(queries.shape)}: max |kernel - plain| = {err}")
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: simple_pir_cuda.simple_pir_matmul_cuda(planes, queries, bits), 20)
+    plain_ms = cuda_ms(lambda: simple_pir_cuda.simple_pir_matmul_plain(planes, queries, bits), 3)
+    torch.cuda.empty_cache()
+    library_ms, pieces = float64_product_ms(database, queries, bits, got)
+    bound = simple_pir_bound(planes.data.shape[0], planes.rows, queries.shape[0], queries.shape[1], bits,
+                             plaintext_bits)
+    row = dict(path=label, planes_shape=list(planes.data.shape), query_shape=list(queries.shape), bits=bits,
+               launches_per_batch=count / batches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, library_pieces=pieces, **bound, share_of_bound=bound["bound_ms"] / ms)
+    log(f"{label} simple_pir_matmul planes {tuple(planes.data.shape)} ({planes.rows} rows) x queries "
+        f"{tuple(queries.shape)} mod 2^{bits}: "
+        f"bit-equal to plain; kernel {ms:.4f} ms, plain (float64 plane products) {plain_ms:.4f} ms, float64 "
+        f"matmul of {pieces} 16-bit pieces {library_ms:.4f} ms; bound {bound['bound_ms']:.4f} ms by "
+        f"{bound['bound_by']} ({bound['bytes']} bytes, {bound['operations']} u8 operations), "
+        f"{100 * bound['bound_ms'] / ms:.1f}% of bound; at p = {plaintext_bits} bits an entry "
+        f"{bound['data_bound_ms']:.4f} ms ({bound['data_bytes']} bytes), {100 * bound['data_bound_ms'] / ms:.1f}%")
+    del got
+    torch.cuda.empty_cache()
+    return row
+
+
+def batch_span(run) -> dict:
+    """One more batch, run(), between two CUDA events: its wall time, the
+    device's span from the first launch to the last, and the idle share
+    1 - span / wall. (torch.profiler's key_averages() reports no device
+    time for a batch made only of ctypes launches.)"""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    span_ms = start.elapsed_time(end)
+    return dict(wall_ms=wall_ms, span_ms=span_ms, idle_share=1 - span_ms / wall_ms)
+
+
+def simple_pir_path(seed: int, batches: int) -> dict:
+    """SimplePIR as a user drives it: a 1 GiB database of SIMPLE_PIR_DB
+    entries from default_rng(seed) processed on the card (packing, then the
+    hint through the NTT), a server (the database's byte planes) and a
+    client (the A polynomials to Eval), SIMPLE_PIR_BATCH queries (one
+    precompute_query + add(index) each, distinct random indices, the
+    system's randomness as a client's), `batches` batches of their stacked
+    request rows and one per-query call. The counts are read around all of
+    it. Every answer must decrypt to its entry's bytes; then the kernel is
+    held to its plain version and timed at each launched shape."""
+    import numpy as np
+    import torch
+
+    from she_tpu_torch.pir import simple_pir as sp
+
+    label = SIMPLE_PIR_CELL
+    count, size = SIMPLE_PIR_DB
+    p_bits, b_bits, n = SIMPLE_PIR_PARAMS
+    ep = sp.SimplePirEncryptionParams(p_bits, b_bits, n)  # QUANTUM128: b <= 41 at n = 2048
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    entries = np.frombuffer(rng.bytes(count * size), dtype=np.uint8).reshape(count, size)
+    generate_s = time.perf_counter() - t0
+
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks = {}
+
+    def mark(stage: str) -> None:
+        torch.cuda.synchronize()
+        marks[stage] = time.perf_counter()
+
+    t0 = time.perf_counter()
+    results = sp.process_database(entries, ep, seed=seed.to_bytes(4, "little") * 8, on_stage=mark)
+    pack_s, hint_s = marks["pack"] - t0, marks["hint"] - marks["pack"]
+    params = results.params
+    log(f"[{label}] p = {p_bits}, b = {b_bits}, n = {n}: {count} entries x {size} bytes ({count * size} bytes, made in "
+        f"{generate_s:.3f} s) -> database {tuple(results.database.shape)} {results.database.dtype}, "
+        f"{params.a_poly_count} A polynomials, hint {tuple(results.hint.shape)}; packing {pack_s:.3f} s, hint "
+        f"{hint_s:.3f} s")
+    t0 = time.perf_counter()
+    server = sp.SimplePirServer(results.database, results.hint, params)
+    client = sp.SimplePirClient(params, results.hint)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    indices = [int(i) for i in rng.choice(count, size=SIMPLE_PIR_BATCH, replace=False)]
+    query_s, queries = [], []
+    for index in indices:
+        t0 = time.perf_counter()
+        queries.append(client.precompute_query().add(index))
+        torch.cuda.synchronize()
+        query_s.append(time.perf_counter() - t0)
+    prepared = [q.prepare_response() for q in queries]
+    requests = torch.cat([q.queries for q in queries])
+    batch_s, answers = [], []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        answers.append(server.compute_response(requests))
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    single = server.compute_response(queries[0].queries)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    counts = read_counts(label, False, simple_pir=True)
+    peak = torch.cuda.max_memory_allocated()
+    served_shapes = {(tuple(server.planes.data.shape), server.planes.rows, tuple(q.shape), b_bits): c
+                     for q, c in ((requests, batches), (queries[0].queries, 1))}
+    if counts["simple_pir_shapes"] != served_shapes:
+        raise AssertionError(f"[{label}] SimplePIR launches {counts['simple_pir_shapes']}, expected {served_shapes}")
+
+    t0 = time.perf_counter()
+    for answer in answers[1:]:
+        if not torch.equal(answer, answers[0]):
+            raise AssertionError(f"[{label}] a repeated batch gave other answers")
+    rows = params.chunks_per_entry  # request rows a query
+    if not torch.equal(single, answers[0][:rows]):
+        raise AssertionError(f"[{label}] the per-query answer differs from the batch's")
+    wrong = [(b, i) for b, answer in enumerate(answers) for i, index in enumerate(indices)
+             if client.decrypt(answer[i * rows : (i + 1) * rows], prepared[i], index) != entries[index].tobytes()]
+    wrong += [("single", 0)] if client.decrypt(single, prepared[0], indices[0]) != entries[indices[0]].tobytes() else []
+    if wrong:
+        raise AssertionError(f"[{label}] {len(wrong)} answers do not decrypt to their entries: {wrong[:8]}")
+    check_s = time.perf_counter() - t0
+    median = statistics.median(batch_s)
+    log(f"[{label}] {SIMPLE_PIR_BATCH} queries (host s a client: median {statistics.median(query_s):.4f}, max "
+        f"{max(query_s):.4f}); batches {[round(x, 5) for x in batch_s]} s: median {median:.5f} s, max "
+        f"{max(batch_s):.5f} s, {SIMPLE_PIR_BATCH / median:.2f} queries/s; per-query call {single_s:.5f} s; "
+        f"all {batches} x {SIMPLE_PIR_BATCH} + 1 answers decrypt to their entries ({check_s:.3f} s); server and "
+        f"client set up in {setup_s:.3f} s; peak device memory {peak} bytes ({peak / 2**30:.3f} GiB); kernel "
+        f"launches {counts['launches']}")
+
+    span = batch_span(lambda: server.compute_response(requests))
+    rows = [simple_pir_case(label, server.planes, q, results.database, b_bits, p_bits, c, batches)
+            for q, c in ((requests, batches), (queries[0].queries, 1))]
+    del server, client, results, requests, answers, single, queries, prepared, entries
+    torch.cuda.empty_cache()
+    return dict(
+        path=label, params=f"p={p_bits},b={b_bits},n={n}", entries=count, entry_size=size, batch=SIMPLE_PIR_BATCH,
+        database_shape=[params.column_size, params.database_columns], a_poly_count=params.a_poly_count,
+        generate_s=generate_s, process_s=pack_s + hint_s, pack_s=pack_s, hint_s=hint_s, setup_s=setup_s,
+        query_s=query_s, median_query_s=statistics.median(query_s), batch_s=batch_s, median_s_per_batch=median,
+        max_s_per_batch=max(batch_s), queries_per_s=SIMPLE_PIR_BATCH / median, single_s=single_s, peak_bytes=peak,
+        span=span,
+        launches=counts["launches"], launch_shapes=counts["launch_shapes"], dim0_shapes=counts["dim0_shapes"],
+        simple_pir_rows=rows, served_batches=batches,
+        batches=1,  # the NTT runs in the set-up and the clients, not per batch: shape_timing counts a run
+    )
+
+
+def simple_pir_kernel_entry(rows: list, launches: dict) -> dict:
+    """simple_pir_matmul's entry of the kernels line, at the widest of
+    `rows` (simple_pir_case results)."""
+    widest = max(rows, key=lambda r: r["bytes"])
+    return dict(
+        name="simple_pir_matmul", route="cuda", source="she_tpu_torch/csrc/simple_pir_matmul.cu",
+        replaces="she_tpu/pir/simple_pir.py:283", launches=sum(launches.values()), launches_by_path=launches,
+        max_abs_err=max(r["max_abs_err"] for r in rows), ms=widest["ms"], plain_ms=widest["plain_ms"],
+        bound_ms=widest["bound_ms"], bound_by=widest["bound_by"], library_ms=widest["library_ms"],
+        data_bound_ms=widest["data_bound_ms"], library="torch.matmul in float64: the database held as float64 by the queries cut into 16-bit pieces",
+        widest_planes_shape=widest["planes_shape"], widest_query_shape=widest["query_shape"], shapes=rows,
+    )
+
+
+def ntt_kernel_entries(shapes: dict, paths: dict, checked: dict | None) -> list:
+    """The NTT kernels' entries of the kernels line, at the widest shape of
+    `shapes` (shape_timing rows by kernel), with `checked` (kernel_phase's
+    result) where the run made it."""
+    out = []
+    for name, line in (("ntt_forward", 217), ("ntt_inverse", 261)):
+        widest = max(shapes[name], key=lambda r: prod(r["shape"]))
+        errs = [r["max_abs_err"] for r in shapes[name]] + ([checked["max_abs_err"][name]] if checked else [])
+        out.append(dict(
+            name=name, route="cuda", source="she_tpu_torch/csrc/ntt.cu",
+            replaces=f"she_tpu/ops/ntt_pallas.py:{line}",
+            launches=sum(p["launches"][name] for p in paths.values()), max_abs_err=max(errs),
+            ms=widest["ms"], plain_ms=widest["plain_ms"], bound_ms=widest["bound_ms"],
+            bound_by="bytes", library_ms=None, widest_shape=widest["shape"], widest_path=widest["path"],
+            launches_by_path={p: v["launches"][name] for p, v in paths.items()}, shapes=shapes[name],
+            **({"route64": checked["route64"][name]} if checked else {}),
+        ))
+    return out
+
+
+def cli_phase(seed: int) -> dict:
+    """The port's command-line tools, in process, on the card (their
+    default device), in a temporary directory: generate 10,000 rows x 1 B,
+    shard them in 2 and process them; build, inspect and read an mmap
+    dictionary of them; generate a 4,096 x 128 PNNS database and process
+    it; process 16,384 x 4 KiB entries for SimplePIR with the tool's
+    defaults; warm a w32 PIR config (100,000 entries, a batch of 16) and a
+    PNNS one. A tool that returns non-zero fails the run, and so does the
+    plain NTT on CUDA tensors. A check phase: its kernel launches are
+    reported; the NTT's N = 1024 launch shapes (the SimplePIR tool's) are
+    returned for shape_timing."""
+    import json as jsonmod
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from she_tpu_torch.cli import (mmap_tool, pir_generate_database, pir_process_database, pir_shard_database,
+                                   pnns_generate_database, pnns_process_database, simple_pir_process_database,
+                                   warm)
+    from she_tpu_torch.ops import dim0_cuda, ntt, ntt_cuda, simple_pir_cuda
+
+    label = "cli"
+    reset_counts()
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+
+        def config(name: str, values: dict) -> str:
+            path = d / name
+            path.write_text(jsonmod.dumps(values))
+            return str(path)
+
+        steps = [
+            ("pir_generate_database", pir_generate_database, [
+                "--output-database", str(d / "db.binpb"), "--row-count", str(CLI_KEYWORD_ROWS), "--value-size", "1"]),
+            ("pir_shard_database", pir_shard_database, [
+                "--input-database", str(d / "db.binpb"), "--output-database", str(d / "shard-SHARD_ID.binpb"),
+                "--shard-count", "2"]),
+            ("pir_process_database", pir_process_database, [config("pir.json", {
+                "inputDatabase": str(d / "db.binpb"), "outputDatabase": str(d / "processed-SHARD_ID.bin"),
+                "outputPirParameters": str(d / "params-SHARD_ID.binpb"),
+                "outputEvaluationKeyConfig": str(d / "ek.binpb"), "rlweParameters": PARAMS,
+                "sharding": {"shardCount": 2}, "trialsPerShard": 1})]),
+            ("mmap_tool dict", mmap_tool, ["dict", "--input-database", str(d / "db.binpb"),
+                                           "--output", str(d / "db.mmap")]),
+            ("mmap_tool info", mmap_tool, ["info", str(d / "db.mmap")]),
+            ("mmap_tool get", mmap_tool, ["get", str(d / "db.mmap"), str(CLI_KEYWORD_ROWS - 1)]),
+            ("pnns_generate_database", pnns_generate_database, [
+                "--output-database", str(d / "pnns.binpb"), "--row-count", str(PNNS_DB[0]),
+                "--vector-dimension", str(PNNS_DB[1])]),
+            ("pnns_process_database", pnns_process_database, [config("pnns.json", {
+                "inputDatabase": str(d / "pnns.binpb"), "outputDatabase": str(d / "pnns-processed.binpb"),
+                "rlweParameters": PNNS_PATHS["pnns_4096x128_w32_b16"][0], "trialsPerShard": 1})]),
+            ("pir_generate_database (SimplePIR entries)", pir_generate_database, [
+                "--output-database", str(d / "spir.binpb"), "--row-count", str(CLI_SIMPLE_PIR_DB[0]),
+                "--value-size", str(CLI_SIMPLE_PIR_DB[1])]),
+            ("simple_pir_process_database", simple_pir_process_database, [config("spir.json", {
+                "inputDatabase": str(d / "spir.binpb"), "outputDatabase": str(d / "spir-db.npy"),
+                "outputHint": str(d / "spir-hint.npy"), "outputParameters": str(d / "spir-params.binpb"),
+                "seed": (seed.to_bytes(4, "little") * 8).hex()})]),
+            ("warm pir", warm, ["pir", "--params", PARAMS, "--scalar-bits", "32", "--entries", str(CLI_WARM_PIR[0]),
+                                "--batch", str(CLI_WARM_PIR[1])]),
+            ("warm pnns", warm, ["pnns", "--params", PNNS_PATHS["pnns_4096x128_w32_b16"][0], "--scalar-bits", "32",
+                                 "--rows", str(PNNS_DB[0]), "--dim", str(PNNS_DB[1]), "--batch", str(PNNS_BATCH)]),
+        ]
+        for name, tool, argv in steps:
+            t0 = time.perf_counter()
+            rc = tool.main(argv)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"[{label}] {name} exited {rc}")
+            log(f"[{label}] {name}: {seconds[name]:.3f} s")
+        hint = np.load(d / "spir-hint.npy")
+        if hint.shape != (CLI_SIMPLE_PIR_ROWS, CLI_SIMPLE_PIR_DEGREE) or hint.dtype != np.uint64:
+            raise AssertionError(f"[{label}] the SimplePIR hint is {hint.dtype} {hint.shape}")
+        files = sorted(f.name for f in d.iterdir())
+    launches = dict(ntt_cuda.launches) | dict(dim0_cuda.launches) | dict(simple_pir_cuda.launches)
+    # N = 1024 is the SimplePIR tool's lattice dimension alone (22-bit q')
+    simple_pir_shapes = {k: v for k, v in ntt_cuda.launch_shapes.items() if k[1][-1] == CLI_SIMPLE_PIR_DEGREE}
+    if not (launches["ntt_forward"] and launches["ntt_inverse"] and launches["dim0_int8"]):
+        raise AssertionError(f"[{label}] the tools did not run the kernels on the card: {launches}")
+    if any(ntt.plain_calls_on_cuda.values()):
+        raise AssertionError(f"[{label}] the plain NTT ran on CUDA tensors: {dict(ntt.plain_calls_on_cuda)}")
+    log(f"[{label}] every tool exited 0 on the card in {sum(seconds.values()):.3f} s; files {files}; kernel "
+        f"launches {launches}")
+    return dict(seconds=seconds, launches=launches, files=files, simple_pir_launch_shapes=simple_pir_shapes)
+
+
 def run(args) -> int:
     import torch
 
@@ -1353,9 +1727,11 @@ def run(args) -> int:
 
     if args.only == "dim0":
         return dim0_only(args, card)
+    if args.only == "simple_pir":
+        return simple_pir_only(args, card)
 
     checked = kernel_phase(args.seed)
-    paths, shapes, dim0_rows = {}, {"ntt_forward": [], "ntt_inverse": []}, []
+    paths, shapes, dim0_rows, simple_pir_rows = {}, {"ntt_forward": [], "ntt_inverse": []}, [], []
     for _, drive in serving_phases(args):
         for path, result in drive().items():
             paths[path] = result
@@ -1365,30 +1741,29 @@ def run(args) -> int:
                 for name, rows in shape_timing(f"{path}:setup", result["setup_launch_shapes"], 1).items():
                     shapes[name].extend(rows)
             dim0_rows += dim0_shape_timing(path, result["dim0_shapes"], result["batches"])
+            simple_pir_rows += result.get("simple_pir_rows", [])
         torch.cuda.empty_cache()
+    cli = cli_phase(args.seed)
+    for name, rows in shape_timing("cli:simple_pir_process_database", cli.pop("simple_pir_launch_shapes"), 1).items():
+        if not rows:
+            raise AssertionError(f"the SimplePIR tool did not launch {name} at N = {CLI_SIMPLE_PIR_DEGREE}")
+        shapes[name].extend(rows)
     served = {(r["C"], r["d0"], r["P"], r["digits_shape"][1]) for r in dim0_rows}
     if not served <= set(DIM0_SERVED_SHAPES.values()):
         raise AssertionError(f"served int8 dim-0 shapes {sorted(served - set(DIM0_SERVED_SHAPES.values()))} "
                              f"are missing from DIM0_SERVED_SHAPES")
     w64_check = dim0_w64_check()
 
-    kernels = []
-    for name, line in (("ntt_forward", 217), ("ntt_inverse", 261)):
-        widest = max(shapes[name], key=lambda r: prod(r["shape"]))
-        kernels.append(dict(
-            name=name, route="cuda", source="she_tpu_torch/csrc/ntt.cu",
-            replaces=f"she_tpu/ops/ntt_pallas.py:{line}",
-            launches=sum(p["launches"][name] for p in paths.values()),
-            max_abs_err=max([checked["max_abs_err"][name]] + [r["max_abs_err"] for r in shapes[name]]),
-            ms=widest["ms"], plain_ms=widest["plain_ms"], bound_ms=widest["bound_ms"],
-            bound_by="bytes", library_ms=None, widest_shape=widest["shape"], widest_path=widest["path"],
-            launches_by_path={p: v["launches"][name] for p, v in paths.items()},
-            shapes=shapes[name], route64=checked["route64"][name],
-        ))
+    kernels = ntt_kernel_entries(shapes, paths, checked)
     if not dim0_rows:
         raise AssertionError("no served path launched the int8 dim-0 kernel")
-    kernels.append(dim0_kernel_entry(dim0_rows, w64_check, sum(p["launches"]["dim0_int8"] for p in paths.values())))
-    kernels[-1]["launches_by_path"] = {p: v["launches"]["dim0_int8"] for p, v in paths.items()}
+    dim0_entry = dim0_kernel_entry(dim0_rows, w64_check, sum(p["launches"]["dim0_int8"] for p in paths.values()))
+    dim0_entry["launches_by_path"] = {p: v["launches"]["dim0_int8"] for p, v in paths.items()}
+    kernels.append(dim0_entry)
+    if not simple_pir_rows:
+        raise AssertionError("no served path launched the SimplePIR kernel")
+    kernels.append(simple_pir_kernel_entry(
+        simple_pir_rows, {p: v["launches"]["simple_pir_matmul"] for p, v in paths.items()}))
     widest = max(dim0_rows, key=lambda r: r["bytes"])
     for p in paths.values():
         for key in ("launch_shapes", "setup_launch_shapes"):
@@ -1397,7 +1772,7 @@ def run(args) -> int:
         p["dim0_shapes"] = [dict(digits_shape=list(k[0]), query_shape=list(k[1]), moduli=list(k[2]), launches=v)
                             for k, v in p["dim0_shapes"].items()]
     summary = dict(card=card, device=torch.cuda.get_device_name(0), kernel_build_s=built,
-                   kernels=kernels, paths=paths)
+                   kernels=kernels, paths=paths, cli=cli)
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump(summary, f, indent=1)
@@ -1434,10 +1809,12 @@ def run(args) -> int:
             f"{ {k: round(x, 3) for k, x in v['stages_ms'].items()} }; NTT {100 * v['profile']['ntt_share']:.1f}% of "
             f"device time, idle share {v['profile']['idle_share_of_steady_batch']:.3f}; peak {v['peak_bytes']} "
             f"bytes; smallest noise budget {v['min_noise_budget']:.3f} bits; on {card}")
+    log(simple_pir_summary(paths[SIMPLE_PIR_CELL], kernels[-1], card))
+    log(f"cli: every tool exited 0 on the card, {sum(cli['seconds'].values()):.3f} s in all, on {card}")
     log(f"dim0_int8 at the widest served shape ({widest['path']}, digits {widest['digits_shape']}, query "
         f"{widest['query_shape']}): {widest['ms']:.4f} ms against a bound of {widest['bound_ms']:.4f} ms "
         f"({100 * widest['share_of_bound']:.1f}%), MAC {widest['mac_ms']:.4f} ms, digit bmm "
-        f"{widest['library_ms']:.4f} ms; launches by path {kernels[-1]['launches_by_path']}, on {card}")
+        f"{widest['library_ms']:.4f} ms; launches by path {dim0_entry['launches_by_path']}, on {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
@@ -1453,7 +1830,8 @@ def serving_phases(args) -> list:
     return phases + [("keyword", lambda: keyword_and_service(args.seed, args.batches)),
                      ("keyword_large", lambda: {"keyword_large": large_value_path(args.seed)}),
                      ("spir", lambda: {"spir": spir_phase(args.seed)})] + [
-        (label, lambda label=label: {label: pnns_path(label, args.seed, args.batches)}) for label in PNNS_PATHS]
+        (label, lambda label=label: {label: pnns_path(label, args.seed, args.batches)}) for label in PNNS_PATHS] + [
+        (SIMPLE_PIR_CELL, lambda: {SIMPLE_PIR_CELL: simple_pir_path(args.seed, args.batches)})]
 
 
 def dim0_only(args, card: str) -> int:
@@ -1480,13 +1858,51 @@ def dim0_only(args, card: str) -> int:
     return 0
 
 
+def simple_pir_summary(v: dict, entry: dict, card: str) -> str:
+    return (f"{SIMPLE_PIR_CELL} ({v['params']}, {v['entries']} x {v['entry_size']} B, database "
+            f"{v['database_shape']}): packing {v['pack_s']:.3f} s, hint {v['hint_s']:.3f} s, query {v['median_query_s']:.4f} "
+            f"s a client (host), median {v['median_s_per_batch']:.5f} s a batch of {v['batch']} (max "
+            f"{v['max_s_per_batch']:.5f} s), {v['queries_per_s']:.2f} queries/s, per-query call {v['single_s']:.5f} s, "
+            f"one more batch {v['span']['wall_ms']:.4f} ms of wall, its device span {v['span']['span_ms']:.4f} ms "
+            f"(idle share {v['span']['idle_share']:.3f}), peak {v['peak_bytes']} bytes; simple_pir_matmul {entry['ms']:.4f} ms against a bound of "
+            f"{entry['bound_ms']:.4f} ms ({100 * entry['bound_ms'] / entry['ms']:.1f}%; at p bits an entry "
+            f"{entry['data_bound_ms']:.4f} ms, {100 * entry['data_bound_ms'] / entry['ms']:.1f}%), plain "
+            f"{entry['plain_ms']:.4f} ms, float64 matmul {entry['library_ms']:.4f} ms; on {card}")
+
+
+def simple_pir_only(args, card: str) -> int:
+    """--only simple_pir: the SimplePIR cell alone, its NTT launch shapes
+    held to the plain version and timed; then the kernels line (the NTT
+    kernels and simple_pir_matmul, with this phase's launches) and the
+    last line."""
+    import torch
+
+    v = simple_pir_path(args.seed, args.batches)
+    paths = {SIMPLE_PIR_CELL: v}
+    kernels = ntt_kernel_entries(shape_timing(SIMPLE_PIR_CELL, v["launch_shapes"], v["batches"]), paths, None)
+    kernels.append(simple_pir_kernel_entry(v["simple_pir_rows"], {SIMPLE_PIR_CELL: v["launches"]["simple_pir_matmul"]}))
+    v["launch_shapes"] = [dict(name=k[0], shape=list(k[1]), moduli=list(k[2]), launches=c)
+                          for k, c in v["launch_shapes"].items()]
+    v["dim0_shapes"] = []
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump(dict(card=card, device=torch.cuda.get_device_name(0), kernels=kernels, paths=paths), f, indent=1)
+    log(simple_pir_summary(v, kernels[-1], card))
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
+    print(json.dumps({"ok": True, "device": device}))
+    return 0
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batches", type=int, default=3, help="query batches to serve (>= 3)")
     parser.add_argument("--seed", type=int, default=0, help="seed of the database, keys and indices")
     parser.add_argument("--json-out", default=None, help="also write the full results to this file")
-    parser.add_argument("--only", choices=["dim0"], default=None,
-                        help="run one phase alone: dim0, the int8 dim-0 kernel at every served shape")
+    parser.add_argument("--only", choices=["dim0", "simple_pir"], default=None,
+                        help="run one phase alone: dim0, the int8 dim-0 kernel at every served shape; "
+                             "simple_pir, the SimplePIR cell")
     args = parser.parse_args(argv)
     if args.batches < 3:
         parser.error("--batches must be at least 3")

@@ -5,12 +5,17 @@ Big-endian bitstream of (bitsPerCoeff - skipLSBs)-bit fields, as in the
 reference (Sources/HomomorphicEncryption/CoefficientPacking.swift:34-217).
 `bytes_to_coefficients_rows` and `coefficients_to_bytes_rows` are the
 vectorized forms used by database processing and serialization: they
-unpack or pack many equal-length rows in one numpy pass.
+unpack or pack many equal-length rows in one pass; `unpack_fields` is
+the unpacking on a torch tensor's device (SimplePIR packs its database
+on the card with it).
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
+import torch
 
 from .. import errors
 
@@ -79,6 +84,39 @@ def bytes_to_coefficients_rows(
     weights = np.uint64(1) << np.arange(sbc - 1, -1, -1, dtype=np.uint64)
     out = (bits.astype(np.uint64) * weights).sum(axis=2, dtype=np.uint64)
     return (out << np.uint64(skip_lsbs)).astype(np.int64)
+
+
+WINDOW_MAX_BITS = 57  # a field and the 7 bits before it in its first byte fit 64 bits
+
+
+def unpack_fields(rows: torch.Tensor, sbc: int, count: int) -> torch.Tensor:
+    """uint8 [R, B] -> int64 [R, count]: the first `count` sbc-bit fields
+    of each row's big-endian bitstream (zero past its B bytes), on the
+    rows' device, for sbc <= WINDOW_MAX_BITS.
+
+    A group of sbc / gcd(sbc, 8) bytes holds 8 / gcd(sbc, 8) whole fields,
+    so field m of every group is the same window of byte columns: its
+    bytes are or-ed in big-endian into an int64, shifted down and masked.
+    The window can set bit 63; the arithmetic shift then copies it into
+    bits the mask drops (the shift leaves at least sbc bits below them)."""
+    if not 0 < sbc <= WINDOW_MAX_BITS:
+        raise errors.SerializationError(f"unpack_fields takes 1..{WINDOW_MAX_BITS} bits, got {sbc}")
+    g = math.gcd(sbc, 8)
+    group_bytes, group_fields = sbc // g, 8 // g
+    groups = -(-count // group_fields)
+    rows = rows[:, : groups * group_bytes]
+    if rows.shape[1] < groups * group_bytes:
+        rows = torch.nn.functional.pad(rows, (0, groups * group_bytes - rows.shape[1]))
+    grouped = rows.reshape(rows.shape[0], groups, group_bytes)
+    out = torch.empty((rows.shape[0], groups, group_fields), dtype=torch.int64, device=rows.device)
+    for m in range(group_fields):
+        first, lead = divmod(m * sbc, 8)
+        width = -(-(lead + sbc) // 8)
+        window = grouped[:, :, first].to(torch.int64)
+        for w in range(1, width):
+            window = (window << 8) | grouped[:, :, first + w]
+        out[:, :, m] = (window >> (8 * width - lead - sbc)) & ((1 << sbc) - 1)
+    return out.reshape(rows.shape[0], -1)[:, :count]
 
 
 def bytes_to_coefficients(data: bytes, bits_per_coeff: int, decode: bool, skip_lsbs: int = 0) -> np.ndarray:

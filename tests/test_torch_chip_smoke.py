@@ -9,14 +9,16 @@ import chip_smoke
 
 def test_default_run_selects_every_phase():
     """The default run drives every serving phase (run() iterates
-    serving_phases after the kernel phase; --only dim0 returns first)."""
+    serving_phases after the kernel phase, then runs the CLI phase; --only
+    dim0 and --only simple_pir return first)."""
     args = chip_smoke.parse_args([])
     assert (args.only, args.batches) == (None, 3)
     names = [name for name, _ in chip_smoke.serving_phases(args)]
     assert names == ["w32", "w64", "keyword", "keyword_large", "spir",
-                     "pnns_4096x128_w32_b16", "pnns_4096x128_w64_b16"]
+                     "pnns_4096x128_w32_b16", "pnns_4096x128_w64_b16", "simplepir_256k_x_4KiB_b32"]
     assert names[:2] == list(chip_smoke.PATHS)
-    assert names[-2:] == list(chip_smoke.PNNS_PATHS)
+    assert names[-3:-1] == list(chip_smoke.PNNS_PATHS)
+    assert names[-1] == chip_smoke.SIMPLE_PIR_CELL
 
 
 def test_pnns_cells():
@@ -32,6 +34,22 @@ def test_pnns_cells():
 
 def test_only_dim0_selects_the_dim0_cases():
     assert chip_smoke.parse_args(["--only", "dim0"]).only == "dim0"
+
+
+def test_only_simple_pir_selects_the_simple_pir_cell():
+    assert chip_smoke.parse_args(["--only", "simple_pir"]).only == "simple_pir"
+
+
+def test_simple_pir_cell():
+    """1 GiB of 4 KiB entries (the SimplePIR paper's 1 GB database), 32
+    queries a batch, at p = 9 (she_tpu's tool default), b = 32, n = 2048;
+    the CLI phase runs the tool at its defaults (p = 9: 3,641 rows)."""
+    import math
+
+    assert chip_smoke.SIMPLE_PIR_DB == (262_144, 4096)
+    assert math.prod(chip_smoke.SIMPLE_PIR_DB) == 1 << 30
+    assert (chip_smoke.SIMPLE_PIR_PARAMS, chip_smoke.SIMPLE_PIR_BATCH) == ((9, 32, 2048), 32)
+    assert chip_smoke.CLI_SIMPLE_PIR_ROWS == -(-8 * chip_smoke.CLI_SIMPLE_PIR_DB[1] // 9)
 
 
 @pytest.mark.parametrize("argv", [["--only", "keyword"], ["--only"], ["--batches", "2"]])

@@ -191,3 +191,117 @@ def test_simd_encoding_on_the_card_equals_the_cpu():
         assert launched == {"ntt_forward": 2 * on_card, "ntt_inverse": 1 * on_card}
     assert torch.equal(got["cuda"][0], got["cpu"][0]) and torch.equal(got["cuda"][2], got["cpu"][2])
     assert got["cuda"][1] == got["cpu"][1] == rows[3].tolist()
+
+
+# --- SimplePIR: the u8 tensor-core response product and the NTT at q' ------
+
+
+def _simple_pir_operands(R, C, k, p_bits, b_bits, seed):
+    rng = np.random.default_rng(seed)
+    db = rng.integers(0, 1 << p_bits, size=(R, C), dtype=np.int64)
+    queries = rng.integers(0, 1 << b_bits, size=(k, C), dtype=np.int64)
+    queries[:, :2] = (1 << b_bits) - 1  # the largest words take part
+    db[:, :2] = (1 << p_bits) - 1
+    return torch.from_numpy(db), torch.from_numpy(queries)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b_bits", [16, 21, 32, 61])
+@pytest.mark.parametrize("C", [31, 32769, 70000])
+@pytest.mark.parametrize("k", [1, 32])
+def test_simple_pir_matmul_matches_plain(k, C, b_bits):
+    """The kernel against its plain version (float64 plane products on the
+    card) at a ragged R (131 rows: one full block of 128 and 3 rows), C
+    below one column step and across two or three int32 segments."""
+    from she_tpu_torch.ops import simple_pir_cuda as spc
+
+    dev = _card()
+    db, queries = _simple_pir_operands(131, C, k, 9, b_bits, seed=C + k + b_bits)
+    planes = spc.database_planes(db.to(dev), 9)
+    before = spc.launches["simple_pir_matmul"]
+    got = spc.simple_pir_matmul(planes, queries.to(dev), b_bits)
+    torch.cuda.synchronize()
+    assert spc.launches["simple_pir_matmul"] == before + 1
+    assert got.shape == (k, 131)
+    assert torch.equal(got, spc.simple_pir_matmul_plain(planes, queries.to(dev), b_bits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p_bits,b_bits", [(4, 16), (8, 40), (17, 40), (9, 61)])
+def test_simple_pir_matmul_matches_the_exact_product(p_bits, b_bits):
+    """The kernel against the exact int64 product on the CPU (the plain
+    version's CPU route), at plane counts 1, 1, 3 and 2 of D."""
+    from she_tpu_torch.ops import simple_pir_cuda as spc
+
+    dev = _card()
+    db, queries = _simple_pir_operands(300, 1000, 5, p_bits, b_bits, seed=p_bits)
+    planes = spc.database_planes(db.to(dev), p_bits)
+    got = spc.simple_pir_matmul(planes, queries.to(dev), b_bits).cpu()
+    want = spc.simple_pir_matmul_plain(spc.database_planes(db, p_bits), queries, b_bits)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_simple_pir_matmul_refuses_what_it_does_not_take():
+    from she_tpu_torch.ops import simple_pir_cuda as spc
+
+    dev = _card()
+    db, queries = _simple_pir_operands(16, 40, 2, 9, 21, seed=0)
+    planes = spc.database_planes(db.to(dev), 9)
+    with pytest.raises(ValueError):
+        spc.simple_pir_matmul_cuda(planes, queries, 21)  # a CPU query
+    wider = torch.zeros((2, 41), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError):
+        spc.simple_pir_matmul_cuda(planes, wider, 21)  # 41 columns for a database of 40
+    with pytest.raises(ValueError):
+        spc.simple_pir_matmul_cuda(planes, queries.to(dev), 63)
+    with pytest.raises(TypeError):
+        spc.simple_pir_matmul_cuda(spc.DatabasePlanes(planes.data.to(torch.int16), 16, 40), queries.to(dev), 21)
+    with pytest.raises(ValueError):
+        spc.simple_pir_matmul_cuda(spc.DatabasePlanes(planes.data, 40, 40), queries.to(dev), 21)  # rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b_bits,degree", [(21, 1024), (32, 2048), (32, 1024)])
+def test_kernel_matches_plain_at_simple_pir_moduli(b_bits, degree):
+    """The NTT at SimplePIR's q' (the smallest (b + 1)-bit NTT prime): a
+    22-bit modulus on the 32-bit route, 33-bit ones on the 64-bit route,
+    at the hint's launch shape [rows, a_poly_count, 1, N]."""
+    dev = _card()
+    q = nt.generate_primes([b_bits + 1], preferring_small=True, ntt_degree=degree)[0]
+    tables = tntt.build_ntt_tables((q,), degree, dev)
+    assert tables.word_bits == (32 if b_bits < 29 else 64)
+    x = _rows((q,), degree, 3 * 5, seed=b_bits).reshape(3, 5, 1, degree).to(dev)
+    fwd = ntt_cuda.forward(x, tables)
+    assert torch.equal(fwd, tntt.forward_ntt_plain(x, tables))
+    inv = ntt_cuda.inverse(fwd, tables)
+    assert torch.equal(inv, tntt.inverse_ntt_plain(fwd, tables))
+    assert torch.equal(inv, x)
+
+
+@pytest.mark.gpu
+def test_simple_pir_on_the_card_equals_the_cpu():
+    """process_database, the client and the server on the card give the
+    CPU's database, hint, queries and answers, and the answer decrypts."""
+    from she_tpu_torch import params as tparams
+    from she_tpu_torch.ops import simple_pir_cuda as spc
+    from she_tpu_torch.pir import simple_pir as sp
+    from she_tpu_torch.rng.ctr_drbg import nist_aes128_ctr
+
+    dev = _card()
+    ep = sp.SimplePirEncryptionParams(9, 32, 64, security_level=tparams.SecurityLevel.UNCHECKED)
+    entries = np.random.default_rng(5).integers(0, 256, size=(300, 24), dtype=np.uint8)
+    got = {}
+    for device in (dev, torch.device("cpu")):
+        res = sp.process_database(entries, ep, seed=bytes(32), device=device)
+        server = sp.SimplePirServer(res.database, res.hint, res.params, device=device)
+        client = sp.SimplePirClient(res.params, res.hint, device=device)
+        queries = [client.query(i, rng=nist_aes128_ctr(bytes([i % 256]) * 32)) for i in (0, 7, 299)]
+        before = spc.launches["simple_pir_matmul"]
+        answers = server.compute_response(torch.cat([q.queries for q in queries]))
+        assert spc.launches["simple_pir_matmul"] == before + (device.type == "cuda")
+        for i, q in enumerate(queries):
+            assert client.decrypt(answers[i : i + 1], q.prepare_response(), q.index) == entries[q.index].tobytes()
+        got[device.type] = [t.cpu() for t in (res.database, res.hint, queries[1].queries, answers)]
+    for a, b in zip(got["cuda"], got["cpu"]):
+        assert torch.equal(a, b)
