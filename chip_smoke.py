@@ -59,9 +59,10 @@ then PNNS (BatchedPnnsServer), 16 cosine-similarity queries a batch over a
    database of 262,144 entries x 4 KiB processed on the card (packing,
    then the hint through the NTT kernel), 32 queries made with the port's
    client, 3 batches of their 32 stacked request rows and one per-query
-   call through the simple_pir_matmul kernel; every answer must decrypt to
-   its entry; the kernel held bit-equal to its plain version at both
-   launched shapes and timed beside its bound and a float64 torch.matmul;
+   call through the simple_pir_matmul kernel (u8 wgmma fed by a ring of
+   bulk copies); every answer must decrypt to its entry; the kernel timed
+   and held bit-equal to its plain version at both launched shapes, beside
+   its bound and a float64 torch.matmul;
 10. the command-line tools (cli_phase), in process on the card: generate,
    shard and process a keyword database, an mmap dictionary of it, a PNNS
    database generated and processed, 16,384 x 4 KiB entries processed for
@@ -184,8 +185,11 @@ def random_rows(moduli, shape, degree, seed):
 
 def ptxas_lines(name: str) -> list[str]:
     """ptxas -v's registers, spills and shared memory of the N=4096
-    instantiations of the NTT kernels on both routes, and of the dim-0
-    kernel's instances at 4 and 8 digits (the served and checked ones)."""
+    instantiations of the NTT kernels on both routes, of the dim-0
+    kernel's instances at 4 and 8 digits (the served and checked ones),
+    and of the SimplePIR kernel's instances that serve the cell (two D
+    planes against four query planes, 32 and 8 request rows), with the
+    dynamic shared memory and stages of their rings."""
     import re
 
     from she_tpu_torch.ops import kernel_build
@@ -201,6 +205,15 @@ def ptxas_lines(name: str) -> list[str]:
         elif "Compiling entry function" in line and "dim0_int8_kernel" in line:
             m = re.search(r"dim0_int8_kernelILi(\d)ELi(\d)E", line)
             label = f"dim0_int8_kernel<D={m.group(1)}, MT={m.group(2)}>" if m and m.group(1) in "48" else None
+        elif "Compiling entry function" in line and "plane_products" in line:
+            m = re.search(r"plane_productsILi(\d)ELi(\d)ELi(\d+)E", line)
+            label = None
+            if m and (m.group(1), m.group(2)) == ("4", "2") and m.group(3) in ("8", "32"):
+                from she_tpu_torch.ops import simple_pir_cuda
+
+                stages, shared = simple_pir_cuda.ring(4, 2, int(m.group(3)))
+                label = (f"plane_products<JA=4, NI=2, KQT={m.group(3)}> ({stages} stages, {shared} bytes of "
+                         f"dynamic shared memory)")
         elif label and ("Used" in line or "spill" in line):
             out.append(f"{label}: {line.strip()}")
     return out
@@ -1373,15 +1386,18 @@ def simple_pir_bound(pd: int, rows: int, k: int, columns: int, bits: int, plaint
     """The least time of one SimplePIR product: the D planes the work needs
     (P_D * R * C bytes, without the padding of C), the int64 query read
     once and the int64 output written once over the memory rate, and its
-    u8 operations (2 P_D P_Q R C k) over the int8 tensor-core rate. Beside
-    it, `data_bound_ms`: the same with D read at p bits an entry, the floor
-    of any layout (the planes spend P_D bytes on p bits)."""
+    u8 operations (2 R C k for each plane pair (i, j) of weight below 2^b,
+    i + j < P_Q; the others vanish mod 2^b) over the int8 tensor-core rate.
+    Beside it, `data_bound_ms`: the same with D read at p bits an entry,
+    the floor of any layout (the planes spend P_D bytes on p bits)."""
     from she_tpu_torch.ops import simple_pir_cuda
 
     io_bytes = 8 * k * columns + 8 * k * rows
     nbytes = pd * rows * columns + io_bytes
     data_bytes = -(-rows * columns * plaintext_bits // 8) + io_bytes
-    ops = 2 * pd * simple_pir_cuda.plane_count(bits) * rows * columns * k
+    pq = simple_pir_cuda.plane_count(bits)
+    pairs = sum(pq - i for i in range(min(pd, pq)))
+    ops = 2 * pairs * rows * columns * k
     bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / INT8_OPS_PER_S
     return dict(bytes=nbytes, operations=ops, bytes_ms=bytes_ms, operations_ms=ops_ms,
                 bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
@@ -1415,11 +1431,12 @@ def float64_product_ms(database, queries, bits: int, want) -> tuple[float, int]:
 
 
 def simple_pir_case(label: str, planes, queries, database, bits: int, plaintext_bits: int, count: int,
-                    batches: int) -> dict:
+                    batches: int, ms: float) -> dict:
     """simple_pir_matmul at one launched shape, on the served planes and
-    request rows: bit-equal to its plain version (float64 plane products on
-    the card), then timed with CUDA events (the kernel over 20 launches,
-    the plain version and the float64 yardstick over 3) beside its bound."""
+    request rows, with `ms` its time (simple_pir_path times every shape
+    first): held bit-equal to its plain version (float64 plane products on
+    the card), which is timed with the float64 yardstick over 3, beside its
+    bound."""
     import torch
 
     from she_tpu_torch.ops import simple_pir_cuda
@@ -1430,7 +1447,6 @@ def simple_pir_case(label: str, planes, queries, database, bits: int, plaintext_
         raise AssertionError(f"{label} simple_pir_matmul at planes {tuple(planes.data.shape)}, queries "
                              f"{tuple(queries.shape)}: max |kernel - plain| = {err}")
     torch.cuda.empty_cache()
-    ms = cuda_ms(lambda: simple_pir_cuda.simple_pir_matmul_cuda(planes, queries, bits), 20)
     plain_ms = cuda_ms(lambda: simple_pir_cuda.simple_pir_matmul_plain(planes, queries, bits), 3)
     torch.cuda.empty_cache()
     library_ms, pieces = float64_product_ms(database, queries, bits, got)
@@ -1479,10 +1495,11 @@ def simple_pir_path(seed: int, batches: int) -> dict:
     system's randomness as a client's), `batches` batches of their stacked
     request rows and one per-query call. The counts are read around all of
     it. Every answer must decrypt to its entry's bytes; then the kernel is
-    held to its plain version and timed at each launched shape."""
+    timed at each launched shape and held to its plain version."""
     import numpy as np
     import torch
 
+    from she_tpu_torch.ops import simple_pir_cuda
     from she_tpu_torch.pir import simple_pir as sp
 
     label = SIMPLE_PIR_CELL
@@ -1565,8 +1582,14 @@ def simple_pir_path(seed: int, batches: int) -> dict:
         f"launches {counts['launches']}")
 
     span = batch_span(lambda: server.compute_response(requests))
-    rows = [simple_pir_case(label, server.planes, q, results.database, b_bits, p_bits, c, batches)
-            for q, c in ((requests, batches), (queries[0].queries, 1))]
+    # the kernel is timed (CUDA events, 20 launches) at every shape before
+    # any plain version: launches right after one, whose 7.6 GB of float64
+    # temporaries were just freed, ran 16-18% slower for a while (PERF.md)
+    launched = ((requests, batches), (queries[0].queries, 1))
+    times = [cuda_ms(lambda q=q: simple_pir_cuda.simple_pir_matmul_cuda(server.planes, q, b_bits), 20)
+             for q, _ in launched]
+    rows = [simple_pir_case(label, server.planes, q, results.database, b_bits, p_bits, c, batches, ms)
+            for (q, c), ms in zip(launched, times)]
     del server, client, results, requests, answers, single, queries, prepared, entries
     torch.cuda.empty_cache()
     return dict(
@@ -1864,10 +1887,12 @@ def simple_pir_summary(v: dict, entry: dict, card: str) -> str:
             f"s a client (host), median {v['median_s_per_batch']:.5f} s a batch of {v['batch']} (max "
             f"{v['max_s_per_batch']:.5f} s), {v['queries_per_s']:.2f} queries/s, per-query call {v['single_s']:.5f} s, "
             f"one more batch {v['span']['wall_ms']:.4f} ms of wall, its device span {v['span']['span_ms']:.4f} ms "
-            f"(idle share {v['span']['idle_share']:.3f}), peak {v['peak_bytes']} bytes; simple_pir_matmul {entry['ms']:.4f} ms against a bound of "
-            f"{entry['bound_ms']:.4f} ms ({100 * entry['bound_ms'] / entry['ms']:.1f}%; at p bits an entry "
-            f"{entry['data_bound_ms']:.4f} ms, {100 * entry['data_bound_ms'] / entry['ms']:.1f}%), plain "
-            f"{entry['plain_ms']:.4f} ms, float64 matmul {entry['library_ms']:.4f} ms; on {card}")
+            f"(idle share {v['span']['idle_share']:.3f}), peak {v['peak_bytes']} bytes; simple_pir_matmul "
+            + "; ".join(f"{r['query_shape'][0]} request rows {r['ms']:.4f} ms against a bound of {r['bound_ms']:.4f} ms "
+                        f"({100 * r['bound_ms'] / r['ms']:.1f}%; at p bits an entry {r['data_bound_ms']:.4f} ms, "
+                        f"{100 * r['data_bound_ms'] / r['ms']:.1f}%), plain {r['plain_ms']:.4f} ms, float64 matmul "
+                        f"{r['library_ms']:.4f} ms" for r in entry["shapes"])
+            + f"; on {card}")
 
 
 def simple_pir_only(args, card: str) -> int:

@@ -8,12 +8,14 @@ numpy object arrays (a host product, not a Pallas kernel): PyTorch has no
 integer matrix product on CUDA.
 
 Both versions take D as ceil(p / 8) byte planes (`database_planes`, made
-once when a server is built, in the kernel's tiles of 16 rows x 64
-columns) and Q as ceil(b / 8), and add the plane products Q_j D_i^T
-weighted by 2^(8 (i + j)) mod 2^b. The kernel takes them as u8 x u8 ->
-int32 tensor-core products over column segments short enough that every
-int32 sum is exact; the plain version as one int64 matmul (on the CPU) or
-float64 matmul (on the card, exact while 255^2 C < 2^53) per pair.
+once when a server is built, as the kernel's tiles: 64 rows x 128 columns,
+each the image of a 128-byte-swizzled shared-memory tile) and Q as
+ceil(b / 8), and add the plane products Q_j D_i^T weighted by
+2^(8 (i + j)) mod 2^b, skipping the pairs with 8 (i + j) >= b. The kernel
+takes them as u8 x u8 -> s32 wgmma products over column segments short
+enough that every s32 sum is exact; the plain version as one int64 matmul
+(on the CPU) or float64 matmul (on the card, exact while 255^2 C < 2^53)
+per pair.
 
 `simple_pir_matmul` dispatches on the query's device: a CUDA tensor
 launches the kernel (or raises), a CPU tensor takes the plain version.
@@ -24,9 +26,11 @@ launches the kernel (or raises), a CPU tensor takes the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 from collections import Counter
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from . import kernel_build
@@ -35,19 +39,23 @@ launches = {"simple_pir_matmul": 0}
 launch_shapes: Counter = Counter()
 
 PLANE_BITS = 8
-TILE_ROWS, TILE_COLUMNS = 16, 64  # the kernel's tile of a plane: one warp's rows, one step's columns
-COLUMN_STEP = 256  # C is padded to a multiple: four tiles' loads a step
-SEGMENT = 32768  # columns one int32 sum of one product may take: 32,768 * 255^2 < 2^31
-ROWS_PER_BLOCK = 128  # 8 warps of 16 rows
-PLANE_ROWS_PER_PASS = 16 * TILE_ROWS  # database rows split into planes at a time: whole tiles
+TILE_ROWS = 64  # rows of one wgmma and of a tile
+BOX = 128  # columns of a tile: one 128-byte swizzled row
+TILE_BYTES = TILE_ROWS * BOX
+COLUMN_STEP = BOX  # C is padded to a multiple
+CONSUMERS = 2  # consumer warpgroups a block: 128 rows
+SEGMENT_BOXES = 256  # 32,768 columns: the most one s32 sum of one pair takes (32,768 * 255^2 < 2^31)
+QUERY_TILE_ROWS = (8, 16, 32)  # request rows a query tile holds
+ACC_COLUMNS = 256  # wgmma columns (sum of N) a block's D planes may hold sums of
+PLANE_ROWS_PER_PASS = 4 * TILE_ROWS  # database rows split into planes at a time: whole tiles
 MAX_BITS = 62  # the plain version adds two b-bit sums in int64
-TARGET_BLOCKS = 8 * 132  # eight blocks for each of the H100's 132 SMs
+H100_SMS = 132
 FLOAT64_EXACT = 1 << 53
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 _LL = ctypes.c_longlong
-_ARGS = [_VP] * 5 + [_INT, _INT, _LL, _INT, _LL, _INT, _INT, _INT, _INT, _LL, _INT, _VP]
+_ARGS = [_VP] * 5 + [_INT, _INT, _LL, _INT, _LL] + [_INT] * 7 + [_VP]
 
 
 def plane_count(bits: int) -> int:
@@ -64,13 +72,23 @@ def reset_launches() -> None:
     launch_shapes.clear()
 
 
+def _swizzle(tiles: torch.Tensor) -> torch.Tensor:
+    """[..., rows, 128] uint8 (rows a multiple of 8) -> [..., rows * 128]
+    with the 16-byte chunk c of row r at chunk c ^ (r % 8): the 128-byte
+    swizzle of wgmma's shared-memory tiles. Its own inverse."""
+    *lead, rows, width = tiles.shape
+    chunks = tiles.reshape(*lead, rows // 8, 8, width // 16, 16)
+    r8 = torch.arange(8, device=tiles.device)[:, None]
+    return chunks[..., r8, r8.T ^ r8, :].reshape(*lead, rows * width)
+
+
 @dataclass(frozen=True)
 class DatabasePlanes:
-    """D's byte planes in the kernel's layout: `data` uint8 [P_D, R16,
-    Kpad / 64, 1024], tiles of 16 rows x 64 columns (rows zero-padded to
-    R16 * 16, columns to Kpad = padded_columns(C)); in a tile rows 0-7 then
-    8-15, each half as 32 runs of 16 bytes, run 4g + t holding columns
-    16t..16t+15 of row g (the bytes lane 4g + t of a warp loads)."""
+    """D's byte planes in the kernel's layout: `data` uint8 [P_D, R64, KB,
+    8192], plane i, row tile t (64 rows, rows zero-padded to R64 * 64), box
+    kb (128 columns, columns zero-padded to KB * 128 = padded_columns(C)):
+    its 64 rows of 128 bytes, the 16-byte chunk c of row r at chunk
+    c ^ (r % 8), the image of the shared-memory tile a bulk copy fills."""
 
     data: torch.Tensor
     rows: int
@@ -78,9 +96,10 @@ class DatabasePlanes:
 
     def row_major(self) -> torch.Tensor:
         """uint8 [P_D, R, C]: plane i, entry (r, c) = bits 8i..8i+7 of D[r, c]."""
-        pd, r16, k64 = self.data.shape[:3]
-        tiles = self.data.view(pd, r16, k64, 2, 8, 4, 16).permute(0, 1, 3, 4, 2, 5, 6)
-        return tiles.reshape(pd, r16 * TILE_ROWS, k64 * TILE_COLUMNS)[:, : self.rows, : self.columns]
+        pd, tiles, boxes = self.data.shape[:3]
+        rows = _swizzle(self.data.view(pd, tiles, boxes, TILE_ROWS, BOX)).view(pd, tiles, boxes, TILE_ROWS, BOX)
+        full = rows.permute(0, 1, 3, 2, 4).reshape(pd, tiles * TILE_ROWS, boxes * BOX)
+        return full[:, : self.rows, : self.columns]
 
 
 def database_planes(database: torch.Tensor, plaintext_bits: int) -> DatabasePlanes:
@@ -88,18 +107,16 @@ def database_planes(database: torch.Tensor, plaintext_bits: int) -> DatabasePlan
     planes in the kernel's tiles (DatabasePlanes), made on the database's
     device, PLANE_ROWS_PER_PASS rows at a time."""
     R, C = database.shape
-    pd, r16, kpad = plane_count(plaintext_bits), -(-R // TILE_ROWS), padded_columns(C)
-    data = torch.zeros((pd, r16, kpad // TILE_COLUMNS, TILE_ROWS * TILE_COLUMNS), dtype=torch.uint8,
-                       device=database.device)
+    pd, tiles, kpad = plane_count(plaintext_bits), -(-R // TILE_ROWS), padded_columns(C)
+    boxes = kpad // BOX
+    data = torch.zeros((pd, tiles, boxes, TILE_BYTES), dtype=torch.uint8, device=database.device)
     for r0 in range(0, R, PLANE_ROWS_PER_PASS):
         rows = database[r0 : r0 + PLANE_ROWS_PER_PASS]
+        t0, count = r0 // TILE_ROWS, -(-rows.shape[0] // TILE_ROWS)
         for i in range(pd):
-            plane = torch.zeros((-(-rows.shape[0] // TILE_ROWS) * TILE_ROWS, kpad), dtype=torch.uint8,
-                                device=database.device)
+            plane = torch.zeros((count * TILE_ROWS, kpad), dtype=torch.uint8, device=database.device)
             plane[: rows.shape[0], :C] = ((rows >> (PLANE_BITS * i)) & 0xFF).to(torch.uint8)
-            tiles = plane.view(-1, 2, 8, kpad // TILE_COLUMNS, 4, 16).permute(0, 3, 1, 2, 4, 5)
-            t0 = r0 // TILE_ROWS
-            data[i, t0 : t0 + tiles.shape[0]] = tiles.reshape(tiles.shape[0], kpad // TILE_COLUMNS, -1)
+            data[i, t0 : t0 + count] = _swizzle(plane.view(count, TILE_ROWS, boxes, BOX).permute(0, 2, 1, 3))
     return DatabasePlanes(data, R, C)
 
 
@@ -137,23 +154,50 @@ def simple_pir_matmul_plain(planes: DatabasePlanes, queries: torch.Tensor, bits:
     return out
 
 
-def launch_plan(database_planes: int, query_planes: int, k: int, rows: int, kpad: int) -> dict:
-    """The kernel's launch for these sizes: n tiles a block (NT), padded
-    request rows (KQ), column segment and segment count (S). A block sums
-    the products of two D planes of equal weight in one int32 (where there
-    are two planes of each), so its segment is at most SEGMENT / 2 then.
-    Segments are halved (rounded up to a column step) while the grid has
-    fewer than TARGET_BLOCKS blocks and a segment has 8 column steps or
-    more."""
-    n_tiles = -(-k // 8)
-    nt = 1 if n_tiles == 1 else 2 if n_tiles == 2 or query_planes > 4 else 4
-    groups = -(-n_tiles // nt)
-    shared = 1 if database_planes < 2 or query_planes < 2 else 2
-    segment = min(SEGMENT // shared, kpad)
-    row_blocks = -(-rows // ROWS_PER_BLOCK)
-    while row_blocks * groups * -(-kpad // segment) < TARGET_BLOCKS and segment >= 8 * COLUMN_STEP:
-        segment = padded_columns(segment // 2)
-    return dict(nt=nt, kq=groups * nt * 8, segment=segment, segments=-(-kpad // segment))
+def _fits(ja: int, ni: int, kqt: int) -> bool:
+    """ni D planes in one launch, the first meeting ja query planes: at most
+    two, with at most ACC_COLUMNS pair sums a consumer thread's row pair."""
+    return 1 <= ni <= min(2, ja) and ja <= 8 and (ni * ja - ni * (ni - 1) // 2) * kqt <= ACC_COLUMNS
+
+
+@functools.lru_cache(maxsize=64)
+def launch_plan(database_planes: int, query_planes: int, k: int, rows: int, kpad: int, sms: int = H100_SMS) -> dict:
+    """The kernel's launches for these sizes: request rows a query tile
+    (kqt) and their chunks; the groups (i0, ja, ni) of D planes, one
+    persistent launch each (planes i >= query_planes are never read); the
+    column segment in boxes of 128 columns and the segment count; the
+    units of a launch; the grid.
+    The segment count is the one, from the fewest that keep every s32 sum
+    exact up to 32 more, whose units (segment, chunk, block of 128 rows),
+    dealt round-robin to the grid, give the block with the most bytes the
+    fewest."""
+    kqt = next((t for t in QUERY_TILE_ROWS if t >= k), QUERY_TILE_ROWS[-1])
+    chunks = -(-k // kqt)
+    needed, groups, i0 = min(database_planes, query_planes), [], 0
+    while i0 < needed:
+        ja = query_planes - i0
+        ni = 2 if needed - i0 >= 2 and _fits(ja, 2, kqt) else 1
+        groups.append((i0, ja, ni))
+        i0 += ni
+    boxes, tiles = kpad // BOX, -(-rows // TILE_ROWS)
+    row_blocks = -(-tiles // CONSUMERS)
+    per_segment = chunks * row_blocks
+    _, ja, ni = groups[0]  # the cost model's bytes a box
+    present = np.minimum(CONSUMERS, tiles - CONSUMERS * np.arange(row_blocks))  # row tiles of each block
+    best = None
+    first = -(-boxes // SEGMENT_BOXES)
+    for count in range(first, first + 33):
+        segment = -(-boxes // count)
+        segments = -(-boxes // segment)
+        units = np.arange(segments * per_segment)
+        grid = min(sms, units.size)
+        length = np.minimum(segment, boxes - units // per_segment * segment) + 1  # a box's worth for the epilogue
+        cost = length * (present[units % row_blocks] * ni * TILE_BYTES + ja * kqt * BOX)
+        key = (int(np.bincount(units % grid, weights=cost).max()), segments)
+        if best is None or key < best[0]:
+            best = (key, dict(kqt=kqt, chunks=chunks, groups=tuple(groups), segment=segment, segments=segments,
+                              units=units.size, grid=grid))
+    return best[1]
 
 
 def _library():
@@ -161,7 +205,19 @@ def _library():
     if lib.she_simple_pir_matmul.argtypes is None:
         lib.she_simple_pir_matmul.argtypes = _ARGS
         lib.she_simple_pir_matmul.restype = ctypes.c_int
+        lib.she_simple_pir_ring.argtypes = [_INT, _INT, _INT, ctypes.POINTER(_INT), ctypes.POINTER(_INT)]
+        lib.she_simple_pir_ring.restype = ctypes.c_int
     return lib
+
+
+def ring(ja: int, ni: int, kqt: int) -> tuple[int, int]:
+    """(stages, dynamic shared memory bytes) of the kernel's launch for a
+    group (ja, ni) of launch_plan at kqt request rows, from the built
+    library."""
+    stages, shared = _INT(), _INT()
+    if _library().she_simple_pir_ring(ja, ni, kqt, ctypes.byref(stages), ctypes.byref(shared)):
+        raise ValueError(f"no launch of {ni} D planes against {ja} query planes at {kqt} request rows")
+    return stages.value, shared.value
 
 
 def _check(planes: DatabasePlanes, queries: torch.Tensor, bits: int) -> None:
@@ -177,10 +233,15 @@ def _check(planes: DatabasePlanes, queries: torch.Tensor, bits: int) -> None:
     if queries.dim() != 2 or queries.shape[1] != planes.columns:
         raise ValueError(f"queries {tuple(queries.shape)} do not fit a database of {planes.columns} columns")
     _check_bits(bits)
-    pd, r16, k64, tile = planes.data.shape
-    if (r16, k64 * TILE_COLUMNS, tile) != (-(-planes.rows // TILE_ROWS), padded_columns(planes.columns),
-                                           TILE_ROWS * TILE_COLUMNS) or not 1 <= pd <= 8:
+    pd, tiles, boxes, tile = planes.data.shape
+    if (tiles, boxes * BOX, tile) != (-(-planes.rows // TILE_ROWS), padded_columns(planes.columns), TILE_BYTES) \
+            or not 1 <= pd <= 8:
         raise ValueError(f"planes {tuple(planes.data.shape)} are not the tiles of {planes.rows} x {planes.columns}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def simple_pir_matmul_cuda(planes: DatabasePlanes, queries: torch.Tensor, bits: int) -> torch.Tensor:
@@ -193,13 +254,16 @@ def simple_pir_matmul_cuda(planes: DatabasePlanes, queries: torch.Tensor, bits: 
     if C == 0:
         return out.zero_()
     pq = plane_count(bits)
-    plan = launch_plan(pd, pq, k, R, kpad)
-    qplanes = torch.empty((pq, plan["kq"], kpad), dtype=torch.uint8, device=queries.device)
-    partials = torch.empty((plan["segments"], plan["kq"], R), dtype=torch.int64, device=queries.device)
+    plan = launch_plan(pd, pq, k, R, kpad, _sms(queries.device.index or 0))
+    if plan["units"] >= 1 << 31:
+        raise ValueError(f"simple_pir_matmul takes fewer than 2^31 units, got {plan['units']}")
+    qtiles = torch.empty((plan["chunks"], kpad // BOX, pq * plan["kqt"] * BOX), dtype=torch.uint8,
+                         device=queries.device)
+    partials = torch.empty((len(plan["groups"]) * plan["segments"], k, R), dtype=torch.int64, device=queries.device)
     err = _library().she_simple_pir_matmul(
-        planes.data.data_ptr(), queries.data_ptr(), qplanes.data_ptr(), partials.data_ptr(), out.data_ptr(),
-        pd, R, kpad, k, C, bits, pq, plan["nt"], plan["kq"], plan["segment"], plan["segments"],
-        torch.cuda.current_stream().cuda_stream,
+        planes.data.data_ptr(), queries.data_ptr(), qtiles.data_ptr(), partials.data_ptr(), out.data_ptr(),
+        pd, R, kpad, k, C, bits, plan["kqt"], plan["chunks"], len(plan["groups"]), plan["segment"],
+        plan["segments"], plan["grid"], torch.cuda.current_stream().cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"she_simple_pir_matmul launch failed with CUDA error {err}")

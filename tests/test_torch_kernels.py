@@ -206,13 +206,16 @@ def _simple_pir_operands(R, C, k, p_bits, b_bits, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b_bits", [16, 21, 32, 61])
+@pytest.mark.parametrize("b_bits", [8, 16, 21, 32, 40, 48, 56, 61])
 @pytest.mark.parametrize("C", [31, 32769, 70000])
-@pytest.mark.parametrize("k", [1, 32])
+@pytest.mark.parametrize("k", [1, 7, 8, 9, 32, 33, 64])
 def test_simple_pir_matmul_matches_plain(k, C, b_bits):
     """The kernel against its plain version (float64 plane products on the
-    card) at a ragged R (131 rows: one full block of 128 and 3 rows), C
-    below one column step and across two or three int32 segments."""
+    card) at a ragged R (131 rows: two blocks of 128 rows, the second with
+    one row tile of 3 rows), two D planes (p = 9), every query-plane count
+    1-8 (b = 32: the pair (1, 3) is skipped), C under one box, under one
+    segment and over several, k in one query tile of 8, 16 or 32 rows and
+    in two or three."""
     from she_tpu_torch.ops import simple_pir_cuda as spc
 
     dev = _card()
@@ -223,6 +226,22 @@ def test_simple_pir_matmul_matches_plain(k, C, b_bits):
     torch.cuda.synchronize()
     assert spc.launches["simple_pir_matmul"] == before + 1
     assert got.shape == (k, 131)
+    assert torch.equal(got, spc.simple_pir_matmul_plain(planes, queries.to(dev), b_bits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b_bits", [8, 32, 61])
+@pytest.mark.parametrize("k", [1, 9, 33])
+def test_simple_pir_matmul_one_database_plane(k, b_bits):
+    """One D plane (p = 8) at R = 200 (a block of 128 rows and one of 72),
+    C = 40,000 over two segments."""
+    from she_tpu_torch.ops import simple_pir_cuda as spc
+
+    dev = _card()
+    db, queries = _simple_pir_operands(200, 40000, k, 8, b_bits, seed=k + b_bits)
+    planes = spc.database_planes(db.to(dev), 8)
+    assert planes.data.shape[0] == 1
+    got = spc.simple_pir_matmul(planes, queries.to(dev), b_bits)
     assert torch.equal(got, spc.simple_pir_matmul_plain(planes, queries.to(dev), b_bits))
 
 
@@ -255,10 +274,24 @@ def test_simple_pir_matmul_refuses_what_it_does_not_take():
         spc.simple_pir_matmul_cuda(planes, wider, 21)  # 41 columns for a database of 40
     with pytest.raises(ValueError):
         spc.simple_pir_matmul_cuda(planes, queries.to(dev), 63)
+    with pytest.raises(ValueError):
+        spc.simple_pir_matmul_cuda(planes, queries.to(dev), 0)
     with pytest.raises(TypeError):
         spc.simple_pir_matmul_cuda(spc.DatabasePlanes(planes.data.to(torch.int16), 16, 40), queries.to(dev), 21)
+    with pytest.raises(TypeError):
+        spc.simple_pir_matmul_cuda(planes, queries.to(dev).to(torch.int32), 21)
     with pytest.raises(ValueError):
-        spc.simple_pir_matmul_cuda(spc.DatabasePlanes(planes.data, 40, 40), queries.to(dev), 21)  # rows
+        spc.simple_pir_matmul_cuda(spc.DatabasePlanes(planes.data, 70, 40), queries.to(dev), 21)  # 2 row tiles
+    with pytest.raises(ValueError):
+        spc.simple_pir_matmul_cuda(spc.DatabasePlanes(planes.data, 16, 200), torch.zeros((2, 200), dtype=torch.int64,
+                                                                                        device=dev), 21)  # 2 boxes
+    with pytest.raises(ValueError):
+        spc.simple_pir_matmul_cuda(spc.DatabasePlanes(planes.data[:, :, :, :4096], 16, 40), queries.to(dev), 21)
+    with pytest.raises(ValueError):
+        spc.simple_pir_matmul_cuda(spc.DatabasePlanes(torch.zeros((9, 1, 1, 8192), dtype=torch.uint8, device=dev),
+                                                      16, 40), queries.to(dev), 21)  # nine planes
+    with pytest.raises(ValueError):  # a strided query
+        spc.simple_pir_matmul_cuda(planes, torch.zeros((2, 80), dtype=torch.int64, device=dev)[:, ::2], 21)
 
 
 @pytest.mark.gpu

@@ -269,7 +269,7 @@ def test_plain_product_equals_she_tpu(k, p, b):
     jserver = jsp.SimplePirServer(db.astype(object), None, jsp.computing_params(_params(p, b)[0], 300, 1, SEED))
     want = jserver.compute_response(requests.astype(object))
     planes = spc.database_planes(torch.from_numpy(db), p)
-    assert planes.data.shape == (-(-p // 8), 2, 8, 1024)  # 23 rows in 2 tiles of 16, 300 columns in 8 of 64
+    assert planes.data.shape == (-(-p // 8), 1, 3, 8192)  # 23 rows in 1 tile of 64, 300 columns in 3 boxes of 128
     np.testing.assert_array_equal(planes.row_major().numpy().astype(np.int64),
                                   np.stack([(db >> (8 * i)) & 255 for i in range(-(-p // 8))]))
     got = spc.simple_pir_matmul(planes, torch.from_numpy(requests), b)
@@ -293,16 +293,87 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         spc.simple_pir_matmul_cuda(planes, torch.zeros((1, 10), dtype=torch.int64), 21)
 
 
-@pytest.mark.parametrize("pd,k,rows,kpad,nt,kq", [(2, 32, 3641, 262144, 4, 32), (2, 1, 3641, 262144, 1, 8),
-                                                   (1, 17, 100, 70144, 4, 32), (3, 5, 7, 256, 1, 8),
-                                                   (2, 3, 20, 65536, 1, 8)])
-def test_launch_plan(pd, k, rows, kpad, nt, kq):
-    plan = spc.launch_plan(pd, 4, k, rows, kpad)
-    assert (plan["nt"], plan["kq"]) == (nt, kq)
-    assert plan["segment"] % spc.COLUMN_STEP == 0
-    assert plan["segments"] == -(-kpad // plan["segment"])
-    shared = 1 if pd == 1 else 2  # D plane products summed in one int32
-    assert shared * plan["segment"] * 255 * 255 < 1 << 31
+@pytest.mark.parametrize("p,b", [(p, b) for p in (4, 8, 9) for b in (16, 21, 32, 40)])
+def test_plain_product_equals_she_tpu_at_served_widths(p, b):
+    """The plain version against she_tpu's compute_response at p in {4, 8,
+    9} and b in {16, 21, 32, 40}, on 70 rows (a tile and a part) and 1,000
+    columns (not a multiple of a box)."""
+    rng = np.random.default_rng(100 * p + b)
+    db = rng.integers(0, 1 << p, size=(70, 1000), dtype=np.int64)
+    requests = rng.integers(0, 1 << b, size=(3, 1000), dtype=np.int64)
+    requests[:, -1] = (1 << b) - 1
+    db[:, -1] = (1 << p) - 1
+    jserver = jsp.SimplePirServer(db.astype(object), None, jsp.computing_params(_params(p, b)[0], 1000, 1, SEED))
+    want = jserver.compute_response(requests.astype(object))
+    got = spc.simple_pir_matmul(spc.database_planes(torch.from_numpy(db), p), torch.from_numpy(requests), b)
+    np.testing.assert_array_equal(_np(want), got.numpy())
+
+
+@pytest.mark.parametrize("p", [4, 8, 9, 16])
+@pytest.mark.parametrize("rows,columns", [(1, 1), (63, 127), (65, 129), (130, 32768 + 300),
+                                          (2 * spc.PLANE_ROWS_PER_PASS + 70, 300)])
+def test_planes_round_trip(rows, columns, p):
+    """database_planes and row_major() round-trip bit for bit: R not a
+    multiple of the tile's 64 rows, C not a multiple of the 128-column box
+    or of the 32,768-column segment, a database over several passes."""
+    rng = np.random.default_rng(rows + columns + p)
+    db = rng.integers(0, 1 << p, size=(rows, columns), dtype=np.int64)
+    planes = spc.database_planes(torch.from_numpy(db), p)
+    pd = -(-p // 8)
+    assert planes.data.shape == (pd, -(-rows // 64), -(-columns // 128), 8192)
+    np.testing.assert_array_equal(planes.row_major().numpy().astype(np.int64),
+                                  np.stack([(db >> (8 * i)) & 255 for i in range(pd)]))
+
+
+def test_tiles_are_swizzled_shared_memory_images():
+    """Byte (r, c) of a tile sits where a 128-byte-swizzled shared-memory
+    tile keeps it: atom r // 8 (1,024 bytes), row r % 8 (128 bytes), 16-byte
+    chunk (c // 16) ^ (r % 8); padding rows and columns are zero."""
+    rng = np.random.default_rng(3)
+    db = rng.integers(0, 1 << 16, size=(100, 200), dtype=np.int64)
+    data = spc.database_planes(torch.from_numpy(db), 16).data.numpy()
+    for i in range(2):
+        for r in range(128):
+            for c in range(256):
+                rr, cc = r % 64, c % 128  # in the tile
+                offset = (rr // 8) * 1024 + (rr % 8) * 128 + ((cc // 16) ^ (rr % 8)) * 16 + cc % 16
+                want = (db[r, c] >> (8 * i)) & 255 if r < 100 and c < 200 else 0
+                assert data[i, r // 64, c // 128, offset] == want
+    x = torch.from_numpy(rng.integers(0, 256, size=(3, 64, 128), dtype=np.uint8))
+    assert torch.equal(spc._swizzle(spc._swizzle(x).view(3, 64, 128)).view(3, 64, 128), x)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    planes = spc.database_planes(torch.zeros((4, 10), dtype=torch.int64), 9)
+    with pytest.raises(ValueError):
+        spc.simple_pir_matmul_cuda(planes, torch.zeros((1, 10), dtype=torch.int64), 21)
+
+
+@pytest.mark.parametrize("pd,pq,k,rows,kpad,kqt,groups,segments",
+                         [(2, 4, 32, 3641, 262144, 32, ((0, 4, 2),), 9), (2, 4, 1, 3641, 262144, 8, ((0, 4, 2),), 9),
+                          (1, 4, 17, 100, 70144, 32, ((0, 4, 1),), None), (3, 5, 7, 7, 256, 8, ((0, 5, 2), (2, 3, 1)), None),
+                          (2, 3, 20, 20, 65536, 32, ((0, 3, 2),), None),
+                          (8, 8, 64, 1000, 1024, 32, ((0, 8, 1), (1, 7, 1), (2, 6, 1), (3, 5, 1), (4, 4, 2), (6, 2, 2)), None),
+                          (3, 2, 9, 300, 1024, 16, ((0, 2, 2),), None), (1, 1, 1, 1, 128, 8, ((0, 1, 1),), 1)])
+def test_launch_plan(pd, pq, k, rows, kpad, kqt, groups, segments):
+    """The groups cover the D planes below min(P_D, P_Q) once each, never a
+    pair of weight 2^b or more (i + j < P_Q), within the registers' budget;
+    every s32 sum spans at most 32,768 columns; the cell's shapes take nine
+    segments of 228 boxes (261 units on 132 SMs: 1.98 waves)."""
+    plan = spc.launch_plan(pd, pq, k, rows, kpad)
+    assert (plan["kqt"], plan["groups"]) == (kqt, groups)
+    assert plan["chunks"] * plan["kqt"] >= k > (plan["chunks"] - 1) * plan["kqt"]
+    covered = [i0 + i for i0, _, ni in groups for i in range(ni)]
+    assert covered == list(range(min(pd, pq)))
+    for i0, ja, ni in groups:
+        assert ja == pq - i0 and spc._fits(ja, ni, kqt)
+        assert all(i0 + i + j < pq for i in range(ni) for j in range(ja - i))  # weight 2^(8 (i + j)) < 2^b
+    boxes = kpad // spc.BOX
+    assert 1 <= plan["segment"] <= spc.SEGMENT_BOXES and plan["segment"] * spc.BOX * 255 * 255 < 1 << 31
+    assert plan["segments"] == -(-boxes // plan["segment"])
+    assert segments is None or plan["segments"] == segments
+    assert plan["units"] == plan["segments"] * plan["chunks"] * -(-rows // 128)
+    assert plan["grid"] == min(plan["units"], spc.H100_SMS)
 
 
 # --- mod switch, the CBD error at 2^b, the packing ---------------------------
