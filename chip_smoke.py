@@ -63,11 +63,25 @@ then PNNS (BatchedPnnsServer), 16 cosine-similarity queries a batch over a
    bulk copies); every answer must decrypt to its entry; the kernel timed
    and held bit-equal to its plain version at both launched shapes, beside
    its bound and a float64 torch.matmul;
-10. the command-line tools (cli_phase), in process on the card: generate,
+10. multi-device serving (mesh_phase, she_tpu_torch.parallel) with gloo
+   ranks that all share this one card, a check of correctness, not of
+   scaling: (a) batch-parallel MulPIR over the 1M x 1 B database, 128
+   queries on 2 ranks; (b) the two-axis response over 2,097,152 x 1 B
+   (dims 32 x 32), 128 queries on a (batch 2, db 2) mesh; (c)
+   dim0_partial_psum on (b)'s chunk at S = 2 and 4 and at 64-bit scalars;
+   (d) batch-parallel PNNS, 16 queries on 2 ranks; (e) the N-sharded NTT
+   at S = 2 and 4, limb-parallel NTTs and the N-sharded ct x ct. Queries,
+   keys and the single-process answers are made here first; every part
+   must be bit-identical to them on every rank, and every answer of (a),
+   (b) and (d) must decrypt; each rank reports its seconds a call, gloo's
+   staged bytes and seconds, its peak memory and its kernel launches and
+   shapes (the NTT's with per-rank block tables), held to the plain
+   versions here after the ranks exit;
+11. the command-line tools (cli_phase), in process on the card: generate,
    shard and process a keyword database, an mmap dictionary of it, a PNNS
    database generated and processed, 16,384 x 4 KiB entries processed for
    SimplePIR, and the warm tool for PIR and PNNS;
-11. print one JSON line with every kernel's numbers, and as the last line
+12. print one JSON line with every kernel's numbers, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without the last line. Run from the repository
@@ -78,7 +92,7 @@ only step 6's int8 dim-0 cases, at every shape of DIM0_SERVED_SHAPES and
 the w64 check, then prints the kernels line and the last line.
 `--only simple_pir` builds the kernels and runs step 9 alone (its NTT
 shapes held and timed too), then prints the kernels line and the last
-line.
+line. `--only mesh` does the same for step 10.
 """
 
 from __future__ import annotations
@@ -116,6 +130,11 @@ DIM0_SERVED_SHAPES = {
     "keyword": (31, 97, 256, 4096),
     "w32": (9, 55, 256, 4096),
     "keyword_large": (21, 228, 64, 4096),
+    # the mesh phase: (a) 64 queries a rank; (b) and (c) at S = 2, the d0
+    # slice of 16 of 32 hyper-rows; (c) at S = 4, 8 of them
+    "mesh_batch": (9, 55, 128, 4096),
+    "mesh_two_axis": (32, 16, 128, 4096),
+    "mesh_psum_S4": (32, 8, 128, 4096),
 }
 # the int8 form once at the w64 path's dim-0 shape (8 digits), which serves the MAC
 DIM0_W64_CHECK = (4, 11, 2 * BATCH, 8192)
@@ -143,6 +162,17 @@ CLI_WARM_PIR = (100_000, 16)
 CLI_SIMPLE_PIR_DB = (16_384, 4096)
 CLI_SIMPLE_PIR_ROWS = 3641  # ceil(8 * 4096 / 9): the hint's rows
 CLI_SIMPLE_PIR_DEGREE = 1024  # the tool's default lattice dimension
+
+# multi-device serving (mesh_phase): gloo ranks sharing the one card
+MESH_BATCH = 128  # queries of (a) and (b): 64 a rank
+MESH_TWO_AXIS_ENTRIES = 2_097_152  # (b): 1-byte entries whose dims split over a db axis of 2
+MESH_TWO_AXIS_DIMS = (32, 32)
+MESH_PSUM_W64 = (4, 32, 16, 8192)  # (c) at 64-bit scalars, random residues: C, d0, P, N
+MESH_LIMB_MODULI = 4  # (e): limb-parallel NTTs of 4 moduli, which 2 and 4 ranks divide
+MESH_REPS = 3  # calls of each part on each rank, the first a warm-up
+NTT_KERNELS = ("ntt_forward", "ntt_inverse")
+NTT_AND_DIM0 = NTT_KERNELS + ("dim0_int8",)
+MESH_PATHS = ("mesh_batch_w32", "mesh_two_axis_w32", "mesh_pnns_w32", "mesh_dim0_psum", "mesh_sharded")
 
 
 def log(msg: str) -> None:
@@ -354,10 +384,14 @@ def shape_timing(path: str, launch_shapes, batches: int) -> dict:
     kernels = {"ntt_forward": (ntt_cuda.forward, ntt.forward_ntt_plain),
                "ntt_inverse": (ntt_cuda.inverse, ntt.inverse_ntt_plain)}
     out = {name: [] for name in kernels}
-    for (name, shape, moduli), count in sorted(launch_shapes.items(), key=lambda kv: (kv[0][0], -prod(kv[0][1]))):
+    for (name, shape, moduli, block), count in sorted(launch_shapes.items(),
+                                                      key=lambda kv: (kv[0][0], -prod(kv[0][1]), str(kv[0][3]))):
         kern, plain = kernels[name]
         n = shape[-1]
-        tables = ntt.build_ntt_tables(moduli, n, torch.device("cuda"))
+        if block is None:
+            tables = ntt.build_ntt_tables(moduli, n, torch.device("cuda"))
+        else:  # a sharded NTT's block tables (ntt.build_block_tables)
+            tables = ntt.build_block_tables(moduli, *block, torch.device("cuda"))
         x = random_rows(moduli, shape[:-2], n, 50 + len(out[name]))
         err = int((kern(x, tables) - plain(x, tables)).abs().max())
         if err:
@@ -369,13 +403,13 @@ def shape_timing(path: str, launch_shapes, batches: int) -> dict:
         plain_ms = cuda_ms(lambda: plain(x, tables), plain_iters)
         copy_ms = cuda_ms(lambda: y.copy_(x), 20)
         bound = kernel_bound_ms(shape, moduli, n)
-        row = dict(path=path, shape=list(shape), moduli=list(moduli), rows=rows, word_bits=tables.word_bits,
+        row = dict(path=path, shape=list(shape), moduli=list(moduli), block=block, rows=rows, word_bits=tables.word_bits,
                    launches_per_batch=count / batches, max_abs_err=err, ms=ms, ns_per_row=1e6 * ms / rows,
                    plain_ms=plain_ms, plain_iters=plain_iters, copy_ms=copy_ms, bound_ms=bound,
                    share_of_bound=bound / ms)
         out[name].append(row)
-        log(f"{path} {name} {tuple(shape)} ({rows} rows, {count / batches:g} per batch, {tables.word_bits}-bit "
-            f"words): bit-equal to plain; kernel {ms:.4f} ms ({row['ns_per_row']:.2f} ns/row), plain "
+        log(f"{path} {name} {tuple(shape)}{'' if block is None else f' block tables {block}'} ({rows} rows, "
+            f"{count / batches:g} per batch, {tables.word_bits}-bit words): bit-equal to plain; kernel {ms:.4f} ms ({row['ns_per_row']:.2f} ns/row), plain "
             f"{plain_ms:.4f} ms (x{plain_iters}), copy_ {copy_ms:.4f} ms, byte bound {bound:.4f} ms "
             f"({100 * bound / ms:.1f}% of bound)")
         del x, y
@@ -1720,7 +1754,7 @@ def cli_phase(seed: int) -> dict:
         files = sorted(f.name for f in d.iterdir())
     launches = dict(ntt_cuda.launches) | dict(dim0_cuda.launches) | dict(simple_pir_cuda.launches)
     # N = 1024 is the SimplePIR tool's lattice dimension alone (22-bit q')
-    simple_pir_shapes = {k: v for k, v in ntt_cuda.launch_shapes.items() if k[1][-1] == CLI_SIMPLE_PIR_DEGREE}
+    simple_pir_shapes = {k: v for k, v in ntt_cuda.launch_shapes.items() if k.shape[-1] == CLI_SIMPLE_PIR_DEGREE}
     if not (launches["ntt_forward"] and launches["ntt_inverse"] and launches["dim0_int8"]):
         raise AssertionError(f"[{label}] the tools did not run the kernels on the card: {launches}")
     if any(ntt.plain_calls_on_cuda.values()):
@@ -1728,6 +1762,449 @@ def cli_phase(seed: int) -> dict:
     log(f"[{label}] every tool exited 0 on the card in {sum(seconds.values()):.3f} s; files {files}; kernel "
         f"launches {launches}")
     return dict(seconds=seconds, launches=launches, files=files, simple_pir_launch_shapes=simple_pir_shapes)
+
+
+def _mesh_pir_context(params: str, entries: int, device):
+    from she_tpu_torch import params as paramsmod
+    from she_tpu_torch.bfv import bfv
+    from she_tpu_torch.pir import index_pir as ip
+
+    ctx = bfv.get_bfv_context(paramsmod.from_predefined(params, scalar_bits=32), device=device)
+    config = ip.IndexPirConfig(
+        entry_count=entries, entry_size_in_bytes=1, dimension_count=2, batch_size=1,
+        uneven_dimensions=True, key_compression=ip.PirKeyCompression.NO_COMPRESSION,
+    )
+    return ctx, ip.generate_parameter(config, ctx)
+
+
+def _mesh_database(entries: int, seed: int):
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(0, 256, size=(entries, 1), dtype=np.uint8)
+
+
+def mesh_pir_inputs(label: str, entries: int, seed: int) -> dict:
+    """A w32 MulPIR cell for the mesh: the database (entries x 1 B from
+    default_rng(seed)), MESH_BATCH queries and the evaluation key made by
+    the port's client on the card, and the single-process
+    BatchedMulPirServer's raw answers to them [B, 2, 1, N], made here
+    before any rank starts. The ranks get the queries and the key as host
+    arrays (queries are made once, not per rank)."""
+    import numpy as np
+    import torch
+
+    from she_tpu_torch import convert
+    from she_tpu_torch.bfv import bfv
+    from she_tpu_torch.pir import index_pir as ip
+    from she_tpu_torch.pir import serving
+    from she_tpu_torch.rng.ctr_drbg import nist_aes128_ctr
+
+    ctx, parameter = _mesh_pir_context(PARAMS, entries, None)
+    database = _mesh_database(entries, seed)
+    processed = ip.MulPirServer.process(database, ctx, parameter)
+    sk = bfv.generate_secret_key(ctx, nist_aes128_ctr(seed.to_bytes(4, "little") * 8))
+    client = ip.MulPirClient(parameter, ctx)
+    ek = client.generate_evaluation_key(sk, nist_aes128_ctr(b"evaluation-key-err-seed-32-bytes"))
+    rng = np.random.default_rng(seed + 1)
+    indices = [int(i) for i in rng.integers(0, entries, size=MESH_BATCH)]
+    t0 = time.perf_counter()
+    queries = [client.generate_query([i], sk) for i in indices]
+    query_s = time.perf_counter() - t0
+    server = serving.BatchedMulPirServer(parameter, ctx, [processed])
+    want = torch.stack([r.ciphertexts[0][0].stacked() for r in server.compute_response_batch(queries, ek)])
+    torch.cuda.synchronize()
+    log(f"[{label}] {entries} x 1 B at {PARAMS}, dims {parameter.dimensions}; {MESH_BATCH} queries made in "
+        f"{query_s:.3f} s; the single-process server's answers taken as the reference")
+    spec = dict(entries=entries, seed=seed,
+                queries=np.stack([np.stack([ct.stacked().cpu().numpy() for ct in q.ciphertexts]) for q in queries]),
+                ek=convert.evaluation_key_to_limbs(ek))
+    return dict(spec=spec, want=want.cpu().numpy(), indices=indices, database=database, ctx=ctx, client=client,
+                sk=sk, dims=parameter.dimensions)
+
+
+def mesh_pnns_inputs(seed: int) -> dict:
+    """The PNNS cell pnns_4096x128_w32_b16 for the mesh: PNNS_BATCH queries
+    and the key made by the port's client on the card, the single-process
+    BatchedPnnsServer's answers [B, R, 2, 1, N] as the reference."""
+    import numpy as np
+    import torch
+
+    from she_tpu_torch import convert
+    from she_tpu_torch.pnns import pnns
+    from she_tpu_torch.pnns import serving
+    from she_tpu_torch.rng.ctr_drbg import nist_aes128_ctr
+
+    label = "pnns_4096x128_w32_b16"
+    client_config, server_config, vectors = _mesh_pnns_config(seed)
+    processed = pnns.process_database(
+        pnns.Database([pnns.DatabaseRow(i, b"", v) for i, v in enumerate(vectors)]), server_config)
+    client = pnns.Client(client_config)
+    sk = client.generate_secret_key(nist_aes128_ctr(seed.to_bytes(4, "little") * 8))
+    ek = client.generate_evaluation_key(sk, nist_aes128_ctr(b"pnns-evaluation-key-err-seed-32b"))
+    query_vectors = np.random.default_rng(seed + 1).standard_normal((PNNS_BATCH, 1, PNNS_DB[1])).astype(np.float32)
+    queries = [client.generate_query(v, sk, err_rng=nist_aes128_ctr(bytes([i]) * 32))
+               for i, v in enumerate(query_vectors)]
+    responses = serving.BatchedPnnsServer(processed).compute_response_batch(queries, ek)
+    torch.cuda.synchronize()
+    log(f"[mesh] {label}: {PNNS_BATCH} queries made; the single-process server's answers taken as the reference")
+    spec = dict(seed=seed, ek=convert.evaluation_key_to_limbs(ek)[0],
+                queries=[[[convert.ciphertext_to_limbs(ct) for ct in m.ciphertexts] for m in q.ciphertext_matrices]
+                         for q in queries])
+    return dict(spec=spec, want=_pnns_values(responses), client=client, sk=sk, vectors=vectors,
+                query_vectors=query_vectors, scaling_factor=client_config.scaling_factor,
+                server=serving.BatchedPnnsServer(processed))
+
+
+def _mesh_pnns_config(seed: int):
+    import numpy as np
+
+    from she_tpu_torch import params as paramsmod
+    from she_tpu_torch.bfv import bfv
+    from she_tpu_torch.pnns import pnns
+
+    params, scalar_bits = PNNS_PATHS["pnns_4096x128_w32_b16"]
+    rows, dim = PNNS_DB
+    ep = paramsmod.from_predefined(params, scalar_bits=scalar_bits)
+    ctx = bfv.get_bfv_context(ep)
+    sf = pnns.max_scaling_factor(dim, [ep.plaintext_modulus])
+    ek_config = pnns.matmul_evaluation_key_config(ctx, pnns.MatrixDimensions(rows, dim), 1)
+    client_config = pnns.ClientConfig.create(ep, sf, pnns.MatrixPacking.dense_row(), dim, ek_config)
+    server_config = pnns.ServerConfig(client_config, pnns.MatrixPacking.diagonal(pnns.BabyStepGiantStep.create(dim)))
+    vectors = np.random.default_rng(seed).standard_normal((rows, dim)).astype(np.float32)
+    return client_config, server_config, vectors
+
+
+def _pnns_values(responses: list):
+    """pnns.Response list -> int64 numpy [B, R, 2, 1, N] (one plaintext modulus)."""
+    import numpy as np
+
+    return np.stack([np.stack([c.stacked().cpu().numpy() for c in r.ciphertext_matrices[0].ciphertexts])
+                     for r in responses])
+
+
+def _rank_part(label: str, mesh, run, reps: int, kernels: tuple) -> dict:
+    """One part on one rank: `run` called `reps` times (the first warms
+    up), each call timed to a synchronize; every call's result must equal
+    the first's. The kernel counts, gloo's staging and the peak device
+    memory are read around the calls: each of `kernels` must have
+    launched, the int8 dim-0 kernel only where it is one of them, the
+    SimplePIR kernel and the plain NTT on CUDA tensors never."""
+    import torch
+
+    from she_tpu_torch.ops import dim0_cuda, ntt, ntt_cuda, simple_pir_cuda
+    from she_tpu_torch.parallel import collectives
+
+    outs, seconds = [], []
+    reset_counts()
+    collectives.reset_staged()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        outs.append(out)
+    rank = torch.distributed.get_rank()
+    launches = dict(ntt_cuda.launches) | dict(dim0_cuda.launches) | dict(simple_pir_cuda.launches)
+    if (any(launches[k] == 0 for k in kernels) or (launches["dim0_int8"] and "dim0_int8" not in kernels)
+            or launches["simple_pir_matmul"] or any(ntt.plain_calls_on_cuda.values())):
+        raise AssertionError(f"[{label}] rank {rank}: launches {launches} (the part's kernels: {kernels}), plain "
+                             f"NTT on CUDA {dict(ntt.plain_calls_on_cuda)}")
+    for out in outs[1:]:
+        if any(not torch.equal(a, b) for a, b in zip(out, outs[0], strict=True)):
+            raise AssertionError(f"[{label}] rank {rank}: a repeated call answered differently")
+    return dict(rank=rank, s=seconds, staged_bytes=collectives.staged["bytes"],
+                staged_s=collectives.staged["seconds"], peak_bytes=torch.cuda.max_memory_allocated(),
+                launches=launches, launch_shapes=dict(ntt_cuda.launch_shapes),
+                dim0_shapes=dict(dim0_cuda.launch_shapes), reps=reps, out=[t.cpu().numpy() for t in outs[0]])
+
+
+def _rank_pir_server(spec: dict, device):
+    import torch
+
+    from she_tpu_torch import convert
+    from she_tpu_torch.bfv import bfv
+    from she_tpu_torch.pir import index_pir as ip
+    from she_tpu_torch.pir import serving
+
+    ctx, parameter = _mesh_pir_context(PARAMS, spec["entries"], device)
+    processed = ip.MulPirServer.process(_mesh_database(spec["entries"], spec["seed"]), ctx, parameter)
+    server = serving.BatchedMulPirServer(parameter, ctx, [processed])
+    ek = convert.evaluation_key_from_limbs(ctx, *spec["ek"])
+    queries = [
+        ip.Query([bfv.Ciphertext.from_stacked(ctx, torch.from_numpy(ct).to(device),
+                                              ctx.ciphertext_context.get_context(ct.shape[-2])) for ct in q], 1)
+        for q in spec["queries"]
+    ]
+    return ctx, server, ek, queries
+
+
+def mesh_world2(mesh, specs: dict) -> dict:
+    """Rank side of the 2-rank world ("batch"): (a) batch-parallel MulPIR,
+    (d) batch-parallel PNNS."""
+    import torch
+
+    from she_tpu_torch import convert
+    from she_tpu_torch.parallel import mesh as meshmod
+    from she_tpu_torch.pnns import pnns
+    from she_tpu_torch.pnns import serving as pnns_serving
+
+    _, server, ek, queries = _rank_pir_server(specs["a"], mesh.device)
+
+    def serve_a():
+        responses = meshmod.batch_parallel_response(server, queries, ek, mesh)
+        return [torch.stack([r.ciphertexts[0][0].stacked() for r in responses])]
+
+    out = {"a": _rank_part("mesh (a)", mesh, serve_a, MESH_REPS, NTT_AND_DIM0)}
+    del server, queries
+    torch.cuda.empty_cache()
+    spec = specs["d"]
+    _, server_config, vectors = _mesh_pnns_config(spec["seed"])
+    processed = pnns.process_database(
+        pnns.Database([pnns.DatabaseRow(i, b"", v) for i, v in enumerate(vectors)]), server_config, device=mesh.device)
+    pnns_server = pnns_serving.BatchedPnnsServer(processed)
+    pek = convert.evaluation_key_from_limbs(processed.contexts[0], spec["ek"], None)
+    pqueries = [convert.pnns_query_from_limbs(processed.contexts, (1, PNNS_DB[1]), pnns.MatrixPacking.dense_row(), q)
+                for q in spec["queries"]]
+
+    def serve_d():
+        responses = meshmod.batch_parallel_pnns_response(pnns_server, pqueries, pek, mesh)
+        return [torch.stack([torch.stack([c.stacked() for c in r.ciphertext_matrices[0].ciphertexts])
+                             for r in responses])]
+
+    out["d"] = _rank_part("mesh (d)", mesh, serve_d, MESH_REPS, NTT_KERNELS)
+    return out
+
+
+def mesh_world4(mesh, specs: dict) -> dict:
+    """Rank side of the 4-rank world, a (batch 2, db 2) mesh: (b) the
+    two-axis MulPIR response, (c) dim0_partial_psum at S = 2 (the db axis)
+    and 4 (a 4-rank db mesh) on (b)'s chunk, and at 64-bit scalars on
+    random residues, (e) the N-sharded NTT at S = 2 and 4, limb-parallel
+    NTTs and the N-sharded ct x ct multiply; each against the
+    single-process function on this rank, after the timed calls."""
+    import numpy as np
+    import torch
+
+    from she_tpu_torch import params as paramsmod
+    from she_tpu_torch.bfv import bfv
+    from she_tpu_torch.core.context import get_poly_context
+    from she_tpu_torch.ops import ntt
+    from she_tpu_torch.parallel import mesh as meshmod
+    from she_tpu_torch.parallel import sharded
+    from she_tpu_torch.pir import serving
+    from she_tpu_torch.rng.ctr_drbg import nist_aes128_ctr
+    from she_tpu_torch.utils import nt
+
+    dev = mesh.device
+    wide4 = meshmod.make_mesh((4,), ("db",), mesh.backend, dev)
+    ctx, server, ek, queries = _rank_pir_server(specs["b"], dev)
+    out = {"b": _rank_part("mesh (b)", mesh, lambda: [meshmod.two_axis_response(server, queries, ek, mesh)[0][0]],
+                           MESH_REPS, NTT_AND_DIM0)}
+
+    # (c): (b)'s chunk and the expansion of its first half-batch
+    ct_ctx = server.ct_ctx
+    chunk = server.chunks[0][0]
+    stacked, _, _ = server.stack_queries_device(queries[: MESH_BATCH // 2])
+    query_eval, _ = server.dim0_query(server.expand(stacked, ek))
+    del stacked
+    out["c"] = {}
+    for S, m in ((2, mesh), (4, wide4)):
+        # the server's digits of this rank's d0 slice: at S = 2, (b)'s own
+        digits = server.slice_digits(0, 0, meshmod.shard(chunk.shape[1], m, "db", "d0"))
+        out["c"][f"w32_S{S}"] = _rank_part(
+            f"mesh (c) S={S}", m,
+            lambda m=m, digits=digits: [meshmod.dim0_partial_psum(chunk, query_eval, ct_ctx, m, "db", digits)],
+            MESH_REPS, ("dim0_int8",))
+        out["c"][f"w32_S{S}"]["equal"] = bool(np.array_equal(
+            out["c"][f"w32_S{S}"]["out"][0], serving.dim0_inner_products(chunk, query_eval, ct_ctx).cpu().numpy()))
+    del query_eval, digits
+    w64_moduli = paramsmod.from_predefined(PATHS["w64"][0], scalar_bits=64).coefficient_moduli[:2]
+    C, d0, P, N = MESH_PSUM_W64
+    ctx64 = get_poly_context(N, tuple(w64_moduli), 64, dev)
+    db64, q64 = random_residues(w64_moduli, (C, d0), N, 70), random_residues(w64_moduli, (d0, P), N, 71)
+    for S, m in ((2, mesh), (4, wide4)):
+        part = _rank_part(f"mesh (c) w64 S={S}", m, lambda m=m: [meshmod.dim0_partial_psum(db64, q64, ctx64, m)],
+                          MESH_REPS, ())
+        part["equal"] = bool(np.array_equal(part["out"][0],
+                                            serving.dim0_inner_products(db64, q64, ctx64).cpu().numpy()))
+        out["c"][f"w64_S{S}"] = part
+    del db64, q64, server, queries, chunk
+    torch.cuda.empty_cache()
+
+    # (e) the sharded NTTs, limb-parallel NTTs and sharded ct x ct
+    out["e"] = {}
+    for label, ep in (("w32", paramsmod.from_predefined(PARAMS, scalar_bits=32)),
+                      ("w64", paramsmod.from_predefined(PATHS["w64"][0], scalar_bits=64))):
+        moduli, n = ep.coefficient_moduli, ep.poly_degree
+        tables = ntt.build_ntt_tables(tuple(moduli), n, dev)
+        x = random_residues(moduli, (), n, 80)
+        want = ntt.forward_ntt(x, tables)
+        for S, m in ((2, mesh), (4, wide4)):
+            sn = sharded.ShardedNtt(m, tables, "db")
+            part = _rank_part(f"mesh (e) ShardedNtt {label} S={S}", m, lambda sn=sn: [sn.inverse(sn.forward(x))],
+                              MESH_REPS, NTT_KERNELS)
+            fwd = sn.forward(x)
+            part["equal"] = bool(torch.equal(fwd, want) and torch.equal(sn.inverse(fwd), x)
+                                 and np.array_equal(part["out"][0], x.cpu().numpy()))
+            out["e"][f"sharded_ntt_{label}_S{S}"] = part
+    n = paramsmod.from_predefined(PARAMS, scalar_bits=32).poly_degree
+    limb_moduli = tuple(nt.generate_primes([28] * MESH_LIMB_MODULI, preferring_small=True, ntt_degree=n))
+    tables = ntt.build_ntt_tables(limb_moduli, n, dev)
+    x = random_residues(limb_moduli, (2,), n, 81)
+    want = ntt.forward_ntt(x, tables)
+    for S, m in ((2, mesh), (4, wide4)):
+        fwd, inv = sharded.limb_parallel_ntt_fns(m, tables, "db")
+        part = _rank_part(f"mesh (e) limb-parallel S={S}", m, lambda fwd=fwd, inv=inv: [inv(fwd(x))], MESH_REPS,
+                          NTT_KERNELS)
+        part["equal"] = bool(torch.equal(fwd(x), want) and np.array_equal(part["out"][0], x.cpu().numpy()))
+        out["e"][f"limb_parallel_L{MESH_LIMB_MODULI}_S{S}"] = part
+    ctx = bfv.get_bfv_context(paramsmod.from_predefined(PARAMS, scalar_bits=32), device=dev)
+    sk = bfv.generate_secret_key(ctx, nist_aes128_ctr(b"mesh-ct-mul-secret-key-seed-32by"))
+    t = ctx.plaintext_modulus
+    rng = np.random.default_rng(82)
+    va, vb = rng.integers(0, t, size=(2, ctx.degree))
+    a, b = (bfv.encrypt(bfv.encode(ctx, [int(v) for v in vals]), sk, seed=bytes([i]) * 32,
+                        err_rng=nist_aes128_ctr(bytes([i + 1]) * 32)) for i, vals in enumerate((va, vb)))
+    part = _rank_part("mesh (e) sharded_ct_mul S=2", mesh, lambda: [sharded.sharded_ct_mul(a, b, mesh, "db").stacked()],
+                      MESH_REPS, NTT_KERNELS)
+    product = bfv.Ciphertext.from_stacked(ctx, torch.from_numpy(part["out"][0]).to(dev), ctx.ciphertext_context)
+    full = np.convolve(va, vb)
+    folded = full[: ctx.degree].copy()
+    folded[: len(full) - ctx.degree] -= full[ctx.degree :]
+    part["equal"] = bool(np.array_equal(part["out"][0], bfv.ct_mul(a, b).stacked().cpu().numpy())
+                         and bfv.decode(ctx, bfv.decrypt(product, sk)) == [int(v) % t for v in folded])
+    out["e"]["sharded_ct_mul_S2"] = part
+    return out
+
+
+def _merge_parts(label: str, parts: list) -> dict:
+    """One part's rank results -> a path entry of the run: launch counts
+    and shapes summed over the ranks, the per-rank seconds, staging and
+    peak memory."""
+    from collections import Counter
+
+    launches, shapes, dim0 = Counter(), Counter(), Counter()
+    for p in parts:
+        launches.update(p["launches"])
+        shapes.update(p["launch_shapes"])
+        dim0.update(p["dim0_shapes"])
+    reps = parts[0]["reps"]
+    per_rank = [dict(rank=p["rank"], s_per_call=p["s"], median_s=statistics.median(p["s"][1:] or p["s"]),
+                     staged_bytes=p["staged_bytes"], staged_s=p["staged_s"], peak_bytes=p["peak_bytes"])
+                for p in parts]
+    return dict(path=label, launches=dict(launches), launches_per_batch={k: v / reps for k, v in launches.items()},
+                launch_shapes=dict(shapes), dim0_shapes=dict(dim0), batches=reps, ranks=per_rank)
+
+
+def _log_part(entry: dict, card: str, what: str) -> None:
+    for r in entry["ranks"]:
+        log(f"[{entry['path']}] rank {r['rank']}: {what} {', '.join(f'{s:.4f}' for s in r['s_per_call'])} s "
+            f"(median after the first {r['median_s']:.4f} s); gloo staged {r['staged_bytes']} bytes in "
+            f"{r['staged_s']:.4f} s; peak {r['peak_bytes']} bytes ({r['peak_bytes'] / 2**30:.3f} GiB); on {card}")
+    log(f"[{entry['path']}] kernel launches over the ranks: {entry['launches']}")
+
+
+def _same_on_every_rank(label: str, parts: list):
+    import numpy as np
+
+    first = parts[0]["out"]
+    for p in parts[1:]:
+        if any(not np.array_equal(a, b) for a, b in zip(first, p["out"], strict=True)):
+            raise AssertionError(f"[{label}] rank {p['rank']} returned another result than rank {parts[0]['rank']}")
+    return first
+
+
+def mesh_phase(seed: int) -> dict:
+    """Multi-device serving (she_tpu_torch.parallel) with gloo ranks that
+    share this card, each rank a process on cuda:0 (the script needs one
+    card; NCCL takes one card a rank). A check of correctness on one
+    card, not a scaling measurement: every part is held bit-equal to the
+    single-process result, (a), (b) and (d) also decrypt every answer.
+    (a) batch-parallel MulPIR, 1M x 1 B, 128 queries over 2 ranks; (b)
+    two-axis MulPIR, 2,097,152 x 1 B (dims 32 x 32), 128 queries on a
+    (batch 2, db 2) mesh of 4 ranks; (c) dim0_partial_psum on (b)'s chunk
+    at S = 2, 4 (the sum branch, the int8 kernel on each rank's digit
+    slice) and at 64-bit scalars on random residues (the butterfly); (d)
+    batch-parallel PNNS, 16 queries over 2 ranks; (e) ShardedNtt at S = 2,
+    4 on [3, 4096] w32 and [3, 8192] w64 moduli, limb-parallel NTTs of 4
+    moduli and sharded_ct_mul at S = 2. The kernels are built before any
+    rank starts; the ranks only load them."""
+    import numpy as np
+    import torch
+
+    from she_tpu_torch.bfv import bfv
+    from she_tpu_torch.parallel import mesh as meshmod
+    from she_tpu_torch.pir import index_pir as ip
+    from she_tpu_torch.pnns import pnns
+
+    card = card_line()
+    a = mesh_pir_inputs("mesh (a)", ENTRY_COUNT, seed)
+    b = mesh_pir_inputs("mesh (b)", MESH_TWO_AXIS_ENTRIES, seed + 2)
+    if b["dims"] != MESH_TWO_AXIS_DIMS:
+        raise AssertionError(f"the two-axis cell's dims are {b['dims']}, not {MESH_TWO_AXIS_DIMS}")
+    d = mesh_pnns_inputs(seed)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[mesh] parent holds {torch.cuda.memory_allocated()} bytes before the ranks start")
+    t0 = time.perf_counter()
+    world2 = meshmod.run_ranks(mesh_world2, (2,), ("batch",), "gloo", "cuda", {"a": a["spec"], "d": d["spec"]})
+    world2_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    world4 = meshmod.run_ranks(mesh_world4, (2, 2), ("batch", "db"), "gloo", "cuda", {"b": b["spec"]})
+    world4_s = time.perf_counter() - t0
+    log(f"[mesh] 2 ranks ran (a) and (d) in {world2_s:.3f} s, 4 ranks (b), (c) and (e) in {world4_s:.3f} s, "
+        f"spawn and set-up included; on {card}")
+
+    paths = {}
+    single = a["ctx"].ciphertext_context.get_context(1)
+    for key, inputs, world, label, what in (("a", a, world2, "mesh_batch_w32", "batch-parallel call of 128 queries"),
+                                            ("b", b, world4, "mesh_two_axis_w32", "two-axis call of 128 queries")):
+        parts = [w[key] for w in world]
+        got = _same_on_every_rank(label, parts)[0]
+        if not np.array_equal(got, inputs["want"]):
+            raise AssertionError(f"[{label}] differs from the single-process server")
+        for v, index in zip(got, inputs["indices"]):
+            response = ip.Response([[bfv.Ciphertext.from_stacked(inputs["ctx"], torch.from_numpy(v).cuda(), single)]])
+            if inputs["client"].decrypt(response, [index], inputs["sk"]) != [inputs["database"][index].tobytes()]:
+                raise AssertionError(f"[{label}] the answer for entry {index} does not decrypt to it")
+        entry = _merge_parts(label, parts)
+        _log_part(entry, card, what)
+        log(f"[{label}] bit-identical to the single-process server on every rank; all {MESH_BATCH} answers decrypt")
+        paths[label] = entry
+
+    parts = [w["d"] for w in world2]
+    got = _same_on_every_rank("mesh_pnns_w32", parts)[0]
+    if not np.array_equal(got, d["want"]):
+        raise AssertionError("[mesh_pnns_w32] differs from the single-process server")
+    db_rounded = pnns.normalized_scaled_and_rounded(d["vectors"], d["scaling_factor"])
+    # the mesh's answers as pnns.Response objects, through the single server's assembly
+    responses = d["server"]._assemble_responses([torch.from_numpy(got).cuda().transpose(0, 1)], PNNS_BATCH)
+    for qv, response in zip(d["query_vectors"], responses):
+        want = db_rounded @ pnns.normalized_scaled_and_rounded(qv, d["scaling_factor"]).T
+        if not np.array_equal(d["client"].scores(response, d["sk"]), want):
+            raise AssertionError("[mesh_pnns_w32] scores differ from the integer dot products")
+    entry = _merge_parts("mesh_pnns_w32", parts)
+    _log_part(entry, card, f"batch-parallel call of {PNNS_BATCH} queries")
+    log(f"[mesh_pnns_w32] bit-identical to the single-process server on every rank; all {PNNS_BATCH} x "
+        f"{PNNS_DB[0]} scores equal the integer dot products")
+    paths["mesh_pnns_w32"] = entry
+
+    for key, label in (("c", "mesh_dim0_psum"), ("e", "mesh_sharded")):
+        cases = world4[0][key]
+        parts = []
+        for case in cases:
+            case_parts = [w[key][case] for w in world4]
+            _same_on_every_rank(f"{label} {case}", case_parts)
+            if not all(p["equal"] for p in case_parts):
+                raise AssertionError(f"[{label}] {case} differs from the single-process function")
+            e = _merge_parts(f"{label} {case}", case_parts)
+            _log_part(e, card, "call")
+            parts += case_parts
+        log(f"[{label}] {', '.join(cases)}: bit-identical to the single-process functions on every rank")
+        paths[label] = _merge_parts(label, parts)
+    return paths
 
 
 def run(args) -> int:
@@ -1752,29 +2229,20 @@ def run(args) -> int:
         return dim0_only(args, card)
     if args.only == "simple_pir":
         return simple_pir_only(args, card)
+    if args.only == "mesh":
+        return mesh_only(args, card)
 
     checked = kernel_phase(args.seed)
-    paths, shapes, dim0_rows, simple_pir_rows = {}, {"ntt_forward": [], "ntt_inverse": []}, [], []
+    paths = {}
     for _, drive in serving_phases(args):
-        for path, result in drive().items():
-            paths[path] = result
-            for name, rows in shape_timing(path, result["launch_shapes"], result["batches"]).items():
-                shapes[name].extend(rows)
-            if "setup_launch_shapes" in result:  # the set-up's NTTs (PNNS: SIMD encoding at t, to Eval)
-                for name, rows in shape_timing(f"{path}:setup", result["setup_launch_shapes"], 1).items():
-                    shapes[name].extend(rows)
-            dim0_rows += dim0_shape_timing(path, result["dim0_shapes"], result["batches"])
-            simple_pir_rows += result.get("simple_pir_rows", [])
+        paths.update(drive())
         torch.cuda.empty_cache()
     cli = cli_phase(args.seed)
+    shapes, dim0_rows = timed_launch_shapes(paths)
     for name, rows in shape_timing("cli:simple_pir_process_database", cli.pop("simple_pir_launch_shapes"), 1).items():
         if not rows:
             raise AssertionError(f"the SimplePIR tool did not launch {name} at N = {CLI_SIMPLE_PIR_DEGREE}")
         shapes[name].extend(rows)
-    served = {(r["C"], r["d0"], r["P"], r["digits_shape"][1]) for r in dim0_rows}
-    if not served <= set(DIM0_SERVED_SHAPES.values()):
-        raise AssertionError(f"served int8 dim-0 shapes {sorted(served - set(DIM0_SERVED_SHAPES.values()))} "
-                             f"are missing from DIM0_SERVED_SHAPES")
     w64_check = dim0_w64_check()
 
     kernels = ntt_kernel_entries(shapes, paths, checked)
@@ -1783,22 +2251,12 @@ def run(args) -> int:
     dim0_entry = dim0_kernel_entry(dim0_rows, w64_check, sum(p["launches"]["dim0_int8"] for p in paths.values()))
     dim0_entry["launches_by_path"] = {p: v["launches"]["dim0_int8"] for p, v in paths.items()}
     kernels.append(dim0_entry)
+    simple_pir_rows = [r for p in paths.values() for r in p.get("simple_pir_rows", [])]
     if not simple_pir_rows:
         raise AssertionError("no served path launched the SimplePIR kernel")
     kernels.append(simple_pir_kernel_entry(
         simple_pir_rows, {p: v["launches"]["simple_pir_matmul"] for p, v in paths.items()}))
     widest = max(dim0_rows, key=lambda r: r["bytes"])
-    for p in paths.values():
-        for key in ("launch_shapes", "setup_launch_shapes"):
-            if key in p:
-                p[key] = [dict(name=k[0], shape=list(k[1]), moduli=list(k[2]), launches=v) for k, v in p[key].items()]
-        p["dim0_shapes"] = [dict(digits_shape=list(k[0]), query_shape=list(k[1]), moduli=list(k[2]), launches=v)
-                            for k, v in p["dim0_shapes"].items()]
-    summary = dict(card=card, device=torch.cuda.get_device_name(0), kernel_build_s=built,
-                   kernels=kernels, paths=paths, cli=cli)
-    if args.json_out:
-        with open(args.json_out, "w") as f:
-            json.dump(summary, f, indent=1)
     for path, p in paths.items():
         if path not in PATHS:
             continue
@@ -1833,11 +2291,57 @@ def run(args) -> int:
             f"device time, idle share {v['profile']['idle_share_of_steady_batch']:.3f}; peak {v['peak_bytes']} "
             f"bytes; smallest noise budget {v['min_noise_budget']:.3f} bits; on {card}")
     log(simple_pir_summary(paths[SIMPLE_PIR_CELL], kernels[-1], card))
+    log(mesh_summary(paths, card))
     log(f"cli: every tool exited 0 on the card, {sum(cli['seconds'].values()):.3f} s in all, on {card}")
     log(f"dim0_int8 at the widest served shape ({widest['path']}, digits {widest['digits_shape']}, query "
         f"{widest['query_shape']}): {widest['ms']:.4f} ms against a bound of {widest['bound_ms']:.4f} ms "
         f"({100 * widest['share_of_bound']:.1f}%), MAC {widest['mac_ms']:.4f} ms, digit bmm "
         f"{widest['library_ms']:.4f} ms; launches by path {dim0_entry['launches_by_path']}, on {card}")
+    return report(args, card, kernels, paths=paths, kernel_build_s=built, cli=cli)
+
+
+def timed_launch_shapes(paths: dict) -> tuple[dict, list]:
+    """Every NTT and int8 dim-0 launch shape of the paths' runs (and of their
+    set-ups), held to the plain versions and timed: shape_timing's rows by
+    kernel and dim0_shape_timing's rows. Fails on an int8 dim-0 shape that
+    DIM0_SERVED_SHAPES does not list."""
+    shapes, dim0_rows = {"ntt_forward": [], "ntt_inverse": []}, []
+    for path, result in paths.items():
+        for name, rows in shape_timing(path, result["launch_shapes"], result["batches"]).items():
+            shapes[name].extend(rows)
+        if "setup_launch_shapes" in result:  # the set-up's NTTs (PNNS: SIMD encoding at t, to Eval)
+            for name, rows in shape_timing(f"{path}:setup", result["setup_launch_shapes"], 1).items():
+                shapes[name].extend(rows)
+        dim0_rows += dim0_shape_timing(path, result["dim0_shapes"], result["batches"])
+    served = {(r["C"], r["d0"], r["P"], r["digits_shape"][1]) for r in dim0_rows}
+    if not served <= set(DIM0_SERVED_SHAPES.values()):
+        raise AssertionError(f"served int8 dim-0 shapes {sorted(served - set(DIM0_SERVED_SHAPES.values()))} "
+                             f"are missing from DIM0_SERVED_SHAPES")
+    return shapes, dim0_rows
+
+
+def launch_rows(path: dict) -> None:
+    """A path's launch counters, keyed by ntt_cuda.LaunchKey and by the
+    int8 dim-0 kernel's (digits shape, query shape, moduli), as JSON rows,
+    in place."""
+    for key in ("launch_shapes", "setup_launch_shapes"):
+        if key in path:
+            path[key] = [dict(k._asdict(), launches=v) for k, v in path[key].items()]
+    path["dim0_shapes"] = [dict(digits_shape=k[0], query_shape=k[1], moduli=k[2], launches=v)
+                           for k, v in path["dim0_shapes"].items()]
+
+
+def report(args, card: str, kernels: list, **summary) -> int:
+    """The end of every run: the full results to --json-out (the paths'
+    launch counters as rows), then the kernels line, the card line and
+    the last line."""
+    import torch
+
+    for path in summary.get("paths", {}).values():
+        launch_rows(path)
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump(dict(card=card, device=torch.cuda.get_device_name(0), kernels=kernels, **summary), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
@@ -1854,15 +2358,14 @@ def serving_phases(args) -> list:
                      ("keyword_large", lambda: {"keyword_large": large_value_path(args.seed)}),
                      ("spir", lambda: {"spir": spir_phase(args.seed)})] + [
         (label, lambda label=label: {label: pnns_path(label, args.seed, args.batches)}) for label in PNNS_PATHS] + [
-        (SIMPLE_PIR_CELL, lambda: {SIMPLE_PIR_CELL: simple_pir_path(args.seed, args.batches)})]
+        (SIMPLE_PIR_CELL, lambda: {SIMPLE_PIR_CELL: simple_pir_path(args.seed, args.batches)}),
+        ("mesh", lambda: mesh_phase(args.seed))]
 
 
 def dim0_only(args, card: str) -> int:
     """--only dim0: the int8 dim-0 kernel at every served shape and the w64
     check (dim0_case); then the kernels line (launches: those of this run's
     checks and timings) and the last line."""
-    import torch
-
     from she_tpu_torch import params as paramsmod
     from she_tpu_torch.ops import dim0_cuda
 
@@ -1871,14 +2374,7 @@ def dim0_only(args, card: str) -> int:
     rows = [dim0_case(label, moduli, *shape, 60 + i) for i, (label, shape) in enumerate(DIM0_SERVED_SHAPES.items())]
     w64_check = dim0_w64_check()
     entry = dim0_kernel_entry(rows, w64_check, dim0_cuda.launches["dim0_int8"])
-    if args.json_out:
-        with open(args.json_out, "w") as f:
-            json.dump(dict(card=card, device=torch.cuda.get_device_name(0), kernels=[entry]), f, indent=1)
-    print(json.dumps({"kernels": [entry]}))
-    print(card)
-    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
-    print(json.dumps({"ok": True, "device": device}))
-    return 0
+    return report(args, card, [entry])
 
 
 def simple_pir_summary(v: dict, entry: dict, card: str) -> str:
@@ -1900,24 +2396,37 @@ def simple_pir_only(args, card: str) -> int:
     held to the plain version and timed; then the kernels line (the NTT
     kernels and simple_pir_matmul, with this phase's launches) and the
     last line."""
-    import torch
-
     v = simple_pir_path(args.seed, args.batches)
     paths = {SIMPLE_PIR_CELL: v}
     kernels = ntt_kernel_entries(shape_timing(SIMPLE_PIR_CELL, v["launch_shapes"], v["batches"]), paths, None)
     kernels.append(simple_pir_kernel_entry(v["simple_pir_rows"], {SIMPLE_PIR_CELL: v["launches"]["simple_pir_matmul"]}))
-    v["launch_shapes"] = [dict(name=k[0], shape=list(k[1]), moduli=list(k[2]), launches=c)
-                          for k, c in v["launch_shapes"].items()]
-    v["dim0_shapes"] = []
-    if args.json_out:
-        with open(args.json_out, "w") as f:
-            json.dump(dict(card=card, device=torch.cuda.get_device_name(0), kernels=kernels, paths=paths), f, indent=1)
     log(simple_pir_summary(v, kernels[-1], card))
-    print(json.dumps({"kernels": kernels}))
-    print(card)
-    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
-    print(json.dumps({"ok": True, "device": device}))
-    return 0
+    return report(args, card, kernels, paths=paths)
+
+
+def mesh_summary(paths: dict, card: str) -> str:
+    parts = []
+    for label in MESH_PATHS:
+        v = paths[label]
+        medians = [r["median_s"] for r in v["ranks"]]
+        parts.append(f"{label} median {min(medians):.4f}-{max(medians):.4f} s a call over {len(medians)} rank "
+                     f"results, gloo staged {sum(r['staged_bytes'] for r in v['ranks'])} bytes")
+    return "mesh (one card, gloo ranks; every part bit-identical to one process): " + "; ".join(parts) + f"; on {card}"
+
+
+def mesh_only(args, card: str) -> int:
+    """--only mesh: the mesh phase alone, every NTT and int8 dim-0 launch
+    shape of its ranks held to the plain version and timed in this
+    process after the ranks have exited; then the kernels line (the NTT
+    kernels and dim0_int8, with the ranks' launches) and the last line."""
+    paths = mesh_phase(args.seed)
+    shapes, dim0_rows = timed_launch_shapes(paths)
+    kernels = ntt_kernel_entries(shapes, paths, None)
+    entry = dim0_kernel_entry(dim0_rows, dim0_w64_check(), sum(p["launches"]["dim0_int8"] for p in paths.values()))
+    entry["launches_by_path"] = {p: v["launches"]["dim0_int8"] for p, v in paths.items()}
+    kernels.append(entry)
+    log(mesh_summary(paths, card))
+    return report(args, card, kernels, paths=paths)
 
 
 def parse_args(argv=None):
@@ -1925,9 +2434,9 @@ def parse_args(argv=None):
     parser.add_argument("--batches", type=int, default=3, help="query batches to serve (>= 3)")
     parser.add_argument("--seed", type=int, default=0, help="seed of the database, keys and indices")
     parser.add_argument("--json-out", default=None, help="also write the full results to this file")
-    parser.add_argument("--only", choices=["dim0", "simple_pir"], default=None,
+    parser.add_argument("--only", choices=["dim0", "simple_pir", "mesh"], default=None,
                         help="run one phase alone: dim0, the int8 dim-0 kernel at every served shape; "
-                             "simple_pir, the SimplePIR cell")
+                             "simple_pir, the SimplePIR cell; mesh, multi-device serving with gloo ranks")
     args = parser.parse_args(argv)
     if args.batches < 3:
         parser.error("--batches must be at least 3")

@@ -32,6 +32,7 @@ from ..device import resolve_device
 from ..ops import galois as galoismod
 from ..ops import modarith as ma
 from ..ops import ntt as nttmod
+from ..ops import wide
 from ..params import EncryptionParameters
 from ..rng import sampling
 from ..rng.ctr_drbg import SystemRng, nist_aes128_ctr
@@ -414,14 +415,17 @@ def _plaintext_translate(ct: Ciphertext, pt: Plaintext, subtract: bool) -> Ciphe
     tool = context.get_rns_tool(ct.moduli_count)
     ct_ctx = ct.polys[0].context
     t = context.plaintext_modulus
-    if t >= ma.INT64_ROUTE_MAX:
-        # qModT * m would need more than 63 bits
-        raise errors.InvalidEncryptionParameters(f"plaintext modulus {t} >= 2^31")
     m = pt.poly.data  # [..., 1, N] values < t
     # adjust = floor((qModT * m + tThreshold) / t) < t
-    adjust = torch.div(m * (tool.q_mod_t % t) + tool.t_threshold, t, rounding_mode="floor")
+    if ma.is_wide(t):
+        # qModT * m needs up to 2 log2(t) bits: a (hi, lo) pair, hi < t
+        hi, lo = wide.mul_wide(m, tool.q_mod_t % t)
+        lo = lo + tool.t_threshold
+        adjust = wide.divmod_pair(hi + (lo >> 62), lo & wide.M62, t)[0]
+    else:
+        adjust = torch.div(m * (tool.q_mod_t % t) + tool.t_threshold, t, rounding_mode="floor")
     q = ct_ctx.q_col
-    total = ma.add_mod(ma.mul_mod(m, ct_ctx.column(tool.q_div_t), q), adjust, q)
+    total = ma.add_mod(ma.mul_mod(m, ct_ctx.column(tool.q_div_t), q, bound=t), adjust, q)
     op = ma.sub_mod if subtract else ma.add_mod
     new_c0 = PolyRq(op(ct.polys[0].data, total, q), ct_ctx, COEFF)
     return Ciphertext(context, [new_c0] + ct.polys[1:], ct.correction_factor, None)

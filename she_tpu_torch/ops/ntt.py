@@ -65,12 +65,14 @@ class ShoupTables:
 class NttTables(ShoupTables):
     """Per-(moduli, degree, device) tables: the 64-bit ones (which the plain
     version reads too) as fields, and the 32-bit ones in `w32` where
-    `word_bits` is 32, else None."""
+    `word_bits` is 32, else None. `block` is None, or (full degree,
+    blocks, block) for the tables of build_block_tables."""
 
     degree: int
     moduli: tuple[int, ...]
     word_bits: int
     w32: ShoupTables | None
+    block: tuple[int, int, int] | None = None
 
 
 def ntt_word_bits(moduli) -> int:
@@ -93,12 +95,10 @@ def _word_tensor(values, bits: int, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
-def _shoup_tables(moduli, degree, bits, device) -> ShoupTables:
+def _shoup_tables(rows, bits, device) -> dict:
+    """rows: per modulus (q, roots, inverse roots, n^-1, n^-1 * w^-1)."""
     cols = {k: [] for k in ShoupTables.__dataclass_fields__}
-    for q in moduli:
-        r, ir = ntt_root_tables(q, degree)
-        ninv = nt.inverse_mod(degree, q)
-        ninvw = (ninv * ir[1]) % q
+    for q, r, ir, ninv, ninvw in rows:
         cols["roots"].append(r)
         cols["roots_shoup"].append([shoup_const(v, q, bits) for v in r])
         cols["inv_roots"].append(ir)
@@ -110,17 +110,51 @@ def _shoup_tables(moduli, degree, bits, device) -> ShoupTables:
     return {k: _word_tensor(v, bits, device) for k, v in cols.items()}
 
 
+def _tables(rows, moduli, degree, device, block=None) -> NttTables:
+    bits = ntt_word_bits(moduli)
+    w32 = ShoupTables(**_shoup_tables(rows, 32, device)) if bits == 32 else None
+    return NttTables(
+        **_shoup_tables(rows, 64, device),
+        degree=degree, moduli=tuple(moduli), word_bits=bits, w32=w32, block=block,
+    )
+
+
 @lru_cache(maxsize=None)
 def build_ntt_tables(moduli: tuple[int, ...], degree: int, device: torch.device) -> NttTables:
     for q in moduli:
         if not nt.is_ntt_modulus(q, degree):
             raise ValueError(f"{q} is not NTT-friendly for N={degree}")
-    bits = ntt_word_bits(moduli)
-    w32 = ShoupTables(**_shoup_tables(moduli, degree, 32, device)) if bits == 32 else None
-    return NttTables(
-        **_shoup_tables(moduli, degree, 64, device),
-        degree=degree, moduli=tuple(moduli), word_bits=bits, w32=w32,
-    )
+    rows = []
+    for q in moduli:
+        r, ir = ntt_root_tables(q, degree)
+        ninv = nt.inverse_mod(degree, q)
+        rows.append((q, r, ir, ninv, (ninv * ir[1]) % q))
+    return _tables(rows, moduli, degree, device)
+
+
+@lru_cache(maxsize=None)
+def build_block_tables(moduli: tuple[int, ...], degree: int, blocks: int, block: int,
+                       device: torch.device) -> NttTables:
+    """Tables of the transform that block `block` of `blocks` contiguous
+    N/blocks-blocks of a length-`degree` NTT undergoes once the first
+    log2(blocks) stages are done: a negacyclic NTT of length
+    n = degree / blocks whose twiddle j = m + i (m a power of two, i < m)
+    is the full table's (blocks + block) * m + i, forward and inverse (she_tpu
+    parallel/sharded.py:130,151 index m + block * m_local with
+    m = blocks * m_local). The inverse leaves n^-1 out of its last stage
+    (n_inv = 1, n_inv_w = its twiddle 1), so that the remaining stages and
+    the division by `degree` can follow."""
+    if blocks < 1 or blocks & (blocks - 1) or degree < 2 * blocks or not 0 <= block < blocks:
+        raise ValueError(f"block {block} of {blocks} of a length-{degree} transform")
+    n = degree // blocks
+    # twiddle j = m + i of the block is the full table's (blocks + block - 1) * m + j
+    idx = [0] + [(blocks + block - 1) * (1 << (j.bit_length() - 1)) + j for j in range(1, n)]
+    rows = []
+    for q in moduli:
+        r, ir = ntt_root_tables(q, degree)
+        rb, irb = [r[k] for k in idx], [ir[k] for k in idx]
+        rows.append((q, rb, irb, 1, irb[1]))
+    return _tables(rows, moduli, n, device, (degree, blocks, block))
 
 
 def _check_plain(x: torch.Tensor, tables: NttTables, direction: str) -> None:

@@ -9,17 +9,30 @@ words with the tables of `tables.w32` when every modulus is below 2^30,
 64-bit words with the int64 tables otherwise; both are kernels.
 `launches` counts each launch per direction, so a run can show that its
 NTTs went through the kernels; `launch_shapes` counts the same launches by
-(direction, input shape, moduli), so a run can time each shape it used.
+LaunchKey (direction, input shape, moduli, tables.block), so a run can time
+each shape and each kind of table (a sharded NTT's block tables) it used.
 """
 
 from __future__ import annotations
 
 import ctypes
 from collections import Counter
+from typing import NamedTuple
 
 import torch
 
 from . import kernel_build
+
+
+
+class LaunchKey(NamedTuple):
+    """What a launch is counted by in `launch_shapes`."""
+
+    name: str  # "ntt_forward" or "ntt_inverse"
+    shape: tuple
+    moduli: tuple
+    block: tuple | None  # (degree, blocks, block) of block tables, else None
+
 
 launches = {"ntt_forward": 0, "ntt_inverse": 0}
 launch_shapes: Counter = Counter()
@@ -94,7 +107,7 @@ def forward(x: torch.Tensor, tables) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"she_ntt_forward launch failed with CUDA error {err}")
     launches["ntt_forward"] += 1
-    launch_shapes[("ntt_forward", tuple(x.shape), tables.moduli)] += 1
+    launch_shapes[LaunchKey("ntt_forward", tuple(x.shape), tables.moduli, tables.block)] += 1
     return y
 
 
@@ -115,5 +128,5 @@ def inverse(x: torch.Tensor, tables) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"she_ntt_inverse launch failed with CUDA error {err}")
     launches["ntt_inverse"] += 1
-    launch_shapes[("ntt_inverse", tuple(x.shape), tables.moduli)] += 1
+    launch_shapes[LaunchKey("ntt_inverse", tuple(x.shape), tables.moduli, tables.block)] += 1
     return y

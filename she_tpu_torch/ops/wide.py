@@ -13,7 +13,8 @@ the same bits.
 
 * `mul_wide` splits each operand at 31 bits: four partial products, each
   below 2^62, and a middle sum below 2^63.
-* `reduce_pair` reduces hi * 2^62 + lo (hi < q) exactly. Two float64
+* `reduce_pair` reduces hi * 2^62 + lo (hi < q) exactly, and
+  `divmod_pair` also gives its quotient. Two float64
   quotient estimates only choose how many q to subtract; the subtraction
   itself is integer arithmetic on 31-bit pieces, and its result is
   corrected into [0, q). Estimate 1 is within 2^12 of floor(T / q)
@@ -126,9 +127,9 @@ def _mul_split(a, b0, b1):
     return hi, lo & M62
 
 
-def reduce_pair(hi: torch.Tensor, lo: torch.Tensor, q) -> torch.Tensor:
-    """(hi * 2^62 + lo) mod q for 0 <= hi < q, 0 <= lo < 2^62, q <= 2^62:
-    exact, fully reduced into [0, q)."""
+def _divide(hi: torch.Tensor, lo: torch.Tensor, q):
+    """The two quotient estimates of (hi * 2^62 + lo) / q and the remainder
+    they leave, in [-q, 2q): reduce_pair's and divmod_pair's common part."""
     c = _consts(q)
     f64 = torch.float64
     # estimate 1: within 2^12 of floor(T / q) < 2^62
@@ -146,9 +147,25 @@ def reduce_pair(hi: torch.Tensor, lo: torch.Tensor, q) -> torch.Tensor:
     e = g - quot2 * c["q_hi"]
     f = g0 - quot2 * c["q_lo"]
     e = e + (f >> 31)
-    r = e * _TWO31 + (f & M31)  # in [-q, 2q)
+    return quot, quot2, e * _TWO31 + (f & M31)
+
+
+def reduce_pair(hi: torch.Tensor, lo: torch.Tensor, q) -> torch.Tensor:
+    """(hi * 2^62 + lo) mod q for 0 <= hi < q, 0 <= lo < 2^62, q <= 2^62:
+    exact, fully reduced into [0, q)."""
+    r = _divide(hi, lo, q)[2]
     r = torch.where(r < 0, r + q, r)
     return torch.where(r >= q, r - q, r)
+
+
+def divmod_pair(hi: torch.Tensor, lo: torch.Tensor, q) -> tuple[torch.Tensor, torch.Tensor]:
+    """(floor(T / q), T mod q) for T = hi * 2^62 + lo, 0 <= hi < q,
+    0 <= lo < 2^62, q <= 2^62: exact; the quotient is below 2^62."""
+    quot, quot2, r = _divide(hi, lo, q)
+    below, above = r < 0, r >= q
+    quot = quot + quot2 - below.to(torch.int64) + above.to(torch.int64)
+    r = torch.where(below, r + q, r)
+    return quot, torch.where(above, r - q, r)
 
 
 def mul_mod(a: torch.Tensor, b, q) -> torch.Tensor:

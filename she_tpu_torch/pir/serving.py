@@ -278,6 +278,8 @@ class BatchedMulPirServer:
             [pack_database_chunk_digits(chunk, self.ct_ctx) for chunk in chunks] if use_dim0_int8 else []
             for chunks in self.chunks
         ]
+        # (database, chunk, first row, end row) -> the digits of a d0 slice
+        self._slice_digits = {}
 
     @staticmethod
     def stack_queries(queries: list) -> tuple[list, int, int]:
@@ -296,10 +298,24 @@ class BatchedMulPirServer:
 
     def compute_response_batch(self, queries: list, evaluation_key, on_stage=None) -> list:
         """queries: list of ip.Query; returns one ip.Response per query."""
-        stacked, _, indices_count = self.stack_queries_device(queries)
+        stacked, n_ct, indices_count = self.stack_queries_device(queries)
         _mark(on_stage, "stack")
+        return self.compute_response_batch_from_stacked(
+            stacked, evaluation_key, len(queries), n_ct, indices_count, on_stage
+        )
+
+    def compute_response_batch_from_stacked(
+        self, stacked: list, evaluation_key, B: int, n_ct: int, indices_count: int = 1, on_stage=None
+    ) -> list:
+        """stacked: n_ct tensors [B, 2, L, N] on the context's device (as
+        stack_queries_device makes them) -> one ip.Response per query
+        (she_tpu serving.py:946)."""
+        if len(stacked) != n_ct or any(s.shape[0] != B for s in stacked):
+            raise errors.InvalidArgument(
+                f"expected {n_ct} stacked ciphertexts of {B} queries, got {[tuple(s.shape) for s in stacked]}"
+            )
         out = self.respond_stacked(stacked, evaluation_key, indices_count, on_stage)
-        return self._assemble_responses(out, len(queries))
+        return self._assemble_responses(out, B)
 
     def compute_response_stream(self, batches: list, evaluation_key) -> list:
         """Serves a sequence of query batches; returns the flat list of
@@ -354,11 +370,31 @@ class BatchedMulPirServer:
         by the server's form of dim-0 (she_tpu serving.py:804 _dim0). An
         all-zero column gives zeros, the transparent zero of the per-query
         server."""
-        if self.use_dim0_int8:
-            results = dim0_int8(self.chunk_digits[db_index][chunk_index], query_eval, self.ct_ctx)
-        else:
-            results = dim0_inner_products(self.chunks[db_index][chunk_index], query_eval, self.ct_ctx)
-        # results: [C, 2B, L, N]
+        rows = slice(0, self.parameter.dimensions[0])
+        return self.dim0_columns(self.dim0_partial(db_index, chunk_index, rows, query_eval))
+
+    def dim0_partial(self, db_index: int, chunk_index: int, rows: slice, query_eval: torch.Tensor) -> torch.Tensor:
+        """The dim-0 sums [C, 2B, L, N] (Eval, fully reduced) of one chunk's
+        hyper-rows `rows` against query_eval[rows], by the server's form of
+        dim-0: all of d0 for `dim0`, a rank's share on a db mesh axis."""
+        if not self.use_dim0_int8:
+            return dim0_inner_products(self.chunks[db_index][chunk_index][:, rows], query_eval[rows], self.ct_ctx)
+        return dim0_int8(self.slice_digits(db_index, chunk_index, rows), query_eval[rows], self.ct_ctx)
+
+    def slice_digits(self, db_index: int, chunk_index: int, rows: slice) -> torch.Tensor:
+        """The int8 digits of one chunk's hyper-rows `rows`: the chunk's own
+        for all of d0, else packed on first use and kept."""
+        if (rows.start, rows.stop) == (0, self.parameter.dimensions[0]):
+            return self.chunk_digits[db_index][chunk_index]
+        key = (db_index, chunk_index, rows.start, rows.stop)
+        if key not in self._slice_digits:
+            chunk = self.chunks[db_index][chunk_index][:, rows].contiguous()
+            self._slice_digits[key] = pack_database_chunk_digits(chunk, self.ct_ctx)
+        return self._slice_digits[key]
+
+    def dim0_columns(self, results: torch.Tensor) -> torch.Tensor:
+        """Dim-0 sums [C, 2B, L, N] (Eval) -> Coeff ciphertexts
+        [B, C, 2, L, N]."""
         C, B = results.shape[0], results.shape[1] // 2
         results = results.reshape((C, B, 2) + tuple(results.shape[-2:]))
         return bfv.ct_to_coeff(_ct(self.context, results.transpose(0, 1), self.ct_ctx, EVAL)).stacked()

@@ -115,7 +115,18 @@ class BatchedPnnsServer:
         one pnns.Response per query."""
         stacked = self.stack_queries_device(queries)
         _mark(on_stage, "stack")
-        return self._assemble_responses(self.respond_stacked(stacked, evaluation_key, on_stage), len(queries))
+        return self.compute_response_batch_from_stacked(stacked, evaluation_key, len(queries), on_stage)
+
+    def compute_response_batch_from_stacked(self, stacked: list, evaluation_key, B: int, on_stage=None) -> list:
+        """stacked: per plaintext modulus [B, 2, L, N] on the server's
+        device (as stack_queries_device makes them) -> one pnns.Response
+        per query (she_tpu pnns/serving.py:339)."""
+        if len(stacked) != len(self.packed) or any(s.shape[0] != B for s in stacked):
+            raise errors.InvalidArgument(
+                f"expected {len(self.packed)} stacked query matrices of {B} queries, "
+                f"got {[tuple(s.shape) for s in stacked]}"
+            )
+        return self._assemble_responses(self.respond_stacked(stacked, evaluation_key, on_stage), B)
 
     def compute_response_stream(self, batches: list, evaluation_key) -> list:
         """Serves a sequence of query batches; returns the flat list of

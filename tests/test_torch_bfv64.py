@@ -19,7 +19,7 @@ from she_tpu.bfv import bfv as jbfv
 from she_tpu.bfv import keys as jkeys
 from she_tpu.pir import serving as jserving
 from she_tpu.rng.ctr_drbg import nist_aes128_ctr as jrng
-from she_tpu_torch import convert, errors
+from she_tpu_torch import convert
 from she_tpu_torch import params as tparams
 from she_tpu_torch.bfv import bfv as tbfv
 from she_tpu_torch.pir import serving as tserving
@@ -176,12 +176,15 @@ def test_dim0_mac_matches_she_tpu_w64():
 
 
 def test_plaintext_translate_refuses_t_beyond_2_31():
-    """qModT * m would overflow int64 once t > 2^31: encryption refuses."""
+    """Beyond t = 2^31, qModT * m overflows int64: encryption no longer
+    refuses such a t but rounds on the wide route, and decrypts (the
+    name is from when it refused)."""
     ep = tparams.EncryptionParameters(
         poly_degree=16, plaintext_modulus=(1 << 31) + 11, coefficient_moduli=(1152921504606830593,),
         security_level=tparams.SecurityLevel.UNCHECKED, scalar_bits=64,
     )
     ctx = tbfv.get_bfv_context(ep, device="cpu")
     sk = tbfv.generate_secret_key(ctx, trng(_seed(b"t")))
-    with pytest.raises(errors.InvalidEncryptionParameters, match="2\\^31"):
-        tbfv.encrypt(tbfv.encode(ctx, [1, 2, 3]), sk, seed=_seed(b"u"))
+    values = [1, 2, 3, ep.plaintext_modulus - 1] + [0] * 12
+    ct = tbfv.encrypt(tbfv.encode(ctx, values), sk, seed=_seed(b"u"))
+    assert tbfv.decode(ctx, tbfv.decrypt(ct, sk)) == values

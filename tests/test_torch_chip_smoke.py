@@ -1,6 +1,7 @@
-"""chip_smoke.py's phase selection and its table of served int8 dim-0
-shapes, on the CPU: the script is imported (its top level needs only the
-standard library) and its arguments parsed; nothing runs on a card."""
+"""chip_smoke.py's phase selection, its cells (the mesh phase's too) and
+its table of served int8 dim-0 shapes, on the CPU: the script is imported
+(its top level needs only the standard library) and its arguments
+parsed; nothing runs on a card."""
 
 import pytest
 
@@ -15,10 +16,10 @@ def test_default_run_selects_every_phase():
     assert (args.only, args.batches) == (None, 3)
     names = [name for name, _ in chip_smoke.serving_phases(args)]
     assert names == ["w32", "w64", "keyword", "keyword_large", "spir",
-                     "pnns_4096x128_w32_b16", "pnns_4096x128_w64_b16", "simplepir_256k_x_4KiB_b32"]
+                     "pnns_4096x128_w32_b16", "pnns_4096x128_w64_b16", "simplepir_256k_x_4KiB_b32", "mesh"]
     assert names[:2] == list(chip_smoke.PATHS)
-    assert names[-3:-1] == list(chip_smoke.PNNS_PATHS)
-    assert names[-1] == chip_smoke.SIMPLE_PIR_CELL
+    assert names[-4:-2] == list(chip_smoke.PNNS_PATHS)
+    assert names[-2] == chip_smoke.SIMPLE_PIR_CELL
 
 
 def test_pnns_cells():
@@ -40,6 +41,34 @@ def test_only_simple_pir_selects_the_simple_pir_cell():
     assert chip_smoke.parse_args(["--only", "simple_pir"]).only == "simple_pir"
 
 
+def test_only_mesh_selects_the_mesh_phase():
+    assert chip_smoke.parse_args(["--only", "mesh"]).only == "mesh"
+
+
+def test_mesh_cells():
+    """The mesh phase: (a) the 1M x 1 B main path and (b) 2,097,152 x 1 B,
+    whose dims (32, 32) a db axis of 2 divides (the 1M database's (55, 9)
+    and the keyword cell's (97, 31) are odd), 128 queries each, 64 a rank;
+    (c) at 64-bit scalars on random residues with d0 = 32; (e) limb
+    NTTs of 4 moduli, which 2 and 4 ranks divide."""
+    assert chip_smoke.MESH_BATCH == chip_smoke.BATCH == 128
+    assert (chip_smoke.MESH_TWO_AXIS_ENTRIES, chip_smoke.MESH_TWO_AXIS_DIMS) == (1 << 21, (32, 32))
+    assert chip_smoke.MESH_PSUM_W64 == (4, 32, 16, 8192)
+    assert chip_smoke.MESH_LIMB_MODULI % 4 == 0
+    assert chip_smoke.MESH_PATHS == ("mesh_batch_w32", "mesh_two_axis_w32", "mesh_pnns_w32", "mesh_dim0_psum",
+                                     "mesh_sharded")
+
+
+@pytest.mark.parametrize("name", ["mesh_world2", "mesh_world4"])
+def test_mesh_rank_functions_pickle_by_name(name):
+    """Spawned ranks get their function by module and name, so it must be
+    a module-level function of the script."""
+    import pickle
+
+    fn = getattr(chip_smoke, name)
+    assert pickle.loads(pickle.dumps(fn)) is fn
+
+
 def test_simple_pir_cell():
     """1 GiB of 4 KiB entries (the SimplePIR paper's 1 GB database), 32
     queries a batch, at p = 9 (she_tpu's tool default), b = 32, n = 2048;
@@ -52,7 +81,7 @@ def test_simple_pir_cell():
     assert chip_smoke.CLI_SIMPLE_PIR_ROWS == -(-8 * chip_smoke.CLI_SIMPLE_PIR_DB[1] // 9)
 
 
-@pytest.mark.parametrize("argv", [["--only", "keyword"], ["--only"], ["--batches", "2"]])
+@pytest.mark.parametrize("argv", [["--only", "keyword"], ["--only"], ["--batches", "2"], ["--only", "parallel"]])
 def test_refused_arguments(argv):
     with pytest.raises(SystemExit):
         chip_smoke.parse_args(argv)
@@ -61,10 +90,32 @@ def test_refused_arguments(argv):
 def test_served_dim0_shapes():
     """(C, d0, P, N) of every served int8 dim-0 launch: the keyword cell
     (dims 97 x 31, 2 polynomials a query, 128 queries), the w32 index cell
-    (55 x 9) and the two-plaintext keyword buckets (228 x 21, 32 queries)."""
+    (55 x 9), the two-plaintext keyword buckets (228 x 21, 32 queries),
+    and the mesh phase's ranks: the w32 cell at 64 queries a rank, the
+    two-axis cell's d0 slice of 16 of 32 hyper-rows (and of 8 at S = 4)."""
     assert chip_smoke.DIM0_SERVED_SHAPES == {
         "keyword": (31, 97, 256, 4096),
         "w32": (9, 55, 256, 4096),
         "keyword_large": (21, 228, 64, 4096),
+        "mesh_batch": (9, 55, 128, 4096),
+        "mesh_two_axis": (32, 16, 128, 4096),
+        "mesh_psum_S4": (32, 8, 128, 4096),
     }
     assert chip_smoke.DIM0_W64_CHECK == (4, 11, 256, 8192)
+
+
+def test_launch_rows():
+    """The paths' launch counters as the JSON rows of --json-out: the NTT's
+    by ntt_cuda.LaunchKey (a sharded NTT's block tables too), the int8
+    dim-0 kernel's by (digits shape, query shape, moduli)."""
+    import json
+    from collections import Counter
+
+    from she_tpu_torch.ops.ntt_cuda import LaunchKey
+
+    path = dict(launch_shapes=Counter({LaunchKey("ntt_forward", (3, 2048), (17, 97), (4096, 2, 1)): 2}),
+                dim0_shapes=Counter({((2, 8, 4, 32), (8, 4, 2, 8), (17, 97)): 1}))
+    chip_smoke.launch_rows(path)
+    assert json.loads(json.dumps(path)) == dict(
+        launch_shapes=[dict(name="ntt_forward", shape=[3, 2048], moduli=[17, 97], block=[4096, 2, 1], launches=2)],
+        dim0_shapes=[dict(digits_shape=[2, 8, 4, 32], query_shape=[8, 4, 2, 8], moduli=[17, 97], launches=1)])
