@@ -77,11 +77,22 @@ then PNNS (BatchedPnnsServer), 16 cosine-similarity queries a batch over a
    staged bytes and seconds, its peak memory and its kernel launches and
    shapes (the NTT's with per-rank block tables), held to the plain
    versions here after the ranks exit;
-11. the command-line tools (cli_phase), in process on the card: generate,
+11. the matrix NTT (matrix_ntt_phase), she_tpu's opt-in
+   SHE_TPU_NTT_MXU=1: the w32 cell served for --batches batches and one
+   batch of the w64 cell (8 digits), each first on the butterfly route and
+   then on the matrix route (the phase kernel of csrc/ntt_mxu.cu, no
+   butterfly launch, no plain NTT on CUDA tensors); every answer of the
+   matrix route must equal the butterfly route's bit for bit and decrypt;
+   then the phase kernel at every shape it launched with and at 60-bit
+   moduli (n_8192_logq_28_60_60_logt_20, [2, 3, 8192], 9 digits): timed
+   first beside its bound and torch._int_mm's digit products, then held
+   bit-equal to its plain version and each direction to the butterfly
+   kernel;
+12. the command-line tools (cli_phase), in process on the card: generate,
    shard and process a keyword database, an mmap dictionary of it, a PNNS
    database generated and processed, 16,384 x 4 KiB entries processed for
    SimplePIR, and the warm tool for PIR and PNNS;
-12. print one JSON line with every kernel's numbers, and as the last line
+13. print one JSON line with every kernel's numbers, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without the last line. Run from the repository
@@ -92,7 +103,8 @@ only step 6's int8 dim-0 cases, at every shape of DIM0_SERVED_SHAPES and
 the w64 check, then prints the kernels line and the last line.
 `--only simple_pir` builds the kernels and runs step 9 alone (its NTT
 shapes held and timed too), then prints the kernels line and the last
-line. `--only mesh` does the same for step 10.
+line. `--only mesh` does the same for step 10 and `--only ntt_mxu` for
+step 11.
 """
 
 from __future__ import annotations
@@ -172,6 +184,20 @@ MESH_LIMB_MODULI = 4  # (e): limb-parallel NTTs of 4 moduli, which 2 and 4 ranks
 MESH_REPS = 3  # calls of each part on each rank, the first a warm-up
 NTT_KERNELS = ("ntt_forward", "ntt_inverse")
 NTT_AND_DIM0 = NTT_KERNELS + ("dim0_int8",)
+
+# the matrix NTT (ntt_mxu_phase): she_tpu's opt-in SHE_TPU_NTT_MXU=1 on the
+# MulPIR cells, label -> (path of PATHS, batches: None for --batches)
+NTT_MXU_PATHS = {"ntt_mxu_w32": ("w32", None), "ntt_mxu_w64": ("w64", 1)}
+# the 60-bit check: 9 digits, batch shape and degree
+NTT_MXU_D9 = ("n_8192_logq_28_60_60_logt_20", (2,), 8192)
+# every kernel of the kernels line, by name: its source in the repository
+KERNEL_SOURCES = {
+    "ntt_forward": "she_tpu_torch/csrc/ntt.cu",
+    "ntt_inverse": "she_tpu_torch/csrc/ntt.cu",
+    "dim0_int8": "she_tpu_torch/csrc/dim0_int8.cu",
+    "simple_pir_matmul": "she_tpu_torch/csrc/simple_pir_matmul.cu",
+    "ntt_mxu_phase": "she_tpu_torch/csrc/ntt_mxu.cu",
+}
 MESH_PATHS = ("mesh_batch_w32", "mesh_two_axis_w32", "mesh_pnns_w32", "mesh_dim0_psum", "mesh_sharded")
 
 
@@ -219,7 +245,8 @@ def ptxas_lines(name: str) -> list[str]:
     kernel's instances at 4 and 8 digits (the served and checked ones),
     and of the SimplePIR kernel's instances that serve the cell (two D
     planes against four query planes, 32 and 8 request rows), with the
-    dynamic shared memory and stages of their rings."""
+    dynamic shared memory and stages of their rings; and of the matrix
+    NTT's phase kernel at 4, 8 and 9 digits."""
     import re
 
     from she_tpu_torch.ops import kernel_build
@@ -244,6 +271,9 @@ def ptxas_lines(name: str) -> list[str]:
                 stages, shared = simple_pir_cuda.ring(4, 2, int(m.group(3)))
                 label = (f"plane_products<JA=4, NI=2, KQT={m.group(3)}> ({stages} stages, {shared} bytes of "
                          f"dynamic shared memory)")
+        elif "Compiling entry function" in line and "ntt_mxu_phase_kernel" in line:
+            m = re.search(r"ntt_mxu_phase_kernelILi(\d)E", line)
+            label = f"ntt_mxu_phase_kernel<D={m.group(1)}>" if m and m.group(1) in "489" else None
         elif label and ("Used" in line or "spill" in line):
             out.append(f"{label}: {line.strip()}")
     return out
@@ -257,38 +287,47 @@ def prod(shape) -> int:
 
 
 def reset_counts() -> None:
-    """Every kernel's launch count and launch shapes, and the plain NTT's
-    count on CUDA tensors, set to 0: just before a path is driven."""
-    from she_tpu_torch.ops import dim0_cuda, ntt, ntt_cuda, simple_pir_cuda
+    """Every kernel's launch count and launch shapes, and the plain NTTs'
+    counts on CUDA tensors, set to 0: just before a path is driven."""
+    from she_tpu_torch.ops import dim0_cuda, ntt, ntt_cuda, ntt_mxu, ntt_mxu_cuda, simple_pir_cuda
 
-    ntt_cuda.reset_launches()
-    dim0_cuda.reset_launches()
-    simple_pir_cuda.reset_launches()
-    for k in ntt.plain_calls_on_cuda:
-        ntt.plain_calls_on_cuda[k] = 0
+    for wrapper in (ntt_cuda, dim0_cuda, simple_pir_cuda, ntt_mxu_cuda):
+        wrapper.reset_launches()
+    for counts in (ntt.plain_calls_on_cuda, ntt_mxu.plain_calls_on_cuda):
+        for k in counts:
+            counts[k] = 0
 
 
-def read_counts(label: str, use_dim0_int8: bool, simple_pir: bool = False) -> dict:
+def read_counts(label: str, use_dim0_int8: bool, simple_pir: bool = False, mxu: bool = False) -> dict:
     """The counts of the path just driven. Fails if a kernel of the path
     never launched, if the int8 dim-0 kernel launched on a path that serves
     the MAC form, if the SimplePIR kernel launched on another protocol's
-    path, or if the plain NTT ran on CUDA tensors."""
-    from she_tpu_torch.ops import dim0_cuda, ntt, ntt_cuda, simple_pir_cuda
+    path, if the NTT took the other route than the path's (`mxu`: the
+    matrix NTT's phase kernel, else the butterfly kernels), or if a plain
+    NTT ran on CUDA tensors."""
+    from she_tpu_torch.ops import dim0_cuda, ntt, ntt_cuda, ntt_mxu, ntt_mxu_cuda, simple_pir_cuda
 
-    launches = dict(ntt_cuda.launches) | dict(dim0_cuda.launches) | dict(simple_pir_cuda.launches)
-    plain_on_cuda = dict(ntt.plain_calls_on_cuda)
-    path_kernels = (["ntt_forward", "ntt_inverse"] + (["dim0_int8"] if use_dim0_int8 else [])
+    launches = (dict(ntt_cuda.launches) | dict(dim0_cuda.launches) | dict(simple_pir_cuda.launches)
+                | dict(ntt_mxu_cuda.launches))
+    plain_on_cuda = {f"{k}_{d}": v for k, counts in (("ntt", ntt.plain_calls_on_cuda),
+                                                    ("ntt_mxu", ntt_mxu.plain_calls_on_cuda))
+                     for d, v in counts.items()}
+    ntt_kernels, other_route = (["ntt_mxu_phase"], NTT_KERNELS) if mxu else (list(NTT_KERNELS), ("ntt_mxu_phase",))
+    path_kernels = (ntt_kernels + (["dim0_int8"] if use_dim0_int8 else [])
                     + (["simple_pir_matmul"] if simple_pir else []))
     if any(launches[k] == 0 for k in path_kernels):
         raise AssertionError(f"[{label}] a kernel of the path never launched: {launches}")
+    if any(launches[k] for k in other_route):
+        raise AssertionError(f"[{label}] the NTT took the other route: {launches}")
     if not use_dim0_int8 and launches["dim0_int8"]:
         raise AssertionError(f"[{label}] the int8 dim-0 kernel ran on a MAC path: {launches}")
     if not simple_pir and launches["simple_pir_matmul"]:
         raise AssertionError(f"[{label}] the SimplePIR kernel ran on another path: {launches}")
     if any(plain_on_cuda.values()):
-        raise AssertionError(f"[{label}] the plain NTT ran on CUDA tensors: {plain_on_cuda}")
+        raise AssertionError(f"[{label}] a plain NTT ran on CUDA tensors: {plain_on_cuda}")
     return dict(launches=launches, launch_shapes=dict(ntt_cuda.launch_shapes),
-                dim0_shapes=dict(dim0_cuda.launch_shapes), simple_pir_shapes=dict(simple_pir_cuda.launch_shapes))
+                dim0_shapes=dict(dim0_cuda.launch_shapes), simple_pir_shapes=dict(simple_pir_cuda.launch_shapes),
+                mxu_shapes=dict(ntt_mxu_cuda.launch_shapes))
 
 
 def kernel_bound_ms(shape, moduli, degree) -> float:
@@ -594,8 +633,11 @@ def profile_batch(path: str, server, queries, ek) -> dict:
                 device_launches=launches, top_ms={k: v / 1e3 for k, v in top}, kernel_ms=kernel_ms)
 
 
-def main_path(path: str, seed: int, batches: int) -> dict:
-    """One path of the port's batched MulPIR serving, as a user drives it."""
+def serving_setup(path: str, seed: int, batches: int, label: str | None = None) -> dict:
+    """A MulPIR path made as a user makes it: the context on the card, the
+    1M x 1 B database processed, keys, the batched server and `batches`
+    batches of 128 queries from the port's client (fresh ones each batch
+    where the path says so); logs under `label` (the path's name)."""
     import numpy as np
     import torch
 
@@ -605,6 +647,7 @@ def main_path(path: str, seed: int, batches: int) -> dict:
     from she_tpu_torch.pir import serving
     from she_tpu_torch.rng.ctr_drbg import nist_aes128_ctr
 
+    label = label or path
     params, scalar_bits, fresh_queries = PATHS[path]
     ep = paramsmod.from_predefined(params, scalar_bits=scalar_bits)
     ctx = bfv.get_bfv_context(ep)  # the CUDA card
@@ -613,9 +656,9 @@ def main_path(path: str, seed: int, batches: int) -> dict:
         uneven_dimensions=True, key_compression=ip.PirKeyCompression.NO_COMPRESSION,
     )
     parameter = ip.generate_parameter(config, ctx)
-    log(f"[{path}] {params} at {scalar_bits}-bit scalars, moduli {ep.coefficient_moduli}, "
+    log(f"[{label}] {params} at {scalar_bits}-bit scalars, moduli {ep.coefficient_moduli}, "
         f"t = {ep.plaintext_modulus}")
-    log(f"[{path}] PIR parameter: dims {parameter.dimensions}, {parameter.expanded_query_count} expanded "
+    log(f"[{label}] PIR parameter: dims {parameter.dimensions}, {parameter.expanded_query_count} expanded "
         f"ciphertexts per query, Galois elements {parameter.evaluation_key_config.galois_elements}")
     rng = np.random.default_rng(seed)
     database = rng.integers(0, 256, size=(ENTRY_COUNT, 1), dtype=np.uint8)
@@ -625,7 +668,7 @@ def main_path(path: str, seed: int, batches: int) -> dict:
     processed = ip.MulPirServer.process(database, ctx, parameter)
     torch.cuda.synchronize()
     process_s = time.perf_counter() - t0
-    log(f"[{path}] database processed in {process_s:.3f} s: {processed.count} plaintexts, "
+    log(f"[{label}] database processed in {process_s:.3f} s: {processed.count} plaintexts, "
         f"{int(processed.present.sum())} non-zero")
 
     t0 = time.perf_counter()
@@ -634,7 +677,7 @@ def main_path(path: str, seed: int, batches: int) -> dict:
     ek = client.generate_evaluation_key(sk, nist_aes128_ctr(b"evaluation-key-err-seed-32-bytes"))
     server = serving.BatchedMulPirServer(parameter, ctx, [processed])
     torch.cuda.synchronize()
-    log(f"[{path}] keys and server ready in {time.perf_counter() - t0:.3f} s")
+    log(f"[{label}] keys and server ready in {time.perf_counter() - t0:.3f} s")
 
     all_indices, all_queries = [], []
     t0 = time.perf_counter()
@@ -646,8 +689,25 @@ def main_path(path: str, seed: int, batches: int) -> dict:
         all_queries.append(queries)
     torch.cuda.synchronize()
     distinct = batches * BATCH if fresh_queries else BATCH
-    log(f"[{path}] {distinct} queries generated in {time.perf_counter() - t0:.3f} s "
+    log(f"[{label}] {distinct} queries generated in {time.perf_counter() - t0:.3f} s "
         f"({'fresh queries in each batch' if fresh_queries else 'the same queries in each batch'})")
+    return dict(params=params, scalar_bits=scalar_bits, fresh_queries=fresh_queries, ctx=ctx, parameter=parameter,
+                database=database, processed=processed, process_s=process_s, sk=sk, client=client, ek=ek,
+                server=server, all_indices=all_indices, all_queries=all_queries)
+
+
+def main_path(path: str, seed: int, batches: int) -> dict:
+    """One path of the port's batched MulPIR serving, as a user drives it."""
+    import torch
+
+    from she_tpu_torch.bfv import bfv
+    from she_tpu_torch.pir import index_pir as ip
+
+    setup = serving_setup(path, seed, batches)
+    params, scalar_bits, fresh_queries = PATHS[path]
+    ctx, parameter, database, processed = setup["ctx"], setup["parameter"], setup["database"], setup["processed"]
+    sk, client, ek, server = setup["sk"], setup["client"], setup["ek"], setup["server"]
+    all_indices, all_queries, process_s = setup["all_indices"], setup["all_queries"], setup["process_s"]
 
     # the main path, with the launch counts read around it
     reset_counts()
@@ -1673,6 +1733,261 @@ def ntt_kernel_entries(shapes: dict, paths: dict, checked: dict | None) -> list:
     return out
 
 
+def serve_both_routes(label: str, path: str, seed: int, batches: int) -> dict:
+    """One MulPIR cell served on both NTT routes, the butterfly kernels
+    (SHE_TPU_NTT_MXU=0) and then the matrix NTT (=1), the same batches of
+    the same queries, with the counts read around each route's batches.
+    Every answer of the matrix route must equal the butterfly route's bit
+    for bit and decrypt to its entry. The matrix tables of every (moduli,
+    degree) the butterfly route transformed are made before the timed
+    batches."""
+    import os
+
+    import torch
+
+    from she_tpu_torch.ops import ntt_mxu
+
+    setup = serving_setup(path, seed, batches, label)
+    server, ek = setup["server"], setup["ek"]
+    routes = {}
+    previous = os.environ.get(ntt_mxu.ENV)
+    try:
+        for route, flag in (("butterfly", "0"), ("mxu", "1")):
+            os.environ[ntt_mxu.ENV] = flag
+            if route == "mxu":
+                t0 = time.perf_counter()
+                for key in routes["butterfly"]["counts"]["launch_shapes"]:
+                    ntt_mxu.tables_for(key.moduli, key.shape[-1], torch.device("cuda"))
+                log(f"[{label}] matrix tables made in {time.perf_counter() - t0:.3f} s")
+            reset_counts()
+            torch.cuda.synchronize()
+            batch_s, responses = [], []
+            for queries in setup["all_queries"]:
+                t0 = time.perf_counter()
+                responses.append(server.compute_response_batch(queries, ek))
+                torch.cuda.synchronize()
+                batch_s.append(time.perf_counter() - t0)
+            counts = read_counts(f"{label} {route}", server.use_dim0_int8, mxu=route == "mxu")
+            steady = batch_s[1:] or batch_s
+            routes[route] = dict(batch_s=batch_s, median_s_per_batch=statistics.median(steady),
+                                 steady_batches=len(steady), responses=responses, counts=counts)
+            log(f"[{label}] {route} route: batches {[round(v, 4) for v in batch_s]} s, launches {counts['launches']}")
+    finally:
+        if previous is None:
+            os.environ.pop(ntt_mxu.ENV, None)
+        else:
+            os.environ[ntt_mxu.ENV] = previous
+    for b, (got, want) in enumerate(zip(routes["mxu"]["responses"], routes["butterfly"]["responses"], strict=True)):
+        assert_same_responses(f"[{label}] batch {b}, matrix route against the butterfly route", got, want)
+    client, sk, database = setup["client"], setup["sk"], setup["database"]
+    for indices, responses in zip(setup["all_indices"], routes["mxu"]["responses"]):
+        for index, response in zip(indices, responses):
+            if client.decrypt(response, [index], sk) != [database[index].tobytes()]:
+                raise AssertionError(f"[{label}] the matrix route's answer for entry {index} does not decrypt")
+    log(f"[{label}] all {batches * BATCH} answers of the matrix route are bit-identical to the butterfly "
+        f"route's and decrypt to their entries")
+    mxu = routes["mxu"]["counts"]
+    return dict(path=path, params=setup["params"], batches=batches, launches=mxu["launches"],
+                launch_shapes={}, dim0_shapes={}, mxu_shapes=mxu["mxu_shapes"],
+                routes={r: {k: v[k] for k in ("batch_s", "median_s_per_batch", "steady_batches")}
+                        for r, v in routes.items()})
+
+
+def mxu_bound(shape, moduli, digits: int, matrix: str) -> dict:
+    """The least time of one phase launch: x read once and the output
+    written once as int64 and the matrix's digit planes read once, over
+    the memory rate; 2 D^2 K int8 operations an output (K = A in the row
+    phase, 64 in the block phase) over the int8 tensor-core rate; the
+    larger bounds it."""
+    from she_tpu_torch.ops.ntt_mxu_cuda import ROW_MATRICES
+
+    numel, L, A = prod(shape), len(moduli), shape[-1] // 64
+    row = matrix in ROW_MATRICES
+    K = A if row else 64
+    nbytes = 2 * numel * 8 + L * digits * A * (A if row else 64 * 64)
+    ops = 2 * digits * digits * K * numel
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / INT8_OPS_PER_S
+    return dict(bytes=nbytes, operations=ops, bytes_ms=bytes_ms, operations_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def int_mm_ms(x, t) -> float:
+    """The yardstick: torch._int_mm (int8 x int8 -> int32) of the row
+    phase's D^2 digit-pair products at x's shape, one product per modulus
+    l of the stacked digit planes of Lf [D A, A] by the stacked digits of
+    x [A, D cols] (cols = batch x 64). The digit split of x (made before)
+    and the recombination mod q are left out. Held equal to a float64
+    product on a slice before it is timed."""
+    import torch
+
+    from she_tpu_torch.ops import digits as dg
+
+    L, A, D = len(t.moduli), t.A, t.D
+    xv = x.reshape(-1, L, A, 64)
+    xd = torch.stack(dg.value_digits(xv, D))  # [D, B, L, A, 64]
+    a_ops = [t.Lf[l].reshape(D * A, A).contiguous() for l in range(L)]
+    b_ops = [xd[:, :, l].permute(2, 0, 1, 3).reshape(A, -1).contiguous() for l in range(L)]
+    del xd
+
+    def layout(b, column_major: bool):
+        return b.t().contiguous().t() if column_major else b.contiguous()
+
+    for column_major in (False, True):  # cuBLASLt's int8 product may want the operand column-major
+        try:
+            probe = torch._int_mm(a_ops[0], layout(b_ops[0][:, :64], column_major))
+            break
+        except RuntimeError:
+            if column_major:
+                raise
+    b_ops = [layout(b, column_major) for b in b_ops]
+    if not torch.equal(probe.double(), a_ops[0].double() @ b_ops[0][:, :64].double()):
+        raise AssertionError("torch._int_mm's digit products are not exact")
+
+    def products():
+        for a, b in zip(a_ops, b_ops):
+            torch._int_mm(a, b)
+
+    return cuda_ms(products, 5)
+
+
+def mxu_launch_rows(paths: dict, seed: int) -> list:
+    """The phase kernel at every shape the matrix route launched it with
+    (and, as path "d9_check", the four matrices at NTT_MXU_D9's 60-bit
+    moduli, 9 digits): first every launch timed (CUDA events, 20 launches
+    after a warm-up) beside its bound, and torch._int_mm's digit products
+    at the widest launch of each path; then each held bit-equal to the
+    plain version (ntt_mxu.phase_plain) and each direction's whole matrix
+    NTT to the butterfly kernel; the plain version timed last, once, at
+    the widest launch of each path. No plain version runs before a timed
+    launch."""
+    import torch
+
+    from she_tpu_torch import params as paramsmod
+    from she_tpu_torch.ops import ntt, ntt_cuda, ntt_mxu, ntt_mxu_cuda
+    from she_tpu_torch.ops.ntt_mxu_cuda import PhaseKey
+
+    cuda = torch.device("cuda")
+    name, batch, degree = NTT_MXU_D9
+    d9_moduli = tuple(paramsmod.from_predefined(name, scalar_bits=64).coefficient_moduli)
+    d9_shape = batch + (len(d9_moduli), degree)
+    shapes = [(label, key, count / paths[label]["batches"]) for label in NTT_MXU_PATHS
+              for key, count in sorted(paths[label]["mxu_shapes"].items(), key=lambda kv: -prod(kv[0].shape))]
+    shapes += [("d9_check", PhaseKey(m, d9_shape, d9_moduli), 0) for m in ntt_mxu.MATRICES]
+
+    def operands(i, key):
+        t = ntt_mxu.tables_for(key.moduli, key.shape[-1], cuda)
+        return t, random_residues(key.moduli, key.shape[:-2], key.shape[-1], seed + 100 + i)
+
+    rows = []
+    for i, (label, key, per_batch) in enumerate(shapes):  # kernels first
+        t, x = operands(i, key)
+        ms = cuda_ms(lambda: ntt_mxu_cuda.ntt_mxu_phase(x, t, key.matrix), 20)
+        bound = mxu_bound(key.shape, key.moduli, t.D, key.matrix)
+        rows.append(dict(path=label, matrix=key.matrix, shape=list(key.shape), moduli=list(key.moduli), digits=t.D,
+                         A=t.A, launches_per_batch=per_batch, ms=ms, **bound, share_of_bound=bound["bound_ms"] / ms,
+                         library_ms=None, plain_ms=None))
+        del x
+    widest = {}  # the widest row-phase launch of each path
+    for i, row in enumerate(rows):
+        if (row["path"] in NTT_MXU_PATHS and row["matrix"] in ntt_mxu_cuda.ROW_MATRICES
+                and prod(row["shape"]) > widest.get(row["path"], (-1,))[0]):
+            widest[row["path"]] = (prod(row["shape"]), i)
+    for _, i in widest.values():
+        # there: the yardstick, the butterfly kernel of the same direction,
+        # and the direction's two phases summed
+        label, key, _ = shapes[i]
+        t, x = operands(i, key)
+        rows[i]["library_ms"] = int_mm_ms(x, t)
+        forward = key.matrix == "Lf"
+        bt = ntt.build_ntt_tables(key.moduli, key.shape[-1], cuda)
+        butterfly = ntt_cuda.forward if forward else ntt_cuda.inverse
+        rows[i]["butterfly_ms"] = cuda_ms(lambda: butterfly(x, bt), 20)
+        pair = ("Lf", "Rf") if forward else ("Ri", "Li")
+        rows[i]["direction_ms"] = sum(r["ms"] for r in rows if r["path"] == label and r["matrix"] in pair
+                                      and r["shape"] == list(key.shape) and r["moduli"] == list(key.moduli))
+        del x
+    torch.cuda.empty_cache()
+    checked = set()
+    for i, (label, key, _) in enumerate(shapes):  # then the plain versions
+        t, x = operands(i, key)
+        err = int((ntt_mxu_cuda.ntt_mxu_phase(x, t, key.matrix) - ntt_mxu.phase_plain(x, t, key.matrix)).abs().max())
+        rows[i]["max_abs_err"] = err
+        direction = "forward" if key.matrix in ("Lf", "Rf") else "inverse"
+        if (label, direction, key.shape, key.moduli) not in checked:
+            checked.add((label, direction, key.shape, key.moduli))
+            bt = ntt.build_ntt_tables(key.moduli, key.shape[-1], cuda)
+            if direction == "forward":
+                same = torch.equal(ntt_mxu.forward_ntt(x, t), ntt_cuda.forward(x, bt))
+            else:
+                same = torch.equal(ntt_mxu.inverse_ntt(x, t), ntt_cuda.inverse(x, bt))
+            if not same:
+                raise AssertionError(f"{label}: the matrix NTT ({direction}) differs from the butterfly kernel at "
+                                     f"{key.shape}, moduli {key.moduli}")
+        if err:
+            raise AssertionError(f"{label} ntt_mxu_phase {key.matrix} at {key.shape}, moduli {key.moduli}: "
+                                 f"max |kernel - plain| = {err}")
+        if i in [j for _, j in widest.values()]:
+            rows[i]["plain_ms"] = cuda_ms(lambda: ntt_mxu.phase_plain(x, t, key.matrix), 1)
+        del x
+        torch.cuda.empty_cache()
+    for row in rows:
+        log(f"{row['path']} ntt_mxu_phase {row['matrix']} {tuple(row['shape'])} (A = {row['A']}, {row['digits']} "
+            f"digits, {row['launches_per_batch']:g} a batch): bit-equal to plain, its direction bit-equal to the "
+            f"butterfly kernel; kernel {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+            f"({row['bytes']} bytes, {row['operations']} int8 operations), {100 * row['share_of_bound']:.1f}% of "
+            f"bound" + (f"; torch._int_mm digit products {row['library_ms']:.4f} ms" if row["library_ms"] else "")
+            + (f"; plain {row['plain_ms']:.4f} ms" if row["plain_ms"] else ""))
+    return rows
+
+
+def matrix_ntt_phase(seed: int, batches: int) -> dict:
+    """The matrix NTT on the MulPIR cells (serve_both_routes for each of
+    NTT_MXU_PATHS), then the phase kernel at every launched shape and the
+    60-bit check (mxu_launch_rows). Returns the paths by label, the kernel
+    rows under "ntt_mxu_rows"."""
+    paths = {label: serve_both_routes(label, path, seed, n or batches)
+             for label, (path, n) in NTT_MXU_PATHS.items()}
+    import torch
+
+    torch.cuda.empty_cache()
+    paths[next(iter(NTT_MXU_PATHS))]["ntt_mxu_rows"] = mxu_launch_rows(paths, seed)
+    return paths
+
+
+def ntt_mxu_kernel_entry(rows: list, launches: dict) -> dict:
+    """ntt_mxu_phase's entry of the kernels line, at the widest row-phase
+    launch of the w32 cell (the widest of each path in `widest`)."""
+    widest = {}
+    for r in rows:
+        if r["plain_ms"] is not None:
+            widest[r["path"]] = r
+    top = widest[next(iter(NTT_MXU_PATHS))]
+    return dict(
+        name="ntt_mxu_phase", route="cuda", source=KERNEL_SOURCES["ntt_mxu_phase"],
+        replaces="she_tpu/ops/ntt_mxu.py:310", launches=sum(launches.values()), launches_by_path=launches,
+        max_abs_err=max(r["max_abs_err"] for r in rows), ms=top["ms"], plain_ms=top["plain_ms"],
+        bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=top["library_ms"],
+        library="torch._int_mm (int8 x int8 -> int32) of the row phase's D^2 digit-pair products, stacked; "
+                "no digit split, no recombination",
+        widest=widest, shapes=rows,
+    )
+
+
+def ntt_mxu_summary(paths: dict, entry: dict, card: str) -> str:
+    parts = []
+    for label in NTT_MXU_PATHS:
+        v, w = paths[label], entry["widest"][label]
+        parts.append(
+            f"{label} ({v['params']}, {v['batches']} batch(es) of {BATCH}): butterfly route "
+            f"{v['routes']['butterfly']['median_s_per_batch']:.4f} s/batch, matrix route "
+            f"{v['routes']['mxu']['median_s_per_batch']:.4f} s/batch, {v['launches']['ntt_mxu_phase']} phase launches; "
+            f"widest launch {w['matrix']} {tuple(w['shape'])}: {w['ms']:.4f} ms against a bound of "
+            f"{w['bound_ms']:.4f} ms by {w['bound_by']} ({100 * w['share_of_bound']:.1f}%), torch._int_mm "
+            f"{w['library_ms']:.4f} ms, plain {w['plain_ms']:.4f} ms; the direction's two phases "
+            f"{w['direction_ms']:.4f} ms against the butterfly kernel's {w['butterfly_ms']:.4f} ms")
+    return "ntt_mxu (answers bit-identical on both routes, all decrypt): " + "; ".join(parts) + f"; on {card}"
+
+
 def cli_phase(seed: int) -> dict:
     """The port's command-line tools, in process, on the card (their
     default device), in a temporary directory: generate 10,000 rows x 1 B,
@@ -2231,6 +2546,8 @@ def run(args) -> int:
         return simple_pir_only(args, card)
     if args.only == "mesh":
         return mesh_only(args, card)
+    if args.only == "ntt_mxu":
+        return ntt_mxu_only(args, card)
 
     checked = kernel_phase(args.seed)
     paths = {}
@@ -2256,6 +2573,11 @@ def run(args) -> int:
         raise AssertionError("no served path launched the SimplePIR kernel")
     kernels.append(simple_pir_kernel_entry(
         simple_pir_rows, {p: v["launches"]["simple_pir_matmul"] for p, v in paths.items()}))
+    mxu_entry = ntt_mxu_kernel_entry(paths[next(iter(NTT_MXU_PATHS))].pop("ntt_mxu_rows"),
+                                     {p: paths[p]["launches"]["ntt_mxu_phase"] for p in NTT_MXU_PATHS})
+    kernels.append(mxu_entry)
+    if sorted(k["name"] for k in kernels) != sorted(KERNEL_SOURCES):
+        raise AssertionError(f"the kernels line names {[k['name'] for k in kernels]}, not {list(KERNEL_SOURCES)}")
     widest = max(dim0_rows, key=lambda r: r["bytes"])
     for path, p in paths.items():
         if path not in PATHS:
@@ -2290,7 +2612,9 @@ def run(args) -> int:
             f"{ {k: round(x, 3) for k, x in v['stages_ms'].items()} }; NTT {100 * v['profile']['ntt_share']:.1f}% of "
             f"device time, idle share {v['profile']['idle_share_of_steady_batch']:.3f}; peak {v['peak_bytes']} "
             f"bytes; smallest noise budget {v['min_noise_budget']:.3f} bits; on {card}")
-    log(simple_pir_summary(paths[SIMPLE_PIR_CELL], kernels[-1], card))
+    log(simple_pir_summary(paths[SIMPLE_PIR_CELL], next(k for k in kernels if k["name"] == "simple_pir_matmul"),
+                           card))
+    log(ntt_mxu_summary(paths, mxu_entry, card))
     log(mesh_summary(paths, card))
     log(f"cli: every tool exited 0 on the card, {sum(cli['seconds'].values()):.3f} s in all, on {card}")
     log(f"dim0_int8 at the widest served shape ({widest['path']}, digits {widest['digits_shape']}, query "
@@ -2321,10 +2645,10 @@ def timed_launch_shapes(paths: dict) -> tuple[dict, list]:
 
 
 def launch_rows(path: dict) -> None:
-    """A path's launch counters, keyed by ntt_cuda.LaunchKey and by the
-    int8 dim-0 kernel's (digits shape, query shape, moduli), as JSON rows,
-    in place."""
-    for key in ("launch_shapes", "setup_launch_shapes"):
+    """A path's launch counters, keyed by ntt_cuda.LaunchKey (and
+    ntt_mxu_cuda.PhaseKey) and by the int8 dim-0 kernel's (digits shape,
+    query shape, moduli), as JSON rows, in place."""
+    for key in ("launch_shapes", "setup_launch_shapes", "mxu_shapes"):
         if key in path:
             path[key] = [dict(k._asdict(), launches=v) for k, v in path[key].items()]
     path["dim0_shapes"] = [dict(digits_shape=k[0], query_shape=k[1], moduli=k[2], launches=v)
@@ -2359,7 +2683,8 @@ def serving_phases(args) -> list:
                      ("spir", lambda: {"spir": spir_phase(args.seed)})] + [
         (label, lambda label=label: {label: pnns_path(label, args.seed, args.batches)}) for label in PNNS_PATHS] + [
         (SIMPLE_PIR_CELL, lambda: {SIMPLE_PIR_CELL: simple_pir_path(args.seed, args.batches)}),
-        ("mesh", lambda: mesh_phase(args.seed))]
+        ("mesh", lambda: mesh_phase(args.seed)),
+        ("ntt_mxu", lambda: matrix_ntt_phase(args.seed, args.batches))]
 
 
 def dim0_only(args, card: str) -> int:
@@ -2429,14 +2754,27 @@ def mesh_only(args, card: str) -> int:
     return report(args, card, kernels, paths=paths)
 
 
+def ntt_mxu_only(args, card: str) -> int:
+    """--only ntt_mxu: the matrix NTT phase alone (both MulPIR cells on
+    both routes, the phase kernel at every launched shape and the 60-bit
+    check); then the kernels line (ntt_mxu_phase, with this phase's
+    launches) and the last line."""
+    paths = matrix_ntt_phase(args.seed, args.batches)
+    entry = ntt_mxu_kernel_entry(paths[next(iter(NTT_MXU_PATHS))].pop("ntt_mxu_rows"),
+                                 {p: paths[p]["launches"]["ntt_mxu_phase"] for p in NTT_MXU_PATHS})
+    log(ntt_mxu_summary(paths, entry, card))
+    return report(args, card, [entry], paths=paths)
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batches", type=int, default=3, help="query batches to serve (>= 3)")
     parser.add_argument("--seed", type=int, default=0, help="seed of the database, keys and indices")
     parser.add_argument("--json-out", default=None, help="also write the full results to this file")
-    parser.add_argument("--only", choices=["dim0", "simple_pir", "mesh"], default=None,
+    parser.add_argument("--only", choices=["dim0", "simple_pir", "mesh", "ntt_mxu"], default=None,
                         help="run one phase alone: dim0, the int8 dim-0 kernel at every served shape; "
-                             "simple_pir, the SimplePIR cell; mesh, multi-device serving with gloo ranks")
+                             "simple_pir, the SimplePIR cell; mesh, multi-device serving with gloo ranks; "
+                             "ntt_mxu, the matrix NTT (SHE_TPU_NTT_MXU=1) on the MulPIR cells")
     args = parser.parse_args(argv)
     if args.batches < 3:
         parser.error("--batches must be at least 3")

@@ -1,11 +1,11 @@
 """Base-2^7 digits of residues, for exact int8 x int8 -> int32 dot products.
 
-The part of she_tpu/ops/ntt_mxu.py that the int8 form of dim-0 needs:
-every residue is written as D unsigned 7-bit digits (each in [0, 127], so
-it is a non-negative int8), a product of two residues becomes D^2 digit
-products, and the partial sums of equal digit weight are recombined and
-reduced mod q. she_tpu's NTT as int8 matmuls (forward_ntt / inverse_ntt
-there) is not ported.
+The digit helpers of she_tpu/ops/ntt_mxu.py, shared by the int8 form of
+dim-0 (pir/serving.py) and the matrix NTT (ops/ntt_mxu.py): every residue
+is written as D unsigned 7-bit digits (each in [0, 127], so it is a
+non-negative int8), a product of two residues becomes D^2 digit products,
+and the partial sums of equal digit weight are recombined and reduced
+mod q.
 """
 
 from __future__ import annotations

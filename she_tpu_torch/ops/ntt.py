@@ -14,7 +14,10 @@ inverse_ntt_arrays, including the n^-1 fold of inv_final_stage, with every
 stage fully reduced by ops/modarith.mul_mod: the int64 route for moduli
 below 2^31, the exact wide route (ops/wide.py) up to the kernel's 2^62.
 `plain_calls_on_cuda` counts plain transforms of CUDA tensors, which only
-a comparison against the kernel should make.
+a comparison against the kernel should make. Before either, she_tpu's
+opt-in (SHE_TPU_NTT_MXU=1, ops/ntt_mxu.use_mxu) sends the transform to the
+matrix NTT of ops/ntt_mxu.py, as she_tpu's ops/ntt.py:356-361,377-382 do;
+a sharded NTT's block tables never take it.
 
 The kernel's word follows the moduli (`ntt_word_bits`): 32 bits when every
 q < 2^30, she_tpu's one-limb rule, with the 32-bit Shoup tables of
@@ -31,7 +34,7 @@ import torch
 
 from ..utils import nt
 from ..utils.refimpl import ntt_root_tables
-from . import ntt_cuda
+from . import ntt_cuda, ntt_mxu
 from . import wide
 from .modarith import add_mod, mul_mod, sub_mod
 
@@ -207,6 +210,8 @@ def inverse_ntt_plain(x: torch.Tensor, tables: NttTables) -> torch.Tensor:
 
 def forward_ntt(x: torch.Tensor, tables: NttTables) -> torch.Tensor:
     """x: int64 [..., L, N] in [0, q) -> Eval form in [0, q)."""
+    if ntt_mxu.use_mxu(tables):
+        return ntt_mxu.forward_ntt(x, ntt_mxu.tables_for(tables.moduli, tables.degree, x.device))
     if x.device.type == "cuda":
         return ntt_cuda.forward(x.contiguous(), tables)
     if x.device.type == "cpu":
@@ -216,6 +221,8 @@ def forward_ntt(x: torch.Tensor, tables: NttTables) -> torch.Tensor:
 
 def inverse_ntt(x: torch.Tensor, tables: NttTables) -> torch.Tensor:
     """x: int64 [..., L, N] in [0, q) -> Coeff form in [0, q)."""
+    if ntt_mxu.use_mxu(tables):
+        return ntt_mxu.inverse_ntt(x, ntt_mxu.tables_for(tables.moduli, tables.degree, x.device))
     if x.device.type == "cuda":
         return ntt_cuda.inverse(x.contiguous(), tables)
     if x.device.type == "cpu":

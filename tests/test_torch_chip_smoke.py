@@ -16,10 +16,11 @@ def test_default_run_selects_every_phase():
     assert (args.only, args.batches) == (None, 3)
     names = [name for name, _ in chip_smoke.serving_phases(args)]
     assert names == ["w32", "w64", "keyword", "keyword_large", "spir",
-                     "pnns_4096x128_w32_b16", "pnns_4096x128_w64_b16", "simplepir_256k_x_4KiB_b32", "mesh"]
+                     "pnns_4096x128_w32_b16", "pnns_4096x128_w64_b16", "simplepir_256k_x_4KiB_b32", "mesh",
+                     "ntt_mxu"]
     assert names[:2] == list(chip_smoke.PATHS)
-    assert names[-4:-2] == list(chip_smoke.PNNS_PATHS)
-    assert names[-2] == chip_smoke.SIMPLE_PIR_CELL
+    assert names[-5:-3] == list(chip_smoke.PNNS_PATHS)
+    assert names[-3] == chip_smoke.SIMPLE_PIR_CELL
 
 
 def test_pnns_cells():
@@ -43,6 +44,49 @@ def test_only_simple_pir_selects_the_simple_pir_cell():
 
 def test_only_mesh_selects_the_mesh_phase():
     assert chip_smoke.parse_args(["--only", "mesh"]).only == "mesh"
+
+
+def test_only_ntt_mxu_selects_the_matrix_ntt_phase():
+    assert chip_smoke.parse_args(["--only", "ntt_mxu"]).only == "ntt_mxu"
+
+
+def test_ntt_mxu_cells():
+    """The matrix NTT serves the w32 cell for --batches batches and one
+    batch of the w64 cell (8 digits), and checks its kernel at 60-bit
+    moduli (9 digits), [2, 3, 8192]."""
+    from she_tpu_torch import params
+    from she_tpu_torch.ops import digits
+
+    assert chip_smoke.NTT_MXU_PATHS == {"ntt_mxu_w32": ("w32", None), "ntt_mxu_w64": ("w64", 1)}
+    name, batch, degree = chip_smoke.NTT_MXU_D9
+    moduli = params.from_predefined(name, scalar_bits=64).coefficient_moduli
+    assert (name, batch, degree, len(moduli), digits.digit_count(moduli)) == (
+        "n_8192_logq_28_60_60_logt_20", (2,), 8192, 3, 9)
+
+
+def test_kernels_line_names_every_kernel():
+    """The kernels line (run() checks its names against KERNEL_SOURCES)
+    covers all four sources the package builds: the NTT's two kernels,
+    dim0_int8, simple_pir_matmul and ntt_mxu_phase."""
+    from she_tpu_torch.ops import kernel_build
+
+    assert set(chip_smoke.KERNEL_SOURCES) == {"ntt_forward", "ntt_inverse", "dim0_int8", "simple_pir_matmul",
+                                              "ntt_mxu_phase"}
+    assert set(chip_smoke.KERNEL_SOURCES.values()) == {
+        f"she_tpu_torch/csrc/{source}" for source in kernel_build.SOURCES.values()}
+    assert len(kernel_build.SOURCES) == 4
+
+
+def test_mxu_bound():
+    """The phase kernel's bound at the w32 cell's widest launch (bytes) and
+    at the w64 cell's row phase (operations)."""
+    w32 = chip_smoke.mxu_bound((32, 128, 2, 3, 4096), (1, 2, 3), 4, "Lf")
+    assert w32["bytes"] == 2 * 32 * 128 * 2 * 3 * 4096 * 8 + 3 * 4 * 64 * 64
+    assert w32["operations"] == 2 * 16 * 64 * 32 * 128 * 2 * 3 * 4096 and w32["bound_by"] == "bytes"
+    w64_row = chip_smoke.mxu_bound((7, 128, 2, 3, 8192), (1, 2, 3), 8, "Lf")
+    w64_block = chip_smoke.mxu_bound((7, 128, 2, 3, 8192), (1, 2, 3), 8, "Rf")
+    assert w64_row["bound_by"] == "operations" and w64_block["bound_by"] == "bytes"
+    assert w64_row["operations"] == 2 * w64_block["operations"]
 
 
 def test_mesh_cells():
