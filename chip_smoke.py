@@ -80,13 +80,15 @@ then PNNS (BatchedPnnsServer), 16 cosine-similarity queries a batch over a
 11. the matrix NTT (matrix_ntt_phase), she_tpu's opt-in
    SHE_TPU_NTT_MXU=1: the w32 cell served for --batches batches and one
    batch of the w64 cell (8 digits), each first on the butterfly route and
-   then on the matrix route (the phase kernel of csrc/ntt_mxu.cu, no
-   butterfly launch, no plain NTT on CUDA tensors); every answer of the
-   matrix route must equal the butterfly route's bit for bit and decrypt;
-   then the phase kernel at every shape it launched with and at 60-bit
-   moduli (n_8192_logq_28_60_60_logt_20, [2, 3, 8192], 9 digits): timed
-   first beside its bound and torch._int_mm's digit products, then held
-   bit-equal to its plain version and each direction to the butterfly
+   then on the matrix route (the fused kernel of csrc/ntt_mxu.cu, one
+   launch a direction, no butterfly launch, no plain NTT on CUDA tensors);
+   every answer of the matrix route must equal the butterfly route's bit
+   for bit and decrypt; then the fused kernel at every shape it launched
+   with and at 60-bit moduli (n_8192_logq_28_60_60_logt_20, [2, 3, 8192], 9
+   digits): timed first in turns with the butterfly kernel, beside its
+   bytes and int8 bounds (and, as a diagnostic, the time the CUDA cores
+   take to issue its build's integer instructions) and torch._int_mm's
+   digit products, then held bit-equal to its plain version and to the butterfly
    kernel;
 12. the command-line tools (cli_phase), in process on the card: generate,
    shard and process a keyword database, an mmap dictionary of it, a PNNS
@@ -118,6 +120,20 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate (NVIDIA data sheet)
+# H100 SXM clocks of all SMs a second: 132 SMs at the 1,980 MHz boost
+# clock (NVIDIA data sheet). The CUDA cores' 32-bit integer instructions go
+# to two pipes, each 64 lanes an SM a clock (CUDA C++ Programming Guide,
+# arithmetic throughput at compute capability 9.0): the multiplies to the
+# FMA pipe, the rest to the ALU pipe; an SM's four schedulers issue one warp
+# instruction a clock each, 128 lanes, to both pipes together.
+SM_CLOCKS_PER_S = 132 * 1.98e9
+INT_PIPE_LANES = 64
+ISSUE_LANES = 128
+FMA_INT_OPCODES = frozenset(("IMAD", "IMUL", "IMUL32I", "IDP"))
+ALU_INT_OPCODES = frozenset(("IADD3", "IADD", "IADD32I", "LOP3", "LOP", "LOP32I", "SHF", "SHL", "SHR", "PRMT", "LEA",
+                             "SEL", "ISETP", "ICMP", "IMNMX", "VIMNMX", "VIADD", "IABS", "POPC", "FLO", "BREV", "SGXT",
+                             "BMSK", "ISCADD", "MOV", "P2R", "R2P", "PLOP3", "BFE", "BFI"))
+_SASS: dict = {}
 ENTRY_COUNT = 1_000_000
 BATCH = 128
 # name -> (parameters, scalar bits, fresh queries per batch?): the w64 path
@@ -185,7 +201,7 @@ MESH_REPS = 3  # calls of each part on each rank, the first a warm-up
 NTT_KERNELS = ("ntt_forward", "ntt_inverse")
 NTT_AND_DIM0 = NTT_KERNELS + ("dim0_int8",)
 
-# the matrix NTT (ntt_mxu_phase): she_tpu's opt-in SHE_TPU_NTT_MXU=1 on the
+# the matrix NTT (ntt_mxu): she_tpu's opt-in SHE_TPU_NTT_MXU=1 on the
 # MulPIR cells, label -> (path of PATHS, batches: None for --batches)
 NTT_MXU_PATHS = {"ntt_mxu_w32": ("w32", None), "ntt_mxu_w64": ("w64", 1)}
 # the 60-bit check: 9 digits, batch shape and degree
@@ -196,7 +212,7 @@ KERNEL_SOURCES = {
     "ntt_inverse": "she_tpu_torch/csrc/ntt.cu",
     "dim0_int8": "she_tpu_torch/csrc/dim0_int8.cu",
     "simple_pir_matmul": "she_tpu_torch/csrc/simple_pir_matmul.cu",
-    "ntt_mxu_phase": "she_tpu_torch/csrc/ntt_mxu.cu",
+    "ntt_mxu": "she_tpu_torch/csrc/ntt_mxu.cu",
 }
 MESH_PATHS = ("mesh_batch_w32", "mesh_two_axis_w32", "mesh_pnns_w32", "mesh_dim0_psum", "mesh_sharded")
 
@@ -246,7 +262,7 @@ def ptxas_lines(name: str) -> list[str]:
     and of the SimplePIR kernel's instances that serve the cell (two D
     planes against four query planes, 32 and 8 request rows), with the
     dynamic shared memory and stages of their rings; and of the matrix
-    NTT's phase kernel at 4, 8 and 9 digits."""
+    NTT's fused kernel at 4, 8 and 9 digits, both directions."""
     import re
 
     from she_tpu_torch.ops import kernel_build
@@ -271,9 +287,10 @@ def ptxas_lines(name: str) -> list[str]:
                 stages, shared = simple_pir_cuda.ring(4, 2, int(m.group(3)))
                 label = (f"plane_products<JA=4, NI=2, KQT={m.group(3)}> ({stages} stages, {shared} bytes of "
                          f"dynamic shared memory)")
-        elif "Compiling entry function" in line and "ntt_mxu_phase_kernel" in line:
-            m = re.search(r"ntt_mxu_phase_kernelILi(\d)E", line)
-            label = f"ntt_mxu_phase_kernel<D={m.group(1)}>" if m and m.group(1) in "489" else None
+        elif "Compiling entry function" in line and "ntt_mxu_kernel" in line:
+            m = re.search(r"ntt_mxu_kernelILi(\d)ELb([01])E", line)
+            label = (f"ntt_mxu_kernel<D={m.group(1)}, {'forward' if m.group(2) == '1' else 'inverse'}>"
+                     if m and m.group(1) in "489" else None)
         elif label and ("Used" in line or "spill" in line):
             out.append(f"{label}: {line.strip()}")
     return out
@@ -303,7 +320,7 @@ def read_counts(label: str, use_dim0_int8: bool, simple_pir: bool = False, mxu: 
     never launched, if the int8 dim-0 kernel launched on a path that serves
     the MAC form, if the SimplePIR kernel launched on another protocol's
     path, if the NTT took the other route than the path's (`mxu`: the
-    matrix NTT's phase kernel, else the butterfly kernels), or if a plain
+    matrix NTT's fused kernel, else the butterfly kernels), or if a plain
     NTT ran on CUDA tensors."""
     from she_tpu_torch.ops import dim0_cuda, ntt, ntt_cuda, ntt_mxu, ntt_mxu_cuda, simple_pir_cuda
 
@@ -312,7 +329,7 @@ def read_counts(label: str, use_dim0_int8: bool, simple_pir: bool = False, mxu: 
     plain_on_cuda = {f"{k}_{d}": v for k, counts in (("ntt", ntt.plain_calls_on_cuda),
                                                     ("ntt_mxu", ntt_mxu.plain_calls_on_cuda))
                      for d, v in counts.items()}
-    ntt_kernels, other_route = (["ntt_mxu_phase"], NTT_KERNELS) if mxu else (list(NTT_KERNELS), ("ntt_mxu_phase",))
+    ntt_kernels, other_route = (["ntt_mxu"], NTT_KERNELS) if mxu else (list(NTT_KERNELS), ("ntt_mxu",))
     path_kernels = (ntt_kernels + (["dim0_int8"] if use_dim0_int8 else [])
                     + (["simple_pir_matmul"] if simple_pir else []))
     if any(launches[k] == 0 for k in path_kernels):
@@ -334,6 +351,25 @@ def kernel_bound_ms(shape, moduli, degree) -> float:
     """Bytes over the memory rate: every int64 row read and written once,
     plus the int64 root and Shoup tables of its moduli (counted as in PR 1)."""
     return 1e3 * (2 * prod(shape) * 8 + 2 * len(moduli) * degree * 8) / HBM_BYTES_PER_S
+
+
+def ntt_sass(name: str, shape, word_bits: int) -> dict | None:
+    """The butterfly NTT's build at `shape`, as a diagnostic: the integer
+    SASS instructions of the kernel's instantiation by pipe (sass_count),
+    over its 8 log2 N butterflies a thread (16 coefficients a thread), and
+    the time the CUDA cores take to issue them for the shape's threads
+    (sass_issue_ms). None where the kernel holds a row in fewer than 16
+    threads or cuobjdump is missing."""
+    n = shape[-1]
+    log2n = n.bit_length() - 1
+    if n < 256:
+        return None
+    count = sass_count("ntt", rf"{name}_kernelI{'j' if word_bits == 32 else 'y'}Li{log2n}E")
+    if count is None:
+        return None
+    threads = prod(shape[:-1]) * n // 16
+    return dict(per_butterfly={k: v / (8 * log2n) for k, v in count.items()},
+                issue_ms=sass_issue_ms(count, threads))
 
 
 def kernel_phase(seed: int) -> dict:
@@ -442,15 +478,20 @@ def shape_timing(path: str, launch_shapes, batches: int) -> dict:
         plain_ms = cuda_ms(lambda: plain(x, tables), plain_iters)
         copy_ms = cuda_ms(lambda: y.copy_(x), 20)
         bound = kernel_bound_ms(shape, moduli, n)
+        sass = ntt_sass(name, shape, tables.word_bits)
         row = dict(path=path, shape=list(shape), moduli=list(moduli), block=block, rows=rows, word_bits=tables.word_bits,
                    launches_per_batch=count / batches, max_abs_err=err, ms=ms, ns_per_row=1e6 * ms / rows,
                    plain_ms=plain_ms, plain_iters=plain_iters, copy_ms=copy_ms, bound_ms=bound,
-                   share_of_bound=bound / ms)
+                   share_of_bound=bound / ms, sass_int_per_butterfly=sass and sass["per_butterfly"],
+                   sass_issue_ms=sass and sass["issue_ms"])
         out[name].append(row)
         log(f"{path} {name} {tuple(shape)}{'' if block is None else f' block tables {block}'} ({rows} rows, "
             f"{count / batches:g} per batch, {tables.word_bits}-bit words): bit-equal to plain; kernel {ms:.4f} ms ({row['ns_per_row']:.2f} ns/row), plain "
             f"{plain_ms:.4f} ms (x{plain_iters}), copy_ {copy_ms:.4f} ms, byte bound {bound:.4f} ms "
-            f"({100 * bound / ms:.1f}% of bound)")
+            f"({100 * bound / ms:.1f}% of bound)"
+            + ("" if sass is None else f"; the build's integer SASS, {sass['per_butterfly']['alu']:.2f} ALU + "
+               f"{sass['per_butterfly']['fma']:.2f} FMA a butterfly, issues in {sass['issue_ms']:.4f} ms "
+               "(a diagnostic)"))
         del x, y
     torch.cuda.empty_cache()
     for name, rows in out.items():
@@ -1726,7 +1767,9 @@ def ntt_kernel_entries(shapes: dict, paths: dict, checked: dict | None) -> list:
             replaces=f"she_tpu/ops/ntt_pallas.py:{line}",
             launches=sum(p["launches"][name] for p in paths.values()), max_abs_err=max(errs),
             ms=widest["ms"], plain_ms=widest["plain_ms"], bound_ms=widest["bound_ms"],
-            bound_by="bytes", library_ms=None, widest_shape=widest["shape"], widest_path=widest["path"],
+            bound_by="bytes", library_ms=None, sass_issue_ms=widest["sass_issue_ms"],
+            library="none: no PyTorch call computes an exact modular NTT",
+            widest_shape=widest["shape"], widest_path=widest["path"],
             launches_by_path={p: v["launches"][name] for p, v in paths.items()}, shapes=shapes[name],
             **({"route64": checked["route64"][name]} if checked else {}),
         ))
@@ -1793,31 +1836,88 @@ def serve_both_routes(label: str, path: str, seed: int, batches: int) -> dict:
                         for r, v in routes.items()})
 
 
-def mxu_bound(shape, moduli, digits: int, matrix: str) -> dict:
-    """The least time of one phase launch: x read once and the output
-    written once as int64 and the matrix's digit planes read once, over
-    the memory rate; 2 D^2 K int8 operations an output (K = A in the row
-    phase, 64 in the block phase) over the int8 tensor-core rate; the
-    larger bounds it."""
-    from she_tpu_torch.ops.ntt_mxu_cuda import ROW_MATRICES
+def sass_integer_counts(name: str) -> dict:
+    """Integer instructions on the CUDA cores' 32-bit lanes of every
+    function in the built library `name`, by mangled name, split by pipe:
+    {"fma": IMAD and the other multiplies, "alu": IADD3, LOP3, SHF, PRMT,
+    LEA, SEL, ISETP, MOV and the like}; not the uniform datapath, memory,
+    control or tensor instructions. Read from the SASS that cuobjdump
+    prints; empty where the toolkit has no cuobjdump. Each instruction of
+    the listing counts once: the prologue and branches a launch never takes
+    count, loop bodies count once. So it describes the build, not the
+    instructions a launch executes, and not what the function needs."""
+    import os
+    import re
 
+    from she_tpu_torch.ops import kernel_build
+
+    tool = os.path.join(os.path.dirname(kernel_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    out = subprocess.run([tool, "-sass", str(kernel_build.library_path(name))], capture_output=True, text=True,
+                         check=True, timeout=300).stdout
+    counts, function = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            function = m.group(1)
+            counts[function] = {"alu": 0, "fma": 0}
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?P[T0-9]\s+)?([A-Z][A-Z0-9]*)", line)
+        if function and m:
+            pipe = "fma" if m.group(1) in FMA_INT_OPCODES else "alu" if m.group(1) in ALU_INT_OPCODES else None
+            if pipe:
+                counts[function][pipe] += 1
+    return counts
+
+
+def sass_count(name: str, pattern: str) -> dict | None:
+    """The integer instructions by pipe of the one function of library
+    `name` whose mangled name matches `pattern`, or None."""
+    import re
+
+    if name not in _SASS:
+        _SASS[name] = sass_integer_counts(name)
+    found = [v for k, v in _SASS[name].items() if re.search(pattern, k)]
+    return found[0] if len(found) == 1 else None
+
+
+def sass_issue_ms(counts: dict, threads: float) -> float:
+    """The time the CUDA cores take to issue `counts` (sass_count: one
+    thread's integer SASS by pipe) for each of `threads` threads: the
+    larger of each pipe's instructions over its 64 lanes an SM a clock and
+    of all of them over the 128 lanes an SM issues a clock. A diagnostic of
+    the build, not a bound on the function: the count is the listing's,
+    and a build with more instructions reads a larger time."""
+    alu, fma = counts["alu"], counts["fma"]
+    clocks = max(alu / INT_PIPE_LANES, fma / INT_PIPE_LANES, (alu + fma) / ISSUE_LANES)
+    return 1e3 * clocks * threads / SM_CLOCKS_PER_S
+
+
+def mxu_bound(shape, moduli, digits: int) -> dict:
+    """The least time of one direction of the fused matrix NTT: x read
+    once and written once as int64, the row matrix's and the block
+    matrix's digit planes and the twist table read once,
+    over the memory rate; 2 D^2 (A + 64) int8 operations an output (the row
+    product, K = A, and the block product, K = 64) over the int8
+    tensor-core rate; the larger bounds it."""
     numel, L, A = prod(shape), len(moduli), shape[-1] // 64
-    row = matrix in ROW_MATRICES
-    K = A if row else 64
-    nbytes = 2 * numel * 8 + L * digits * A * (A if row else 64 * 64)
-    ops = 2 * digits * digits * K * numel
+    twist_bytes = 8 if digits <= 4 else 16  # ntt_mxu_cuda.twist_table
+    nbytes = 2 * numel * 8 + L * digits * (A * A + 64 * 64) + L * A * 64 * twist_bytes
+    ops = 2 * digits * digits * (A + 64) * numel
     bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / INT8_OPS_PER_S
     return dict(bytes=nbytes, operations=ops, bytes_ms=bytes_ms, operations_ms=ops_ms,
                 bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def int_mm_ms(x, t) -> float:
-    """The yardstick: torch._int_mm (int8 x int8 -> int32) of the row
-    phase's D^2 digit-pair products at x's shape, one product per modulus
-    l of the stacked digit planes of Lf [D A, A] by the stacked digits of
-    x [A, D cols] (cols = batch x 64). The digit split of x (made before)
-    and the recombination mod q are left out. Held equal to a float64
-    product on a slice before it is timed."""
+    """The yardstick: torch._int_mm (int8 x int8 -> int32) of a forward
+    direction's digit-pair products at x's shape, per modulus l one product
+    of the stacked digit planes of Lf [D A, A] by the stacked digits of x
+    [A, D cols] (cols = batch x 64) and one of R_f [D 64, 64] by the same
+    digits read as [64, D rows] (rows = batch x A). The digit split of x
+    (made before), the twist and the recombination mod q are left out.
+    Held equal to a float64 product on a slice before it is timed."""
     import torch
 
     from she_tpu_torch.ops import digits as dg
@@ -1825,8 +1925,10 @@ def int_mm_ms(x, t) -> float:
     L, A, D = len(t.moduli), t.A, t.D
     xv = x.reshape(-1, L, A, 64)
     xd = torch.stack(dg.value_digits(xv, D))  # [D, B, L, A, 64]
-    a_ops = [t.Lf[l].reshape(D * A, A).contiguous() for l in range(L)]
-    b_ops = [xd[:, :, l].permute(2, 0, 1, 3).reshape(A, -1).contiguous() for l in range(L)]
+    ops = []
+    for l in range(L):
+        ops.append((t.Lf[l].reshape(D * A, A).contiguous(), xd[:, :, l].permute(2, 0, 1, 3).reshape(A, -1).contiguous()))
+        ops.append((t.R_f[l].reshape(D * 64, 64).contiguous(), xd[:, :, l].permute(3, 0, 1, 2).reshape(64, -1).contiguous()))
     del xd
 
     def layout(b, column_major: bool):
@@ -1834,37 +1936,39 @@ def int_mm_ms(x, t) -> float:
 
     for column_major in (False, True):  # cuBLASLt's int8 product may want the operand column-major
         try:
-            probe = torch._int_mm(a_ops[0], layout(b_ops[0][:, :64], column_major))
+            probe = torch._int_mm(ops[0][0], layout(ops[0][1][:, :64], column_major))
             break
         except RuntimeError:
             if column_major:
                 raise
-    b_ops = [layout(b, column_major) for b in b_ops]
-    if not torch.equal(probe.double(), a_ops[0].double() @ b_ops[0][:, :64].double()):
+    ops = [(a, layout(b, column_major)) for a, b in ops]
+    if not torch.equal(probe.double(), ops[0][0].double() @ ops[0][1][:, :64].double()):
         raise AssertionError("torch._int_mm's digit products are not exact")
 
     def products():
-        for a, b in zip(a_ops, b_ops):
+        for a, b in ops:
             torch._int_mm(a, b)
 
     return cuda_ms(products, 5)
 
 
 def mxu_launch_rows(paths: dict, seed: int) -> list:
-    """The phase kernel at every shape the matrix route launched it with
-    (and, as path "d9_check", the four matrices at NTT_MXU_D9's 60-bit
-    moduli, 9 digits): first every launch timed (CUDA events, 20 launches
-    after a warm-up) beside its bound, and torch._int_mm's digit products
-    at the widest launch of each path; then each held bit-equal to the
-    plain version (ntt_mxu.phase_plain) and each direction's whole matrix
-    NTT to the butterfly kernel; the plain version timed last, once, at
-    the widest launch of each path. No plain version runs before a timed
+    """The fused kernel at every shape the matrix route launched it with
+    (and, as path "d9_check", both directions at NTT_MXU_D9's 60-bit
+    moduli, 9 digits). First every launch timed beside the butterfly
+    kernel of the same direction, in turns (kernel, butterfly, butterfly,
+    kernel; CUDA events, 20 launches each after a warm-up), with its three
+    bounds, and torch._int_mm's digit products at the widest launch of
+    each path; then each held bit-equal to the plain version
+    (ntt_mxu.forward_factored_plain / inverse_factored_plain) and to the
+    butterfly kernel; the plain version timed last, once, at the widest
+    forward launch of each path. No plain version runs before a timed
     launch."""
     import torch
 
     from she_tpu_torch import params as paramsmod
     from she_tpu_torch.ops import ntt, ntt_cuda, ntt_mxu, ntt_mxu_cuda
-    from she_tpu_torch.ops.ntt_mxu_cuda import PhaseKey
+    from she_tpu_torch.ops.ntt_mxu_cuda import DirectionKey
 
     cuda = torch.device("cuda")
     name, batch, degree = NTT_MXU_D9
@@ -1872,7 +1976,9 @@ def mxu_launch_rows(paths: dict, seed: int) -> list:
     d9_shape = batch + (len(d9_moduli), degree)
     shapes = [(label, key, count / paths[label]["batches"]) for label in NTT_MXU_PATHS
               for key, count in sorted(paths[label]["mxu_shapes"].items(), key=lambda kv: -prod(kv[0].shape))]
-    shapes += [("d9_check", PhaseKey(m, d9_shape, d9_moduli), 0) for m in ntt_mxu.MATRICES]
+    shapes += [("d9_check", DirectionKey(d, d9_shape, d9_moduli), 0) for d in ntt_mxu_cuda.DIRECTIONS]
+    kernels = {"forward": (ntt_mxu_cuda.ntt_mxu_forward, ntt_cuda.forward, ntt_mxu.forward_factored_plain),
+               "inverse": (ntt_mxu_cuda.ntt_mxu_inverse, ntt_cuda.inverse, ntt_mxu.inverse_factored_plain)}
 
     def operands(i, key):
         t = ntt_mxu.tables_for(key.moduli, key.shape[-1], cuda)
@@ -1881,68 +1987,68 @@ def mxu_launch_rows(paths: dict, seed: int) -> list:
     rows = []
     for i, (label, key, per_batch) in enumerate(shapes):  # kernels first
         t, x = operands(i, key)
-        ms = cuda_ms(lambda: ntt_mxu_cuda.ntt_mxu_phase(x, t, key.matrix), 20)
-        bound = mxu_bound(key.shape, key.moduli, t.D, key.matrix)
-        rows.append(dict(path=label, matrix=key.matrix, shape=list(key.shape), moduli=list(key.moduli), digits=t.D,
-                         A=t.A, launches_per_batch=per_batch, ms=ms, **bound, share_of_bound=bound["bound_ms"] / ms,
+        bt = ntt.build_ntt_tables(key.moduli, key.shape[-1], cuda)
+        kern, butterfly, _ = kernels[key.direction]
+        readings = {"kernel": [], "butterfly": []}
+        for turn in ("kernel", "butterfly", "butterfly", "kernel"):
+            fn = (lambda: kern(x, t)) if turn == "kernel" else (lambda: butterfly(x, bt))
+            readings[turn].append(cuda_ms(fn, 20))
+        ms, butterfly_ms = (statistics.mean(readings[k]) for k in ("kernel", "butterfly"))
+        count = sass_count("ntt_mxu", rf"ntt_mxu_kernelILi{t.D}ELb{int(key.direction == 'forward')}E")
+        bound = mxu_bound(key.shape, key.moduli, t.D)
+        per = ntt_mxu_cuda.OUTPUTS_PER_THREAD
+        rows.append(dict(path=label, direction=key.direction, shape=list(key.shape), moduli=list(key.moduli),
+                         digits=t.D, A=t.A, launches_per_batch=per_batch, ms=ms, ms_readings=readings["kernel"],
+                         butterfly_ms=butterfly_ms, butterfly_readings=readings["butterfly"], **bound,
+                         share_of_bound=bound["bound_ms"] / ms,
+                         sass_int_per_output=count and {k: v / per for k, v in count.items()},
+                         sass_issue_ms=count and sass_issue_ms(count, prod(key.shape) / per),
                          library_ms=None, plain_ms=None))
         del x
-    widest = {}  # the widest row-phase launch of each path
+    widest = {}  # the widest forward launch of each path
     for i, row in enumerate(rows):
-        if (row["path"] in NTT_MXU_PATHS and row["matrix"] in ntt_mxu_cuda.ROW_MATRICES
+        if (row["path"] in NTT_MXU_PATHS and row["direction"] == "forward"
                 and prod(row["shape"]) > widest.get(row["path"], (-1,))[0]):
             widest[row["path"]] = (prod(row["shape"]), i)
     for _, i in widest.values():
-        # there: the yardstick, the butterfly kernel of the same direction,
-        # and the direction's two phases summed
-        label, key, _ = shapes[i]
-        t, x = operands(i, key)
+        t, x = operands(i, shapes[i][1])
         rows[i]["library_ms"] = int_mm_ms(x, t)
-        forward = key.matrix == "Lf"
-        bt = ntt.build_ntt_tables(key.moduli, key.shape[-1], cuda)
-        butterfly = ntt_cuda.forward if forward else ntt_cuda.inverse
-        rows[i]["butterfly_ms"] = cuda_ms(lambda: butterfly(x, bt), 20)
-        pair = ("Lf", "Rf") if forward else ("Ri", "Li")
-        rows[i]["direction_ms"] = sum(r["ms"] for r in rows if r["path"] == label and r["matrix"] in pair
-                                      and r["shape"] == list(key.shape) and r["moduli"] == list(key.moduli))
         del x
     torch.cuda.empty_cache()
-    checked = set()
     for i, (label, key, _) in enumerate(shapes):  # then the plain versions
         t, x = operands(i, key)
-        err = int((ntt_mxu_cuda.ntt_mxu_phase(x, t, key.matrix) - ntt_mxu.phase_plain(x, t, key.matrix)).abs().max())
+        kern, butterfly, plain = kernels[key.direction]
+        got = kern(x, t)
+        err = int((got - plain(x, t)).abs().max())
         rows[i]["max_abs_err"] = err
-        direction = "forward" if key.matrix in ("Lf", "Rf") else "inverse"
-        if (label, direction, key.shape, key.moduli) not in checked:
-            checked.add((label, direction, key.shape, key.moduli))
-            bt = ntt.build_ntt_tables(key.moduli, key.shape[-1], cuda)
-            if direction == "forward":
-                same = torch.equal(ntt_mxu.forward_ntt(x, t), ntt_cuda.forward(x, bt))
-            else:
-                same = torch.equal(ntt_mxu.inverse_ntt(x, t), ntt_cuda.inverse(x, bt))
-            if not same:
-                raise AssertionError(f"{label}: the matrix NTT ({direction}) differs from the butterfly kernel at "
-                                     f"{key.shape}, moduli {key.moduli}")
         if err:
-            raise AssertionError(f"{label} ntt_mxu_phase {key.matrix} at {key.shape}, moduli {key.moduli}: "
+            raise AssertionError(f"{label} ntt_mxu {key.direction} at {key.shape}, moduli {key.moduli}: "
                                  f"max |kernel - plain| = {err}")
+        if not torch.equal(got, butterfly(x, ntt.build_ntt_tables(key.moduli, key.shape[-1], cuda))):
+            raise AssertionError(f"{label}: the matrix NTT ({key.direction}) differs from the butterfly kernel at "
+                                 f"{key.shape}, moduli {key.moduli}")
         if i in [j for _, j in widest.values()]:
-            rows[i]["plain_ms"] = cuda_ms(lambda: ntt_mxu.phase_plain(x, t, key.matrix), 1)
-        del x
+            rows[i]["plain_ms"] = cuda_ms(lambda: plain(x, t), 1)
+        del x, got
         torch.cuda.empty_cache()
     for row in rows:
-        log(f"{row['path']} ntt_mxu_phase {row['matrix']} {tuple(row['shape'])} (A = {row['A']}, {row['digits']} "
-            f"digits, {row['launches_per_batch']:g} a batch): bit-equal to plain, its direction bit-equal to the "
-            f"butterfly kernel; kernel {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
-            f"({row['bytes']} bytes, {row['operations']} int8 operations), {100 * row['share_of_bound']:.1f}% of "
-            f"bound" + (f"; torch._int_mm digit products {row['library_ms']:.4f} ms" if row["library_ms"] else "")
+        sass = row["sass_int_per_output"]
+        sass = ("not counted" if sass is None else f"{sass['alu']:.1f} ALU + {sass['fma']:.1f} FMA an output, issued "
+                f"in {row['sass_issue_ms']:.4f} ms")
+        log(f"{row['path']} ntt_mxu {row['direction']} {tuple(row['shape'])} (A = {row['A']}, {row['digits']} digits, "
+            f"{row['launches_per_batch']:g} a batch): bit-equal to plain and to the butterfly kernel; kernel "
+            f"{row['ms']:.4f} ms {[round(v, 4) for v in row['ms_readings']]}, butterfly {row['butterfly_ms']:.4f} ms; "
+            f"bounds: bytes {row['bytes_ms']:.4f} ms ({row['bytes']} bytes), int8 {row['operations_ms']:.4f} ms "
+            f"({row['operations']} operations); {100 * row['share_of_bound']:.1f}% of the bound by {row['bound_by']}; "
+            f"the build's integer SASS (a diagnostic) {sass}"
+            + (f"; torch._int_mm digit products {row['library_ms']:.4f} ms" if row["library_ms"] else "")
             + (f"; plain {row['plain_ms']:.4f} ms" if row["plain_ms"] else ""))
     return rows
 
 
 def matrix_ntt_phase(seed: int, batches: int) -> dict:
     """The matrix NTT on the MulPIR cells (serve_both_routes for each of
-    NTT_MXU_PATHS), then the phase kernel at every launched shape and the
+    NTT_MXU_PATHS), then the fused kernel at every launched shape and the
     60-bit check (mxu_launch_rows). Returns the paths by label, the kernel
     rows under "ntt_mxu_rows"."""
     paths = {label: serve_both_routes(label, path, seed, n or batches)
@@ -1955,20 +2061,21 @@ def matrix_ntt_phase(seed: int, batches: int) -> dict:
 
 
 def ntt_mxu_kernel_entry(rows: list, launches: dict) -> dict:
-    """ntt_mxu_phase's entry of the kernels line, at the widest row-phase
-    launch of the w32 cell (the widest of each path in `widest`)."""
+    """ntt_mxu's entry of the kernels line, at the widest forward launch of
+    the w32 cell (the widest of each path in `widest`)."""
     widest = {}
     for r in rows:
         if r["plain_ms"] is not None:
             widest[r["path"]] = r
     top = widest[next(iter(NTT_MXU_PATHS))]
     return dict(
-        name="ntt_mxu_phase", route="cuda", source=KERNEL_SOURCES["ntt_mxu_phase"],
+        name="ntt_mxu", route="cuda", source=KERNEL_SOURCES["ntt_mxu"],
         replaces="she_tpu/ops/ntt_mxu.py:310", launches=sum(launches.values()), launches_by_path=launches,
         max_abs_err=max(r["max_abs_err"] for r in rows), ms=top["ms"], plain_ms=top["plain_ms"],
         bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=top["library_ms"],
-        library="torch._int_mm (int8 x int8 -> int32) of the row phase's D^2 digit-pair products, stacked; "
-                "no digit split, no recombination",
+        sass_issue_ms=top["sass_issue_ms"], butterfly_ms=top["butterfly_ms"],
+        library="torch._int_mm (int8 x int8 -> int32) of a forward direction's D^2 digit-pair products of both "
+                "products, stacked; no digit split, twist or recombination",
         widest=widest, shapes=rows,
     )
 
@@ -1977,14 +2084,16 @@ def ntt_mxu_summary(paths: dict, entry: dict, card: str) -> str:
     parts = []
     for label in NTT_MXU_PATHS:
         v, w = paths[label], entry["widest"][label]
+        issue = "not counted" if w["sass_issue_ms"] is None else f"{w['sass_issue_ms']:.4f} ms"
         parts.append(
             f"{label} ({v['params']}, {v['batches']} batch(es) of {BATCH}): butterfly route "
             f"{v['routes']['butterfly']['median_s_per_batch']:.4f} s/batch, matrix route "
-            f"{v['routes']['mxu']['median_s_per_batch']:.4f} s/batch, {v['launches']['ntt_mxu_phase']} phase launches; "
-            f"widest launch {w['matrix']} {tuple(w['shape'])}: {w['ms']:.4f} ms against a bound of "
-            f"{w['bound_ms']:.4f} ms by {w['bound_by']} ({100 * w['share_of_bound']:.1f}%), torch._int_mm "
-            f"{w['library_ms']:.4f} ms, plain {w['plain_ms']:.4f} ms; the direction's two phases "
-            f"{w['direction_ms']:.4f} ms against the butterfly kernel's {w['butterfly_ms']:.4f} ms")
+            f"{v['routes']['mxu']['median_s_per_batch']:.4f} s/batch, {v['launches']['ntt_mxu']} launches; "
+            f"widest forward {tuple(w['shape'])}: {w['ms']:.4f} ms against bounds of {w['bytes_ms']:.4f} ms (bytes), "
+            f"{w['operations_ms']:.4f} ms (int8): {100 * w['share_of_bound']:.1f}% of the bound by "
+            f"{w['bound_by']}; the build's integer SASS issues in {issue}; the butterfly kernel "
+            f"{w['butterfly_ms']:.4f} ms, torch._int_mm "
+            f"{w['library_ms']:.4f} ms, plain {w['plain_ms']:.4f} ms")
     return "ntt_mxu (answers bit-identical on both routes, all decrypt): " + "; ".join(parts) + f"; on {card}"
 
 
@@ -2574,7 +2683,7 @@ def run(args) -> int:
     kernels.append(simple_pir_kernel_entry(
         simple_pir_rows, {p: v["launches"]["simple_pir_matmul"] for p, v in paths.items()}))
     mxu_entry = ntt_mxu_kernel_entry(paths[next(iter(NTT_MXU_PATHS))].pop("ntt_mxu_rows"),
-                                     {p: paths[p]["launches"]["ntt_mxu_phase"] for p in NTT_MXU_PATHS})
+                                     {p: paths[p]["launches"]["ntt_mxu"] for p in NTT_MXU_PATHS})
     kernels.append(mxu_entry)
     if sorted(k["name"] for k in kernels) != sorted(KERNEL_SOURCES):
         raise AssertionError(f"the kernels line names {[k['name'] for k in kernels]}, not {list(KERNEL_SOURCES)}")
@@ -2646,7 +2755,7 @@ def timed_launch_shapes(paths: dict) -> tuple[dict, list]:
 
 def launch_rows(path: dict) -> None:
     """A path's launch counters, keyed by ntt_cuda.LaunchKey (and
-    ntt_mxu_cuda.PhaseKey) and by the int8 dim-0 kernel's (digits shape,
+    ntt_mxu_cuda.DirectionKey) and by the int8 dim-0 kernel's (digits shape,
     query shape, moduli), as JSON rows, in place."""
     for key in ("launch_shapes", "setup_launch_shapes", "mxu_shapes"):
         if key in path:
@@ -2756,12 +2865,12 @@ def mesh_only(args, card: str) -> int:
 
 def ntt_mxu_only(args, card: str) -> int:
     """--only ntt_mxu: the matrix NTT phase alone (both MulPIR cells on
-    both routes, the phase kernel at every launched shape and the 60-bit
-    check); then the kernels line (ntt_mxu_phase, with this phase's
+    both routes, the fused kernel at every launched shape and the 60-bit
+    check); then the kernels line (ntt_mxu, with this phase's
     launches) and the last line."""
     paths = matrix_ntt_phase(args.seed, args.batches)
     entry = ntt_mxu_kernel_entry(paths[next(iter(NTT_MXU_PATHS))].pop("ntt_mxu_rows"),
-                                 {p: paths[p]["launches"]["ntt_mxu_phase"] for p in NTT_MXU_PATHS})
+                                 {p: paths[p]["launches"]["ntt_mxu"] for p in NTT_MXU_PATHS})
     log(ntt_mxu_summary(paths, entry, card))
     return report(args, card, [entry], paths=paths)
 

@@ -1,21 +1,24 @@
-"""Launch wrapper for the matrix NTT's phase kernel (csrc/ntt_mxu.cu).
+"""Launch wrapper for the fused matrix NTT kernel (csrc/ntt_mxu.cu).
 
 The kernel replaces she_tpu/ops/ntt_mxu.py:310 _phase_row and :330
-_phase_block: one phase of the matrix NTT (ops/ntt_mxu.py) as int8 x int8
--> int32 digit products on the tensor cores (mma.sync), recombined and
-reduced mod q in its epilogue. The wrapper checks its inputs, allocates
-the output with torch.empty, launches on torch.cuda.current_stream() and
-raises if the launch reports a CUDA error. There is no fallback: a tensor
-the kernel does not take raises. `launches` counts each launch;
-`launch_shapes` counts the same launches by PhaseKey (matrix, input shape,
-moduli), so a run can check and time each shape it used.
+_phase_block: a whole direction of the matrix NTT (ops/ntt_mxu.py) in one
+launch, the row product by Lf (Li), the twist and the block product by the
+shared R_f (R_i) as int8 x int8 -> int32 digit products on the tensor cores
+(wgmma), recombined and reduced mod q on the way. The wrapper checks its
+inputs, takes the kernel's operand images from the tables (made with them,
+by `kernel_operands`), allocates the output with torch.empty, launches
+on torch.cuda.current_stream() and raises if the launch reports a CUDA
+error. There is no fallback: a tensor the kernel does not take raises.
+`launches` counts each launch (one a direction); `launch_shapes` counts the
+same launches by DirectionKey (direction, input shape, moduli), so a run can
+check and time each shape it used.
 """
 
 from __future__ import annotations
 
 import ctypes
+import struct
 from collections import Counter
-from functools import lru_cache
 from typing import NamedTuple
 
 import torch
@@ -23,27 +26,29 @@ import torch
 from . import kernel_build
 
 
-class PhaseKey(NamedTuple):
+class DirectionKey(NamedTuple):
     """What a launch is counted by in `launch_shapes`."""
 
-    matrix: str  # "Lf", "Rf" (forward) or "Ri", "Li" (inverse)
+    direction: str  # "forward" or "inverse"
     shape: tuple
     moduli: tuple
 
 
-launches = {"ntt_mxu_phase": 0}
+launches = {"ntt_mxu": 0}
 launch_shapes: Counter = Counter()
 
-MATRICES = ("Lf", "Rf", "Ri", "Li")
-ROW_MATRICES = ("Lf", "Li")  # the row phase, along the rows; "Rf" and "Ri" are the block phase
+DIRECTIONS = ("forward", "inverse")
+BLOCK = 64
 MAX_DIGITS = 9
 MAX_MODULUS = 1 << 62
 MAX_ROWS = 128  # A = N / 64: N up to 8192
-MAX_GROUPS = 65535  # the grid's second dimension: L (row phase) or L * A (block phase)
+MAX_GROUPS = 65535  # L * A
+CHUNK_BITS = 42  # the kernel joins 64-bit chunks of six digit weights: r <- r 2^42 + chunk mod q
+OUTPUTS_PER_THREAD = 16  # a warpgroup's 64 x 32 tile of a unit over its 128 threads
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
-_ARGS = [_VP] * 4 + [_INT] * 5 + [ctypes.c_longlong, _VP]
+_ARGS = [_VP] * 6 + [_INT] * 5 + [ctypes.c_longlong, _VP]
 
 
 def reset_launches() -> None:
@@ -54,9 +59,9 @@ def reset_launches() -> None:
 
 def _library():
     lib = kernel_build.load("ntt_mxu")
-    if lib.she_ntt_mxu_phase.argtypes is None:
-        lib.she_ntt_mxu_phase.argtypes = _ARGS
-        lib.she_ntt_mxu_phase.restype = ctypes.c_int
+    if lib.she_ntt_mxu.argtypes is None:
+        lib.she_ntt_mxu.argtypes = _ARGS
+        lib.she_ntt_mxu.restype = ctypes.c_int
     return lib
 
 
@@ -64,23 +69,72 @@ def _signed(v: int) -> int:
     return v - (1 << 64) if v >= 1 << 63 else v
 
 
-@lru_cache(maxsize=None)
+def shoup_constants(w: torch.Tensor, moduli) -> torch.Tensor:
+    """floor(w 2^64 / q_l) of int64 w [L, ...] in [0, q_l), as unsigned bits
+    in int64 (computed on the host, exactly)."""
+    rows = []
+    for l, q in enumerate(moduli):
+        rows.append([_signed((int(v) << 64) // q) for v in w[l].reshape(-1).tolist()])
+    return torch.tensor(rows, dtype=torch.int64).view(w.shape)
+
+
 def constants(moduli: tuple, device: torch.device) -> torch.Tensor:
-    """int64 [4, L] on the device (unsigned bits reinterpreted): q_l,
-    floor(2^64 / q_l), w = 2^28 mod q_l and floor(w 2^64 / q_l)."""
-    w28 = [(1 << 28) % q for q in moduli]
-    rows = [list(moduli), [(1 << 64) // q for q in moduli], w28, [(w << 64) // q for w, q in zip(w28, moduli)]]
+    """int64 [5, L] on the device (unsigned bits reinterpreted): q_l,
+    floor(2^64 / q_l), w = 2^42 mod q_l, floor(w 2^64 / q_l) and the bits of
+    1 / q_l in float64 (the D <= 4 reductions' quotient estimate)."""
+    w42 = [(1 << CHUNK_BITS) % q for q in moduli]
+    inv = [struct.unpack("<Q", struct.pack("<d", 1.0 / q))[0] for q in moduli]
+    rows = [list(moduli), [(1 << 64) // q for q in moduli], w42, [(w << 64) // q for w, q in zip(w42, moduli)], inv]
     return torch.tensor([[_signed(v) for v in r] for r in rows], dtype=torch.int64, device=device)
 
 
-def exact64(moduli, contract: int) -> bool:
-    """Whether the exact dot product of `contract` residues below max(q)
-    fits 64 bits, so the epilogue sums the weights and reduces once."""
-    return contract * (max(moduli) - 1) ** 2 < 1 << 64
+def lazy(moduli, digits: int) -> bool:
+    """Whether values in [0, 2 max(q)) still split into `digits` digits, so
+    the intermediate between the two products may stay unreduced."""
+    return 2 * max(moduli) <= 1 << 7 * digits
 
 
-def _check(x: torch.Tensor, tables, matrix: str) -> tuple[torch.Tensor, int, int]:
-    """Validate the operands; returns (digit planes, L, batch)."""
+def operand_image(planes: torch.Tensor, rows: int, kbytes: int) -> torch.Tensor:
+    """int8 digit planes [..., R, K] (R, K <= rows, kbytes) -> the image
+    [..., rows * kbytes] of wgmma's K-major layout without swizzling, zero
+    past R and K: element (r, k) at (r / 8) 8 kbytes + (k / 16) 128 + (r % 8)
+    16 + k % 16 (8-row x 16-byte core matrices, K-adjacent ones 128 bytes
+    apart)."""
+    lead, (R, K) = planes.shape[:-2], planes.shape[-2:]
+    padded = torch.zeros(lead + (rows, kbytes), dtype=torch.int8, device=planes.device)
+    padded[..., :R, :K] = planes
+    tiles = padded.reshape(lead + (rows // 8, 8, kbytes // 16, 16)).transpose(-3, -2)
+    return tiles.reshape(lead + (rows * kbytes,)).contiguous()
+
+
+def twist_table(twist: torch.Tensor, shoup: torch.Tensor, moduli, digits: int) -> torch.Tensor:
+    """A direction's twist as the kernel reads it: int64 [L, A, 64, 2], s
+    and floor(s 2^64 / q); at D <= 4 (moduli below 2^28) int64 [L, A, 64],
+    s | floor(s 2^32 / q) << 32."""
+    if digits > 4:
+        return torch.stack((twist, shoup), dim=-1).contiguous()
+    q = torch.tensor(moduli, dtype=torch.int64, device=twist.device).view(-1, 1, 1)
+    return twist | ((twist << 32) // q) << 32
+
+
+def kernel_operands(moduli, digits: int, Lf, Li, R_f, R_i, s_f, s_i, s_f_shoup, s_i_shoup) -> dict:
+    """The kernel's operands, made once with the tables
+    (ntt_mxu.build_mxu_tables, from its fields of the same names): each
+    direction's row matrix planes [L, D, max(A, 64) * max(A, 32)], block
+    matrix planes [L, D, 64 * 64] (operand_image) and twist (twist_table),
+    and the constants."""
+    A = Lf.shape[-1]
+    rows, kbytes = max(A, BLOCK), max(A, 32)
+    ops = dict(constants=constants(tuple(moduli), Lf.device))
+    for direction, row, block, twist, shoup in (("forward", Lf, R_f, s_f, s_f_shoup),
+                                                ("inverse", Li, R_i, s_i, s_i_shoup)):
+        ops[direction] = (operand_image(row, rows, kbytes), operand_image(block, BLOCK, BLOCK),
+                          twist_table(twist, shoup, moduli, digits))
+    return ops
+
+
+def _check(x: torch.Tensor, tables) -> int:
+    """Validate the operands; returns the batch."""
     if x.dtype != torch.int64:
         raise TypeError(f"the matrix NTT kernel needs int64, got {x.dtype}")
     if not x.is_contiguous():
@@ -90,40 +144,52 @@ def _check(x: torch.Tensor, tables, matrix: str) -> tuple[torch.Tensor, int, int
         raise ValueError(f"the matrix NTT kernel expects [..., {L}, {n}], got {tuple(x.shape)}")
     if x.device.type != "cuda":
         raise ValueError(f"the matrix NTT kernel needs a CUDA tensor, got {x.device}")
-    if matrix not in MATRICES:
-        raise ValueError(f"no matrix {matrix!r}")
-    m = getattr(tables, matrix)
-    want = (L, D, A, A) if matrix in ROW_MATRICES else (L, D, A, 64, 64)
-    if m.dtype != torch.int8 or tuple(m.shape) != want or not m.is_contiguous():
-        raise ValueError(f"{matrix} must be contiguous int8 {want}, got {m.dtype} {tuple(m.shape)}")
-    if m.device != x.device:
-        raise ValueError(f"tables on {m.device}, data on {x.device}")
-    if not 2 <= A <= MAX_ROWS or A & (A - 1) or n != 64 * A:
+    for name, want in (("Lf", (L, D, A, A)), ("Li", (L, D, A, A)), ("R_f", (L, D, BLOCK, BLOCK)),
+                       ("R_i", (L, D, BLOCK, BLOCK))):
+        m = getattr(tables, name)
+        if m.dtype != torch.int8 or tuple(m.shape) != want:
+            raise ValueError(f"{name} must be int8 {want}, got {m.dtype} {tuple(m.shape)}")
+        if m.device != x.device or tables.operands["constants"].device != x.device:
+            raise ValueError(f"tables on {m.device}, data on {x.device}")
+    if not 2 <= A <= MAX_ROWS or A & (A - 1) or n != BLOCK * A:
         raise ValueError(f"the matrix NTT kernel takes N = 128 .. 8192, got {n}")
     if not 1 <= D <= MAX_DIGITS or max(tables.moduli) >= MAX_MODULUS:
         raise ValueError("the matrix NTT kernel takes moduli below 2^62 (at most 9 digits)")
-    if (L if matrix in ROW_MATRICES else L * A) > MAX_GROUPS:
-        raise ValueError(f"the matrix NTT kernel takes at most {MAX_GROUPS} groups, got L = {L}, A = {A}")
-    return m, L, x.numel() // (L * n)
+    if L * A > MAX_GROUPS:
+        raise ValueError(f"the matrix NTT kernel takes L * A <= {MAX_GROUPS}, got L = {L}, A = {A}")
+    return x.numel() // (L * n)
 
 
-def ntt_mxu_phase(x: torch.Tensor, tables, matrix: str) -> torch.Tensor:
-    """One phase of the matrix NTT: x int64 [..., L, N] in [0, q) times
-    the digit planes of `matrix` (tables: ntt_mxu.MxuNttTables) -> int64
-    [..., L, N] in [0, q), bit-identical to ntt_mxu.phase_plain."""
-    m, L, batch = _check(x, tables, matrix)
+def _launch(x: torch.Tensor, tables, direction: str) -> torch.Tensor:
+    batch = _check(x, tables)
     out = torch.empty_like(x)
     if batch == 0:
         return out
-    row = matrix in ROW_MATRICES
-    moduli = tuple(tables.moduli)
-    err = _library().she_ntt_mxu_phase(
-        m.data_ptr(), x.data_ptr(), out.data_ptr(), constants(moduli, x.device).data_ptr(),
-        tables.D, tables.A, L, int(row), int(exact64(moduli, tables.A if row else 64)), batch,
+    if x.data_ptr() % 16:  # the kernel reads 16 bytes at a time
+        x = x.clone()
+    ops = tables.operands
+    row, block, twist = ops[direction]
+    moduli, D, A = tuple(tables.moduli), tables.D, tables.A
+    err = _library().she_ntt_mxu(
+        row.data_ptr(), block.data_ptr(), twist.data_ptr(), ops["constants"].data_ptr(), x.data_ptr(),
+        out.data_ptr(), D, A, len(moduli), int(direction == "forward"), int(lazy(moduli, D)), batch,
         torch.cuda.current_stream().cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"she_ntt_mxu_phase launch failed with CUDA error {err}")
-    launches["ntt_mxu_phase"] += 1
-    launch_shapes[PhaseKey(matrix, tuple(x.shape), moduli)] += 1
+        raise RuntimeError(f"she_ntt_mxu launch failed with CUDA error {err}")
+    launches["ntt_mxu"] += 1
+    launch_shapes[DirectionKey(direction, tuple(x.shape), moduli)] += 1
     return out
+
+
+def ntt_mxu_forward(x: torch.Tensor, tables) -> torch.Tensor:
+    """The forward matrix NTT in one launch: x int64 [..., L, N] in [0, q)
+    -> Eval form [..., L, N] in [0, q), bit-identical to
+    ntt_mxu.forward_factored_plain (tables: ntt_mxu.MxuNttTables)."""
+    return _launch(x, tables, "forward")
+
+
+def ntt_mxu_inverse(x: torch.Tensor, tables) -> torch.Tensor:
+    """The inverse matrix NTT in one launch: Eval form -> Coeff form,
+    bit-identical to ntt_mxu.inverse_factored_plain."""
+    return _launch(x, tables, "inverse")

@@ -67,26 +67,46 @@ def test_ntt_mxu_cells():
 def test_kernels_line_names_every_kernel():
     """The kernels line (run() checks its names against KERNEL_SOURCES)
     covers all four sources the package builds: the NTT's two kernels,
-    dim0_int8, simple_pir_matmul and ntt_mxu_phase."""
+    dim0_int8, simple_pir_matmul and ntt_mxu."""
     from she_tpu_torch.ops import kernel_build
 
     assert set(chip_smoke.KERNEL_SOURCES) == {"ntt_forward", "ntt_inverse", "dim0_int8", "simple_pir_matmul",
-                                              "ntt_mxu_phase"}
+                                              "ntt_mxu"}
     assert set(chip_smoke.KERNEL_SOURCES.values()) == {
         f"she_tpu_torch/csrc/{source}" for source in kernel_build.SOURCES.values()}
     assert len(kernel_build.SOURCES) == 4
 
 
 def test_mxu_bound():
-    """The phase kernel's bound at the w32 cell's widest launch (bytes) and
-    at the w64 cell's row phase (operations)."""
-    w32 = chip_smoke.mxu_bound((32, 128, 2, 3, 4096), (1, 2, 3), 4, "Lf")
-    assert w32["bytes"] == 2 * 32 * 128 * 2 * 3 * 4096 * 8 + 3 * 4 * 64 * 64
-    assert w32["operations"] == 2 * 16 * 64 * 32 * 128 * 2 * 3 * 4096 and w32["bound_by"] == "bytes"
-    w64_row = chip_smoke.mxu_bound((7, 128, 2, 3, 8192), (1, 2, 3), 8, "Lf")
-    w64_block = chip_smoke.mxu_bound((7, 128, 2, 3, 8192), (1, 2, 3), 8, "Rf")
-    assert w64_row["bound_by"] == "operations" and w64_block["bound_by"] == "bytes"
-    assert w64_row["operations"] == 2 * w64_block["operations"]
+    """The fused kernel's bounds for a direction: bytes bind the w32 cell's
+    widest launch, int8 operations the w64 cell's; the bound is the larger
+    of the two, and no count of the build's instructions enters it."""
+    w32 = chip_smoke.mxu_bound((32, 128, 2, 3, 4096), (1, 2, 3), 4)
+    numel = 32 * 128 * 2 * 3 * 4096
+    assert w32["bytes"] == 2 * numel * 8 + 3 * 4 * (64 * 64 + 64 * 64) + 3 * 64 * 64 * 8
+    assert w32["operations"] == 2 * 16 * (64 + 64) * numel and w32["bound_by"] == "bytes"
+    assert w32["bound_ms"] == w32["bytes_ms"] == 1e3 * w32["bytes"] / chip_smoke.HBM_BYTES_PER_S
+    w64 = chip_smoke.mxu_bound((7, 128, 2, 3, 8192), (1, 2, 3), 8)
+    assert w64["bound_by"] == "operations" and w64["operations"] == 2 * 64 * (128 + 64) * 7 * 128 * 2 * 3 * 8192
+    assert w64["bound_ms"] == w64["operations_ms"] == 1e3 * w64["operations"] / chip_smoke.INT8_OPS_PER_S
+    assert set(w64) == {"bytes", "operations", "bytes_ms", "operations_ms", "bound_ms", "bound_by"}
+
+
+def test_sass_integer_opcodes():
+    """The build's integer SASS is counted by pipe: the multiplies on the
+    FMA pipe, the other CUDA-core integer opcodes on the ALU pipe, and no
+    memory, control, uniform-datapath or tensor instruction; its issue time
+    is the larger of each pipe over 64 lanes an SM a clock and both over
+    the 128 an SM issues."""
+    for op in ("IADD3", "LOP3", "SHF", "PRMT", "LEA", "SEL", "ISETP"):
+        assert op in chip_smoke.ALU_INT_OPCODES and op not in chip_smoke.FMA_INT_OPCODES
+    assert "IMAD" in chip_smoke.FMA_INT_OPCODES and "IMAD" not in chip_smoke.ALU_INT_OPCODES
+    for op in ("LDG", "STG", "LDS", "STS", "BAR", "BRA", "HGMMA", "UIMAD", "UMOV", "FFMA"):
+        assert op not in chip_smoke.ALU_INT_OPCODES | chip_smoke.FMA_INT_OPCODES
+    clock = 1e3 / (132 * 1.98e9)
+    assert chip_smoke.sass_issue_ms({"alu": 100, "fma": 100}, 1) == 200 / 128 * clock
+    assert chip_smoke.sass_issue_ms({"alu": 150, "fma": 50}, 2) == 2 * 150 / 64 * clock
+    assert chip_smoke.sass_issue_ms({"alu": 10, "fma": 90}, 1) == 90 / 64 * clock
 
 
 def test_mesh_cells():
