@@ -94,7 +94,17 @@ then PNNS (BatchedPnnsServer), 16 cosine-similarity queries a batch over a
    shard and process a keyword database, an mmap dictionary of it, a PNNS
    database generated and processed, 16,384 x 4 KiB entries processed for
    SimplePIR, and the warm tool for PIR and PNNS;
-13. print one JSON line with every kernel's numbers, and as the last line
+13. the key switch (ks_shape_timing): every path above switches keys
+   (each Galois rotation, expansion level and relinearization) through
+   the four kernels of csrc/key_switch.cu, ks_digits, ks_mac and
+   ks_finish around the NTT kernels, and expand_combine once an expansion
+   level; every path fails unless each launched once a key switch (or
+   level) the port counted and no plain key-switch pass ran on CUDA
+   tensors; then each is timed at every shape a path launched it with,
+   before any plain version, beside its byte bound (and
+   torch.remainder where that one call computes ks_digits), then held
+   bit-equal to its plain version;
+14. print one JSON line with every kernel's numbers, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without the last line. Run from the repository
@@ -106,7 +116,8 @@ the w64 check, then prints the kernels line and the last line.
 `--only simple_pir` builds the kernels and runs step 9 alone (its NTT
 shapes held and timed too), then prints the kernels line and the last
 line. `--only mesh` does the same for step 10 and `--only ntt_mxu` for
-step 11.
+step 11. `--only key_switch` serves the w32 and keyword cells and runs
+step 13 on their shapes.
 """
 
 from __future__ import annotations
@@ -200,6 +211,13 @@ MESH_LIMB_MODULI = 4  # (e): limb-parallel NTTs of 4 moduli, which 2 and 4 ranks
 MESH_REPS = 3  # calls of each part on each rank, the first a warm-up
 NTT_KERNELS = ("ntt_forward", "ntt_inverse")
 NTT_AND_DIM0 = NTT_KERNELS + ("dim0_int8",)
+# the key switch's kernels (csrc/key_switch.cu): a key switch launches the
+# first three once each, an expansion level expand_combine once
+KS_KERNELS = ("ks_digits", "ks_mac", "ks_finish", "expand_combine")
+KS_SWITCH = KS_KERNELS[:3]
+# the she_tpu functions each replaces (none is a Pallas kernel: XLA fuses them)
+KS_REPLACES = {"ks_digits": "she_tpu/ops/galois.py:61", "ks_mac": "she_tpu/bfv/keys.py:319",
+               "ks_finish": "she_tpu/core/poly.py:207", "expand_combine": "she_tpu/pir/serving.py:160"}
 
 # the matrix NTT (ntt_mxu): she_tpu's opt-in SHE_TPU_NTT_MXU=1 on the
 # MulPIR cells, label -> (path of PATHS, batches: None for --batches)
@@ -213,6 +231,10 @@ KERNEL_SOURCES = {
     "dim0_int8": "she_tpu_torch/csrc/dim0_int8.cu",
     "simple_pir_matmul": "she_tpu_torch/csrc/simple_pir_matmul.cu",
     "ntt_mxu": "she_tpu_torch/csrc/ntt_mxu.cu",
+    "ks_digits": "she_tpu_torch/csrc/key_switch.cu",
+    "ks_mac": "she_tpu_torch/csrc/key_switch.cu",
+    "ks_finish": "she_tpu_torch/csrc/key_switch.cu",
+    "expand_combine": "she_tpu_torch/csrc/key_switch.cu",
 }
 MESH_PATHS = ("mesh_batch_w32", "mesh_two_axis_w32", "mesh_pnns_w32", "mesh_dim0_psum", "mesh_sharded")
 
@@ -262,7 +284,8 @@ def ptxas_lines(name: str) -> list[str]:
     and of the SimplePIR kernel's instances that serve the cell (two D
     planes against four query planes, 32 and 8 request rows), with the
     dynamic shared memory and stages of their rings; and of the matrix
-    NTT's fused kernel at 4, 8 and 9 digits, both directions."""
+    NTT's fused kernel at 4, 8 and 9 digits, both directions; and of
+    every key-switch kernel instance (each one is served)."""
     import re
 
     from she_tpu_torch.ops import kernel_build
@@ -291,6 +314,11 @@ def ptxas_lines(name: str) -> list[str]:
             m = re.search(r"ntt_mxu_kernelILi(\d)ELb([01])E", line)
             label = (f"ntt_mxu_kernel<D={m.group(1)}, {'forward' if m.group(2) == '1' else 'inverse'}>"
                      if m and m.group(1) in "489" else None)
+        elif "Compiling entry function" in line and re.search(r"ks_\w+_kernel|expand_combine_kernel", line):
+            m = re.search(r"(ks_\w+?_kernel|expand_combine_kernel)(?:ILNS_\d+FinishE(\d)E|ILb([01])E)?", line)
+            variant = (("update", "galois", "relinearize")[int(m.group(2))] if m.group(2)
+                       else {"0": "no gather", "1": "gather"}.get(m.group(3)))
+            label = m.group(1) + (f"<{variant}>" if variant else "")
         elif label and ("Used" in line or "spill" in line):
             out.append(f"{label}: {line.strip()}")
     return out
@@ -304,28 +332,57 @@ def prod(shape) -> int:
 
 
 def reset_counts() -> None:
-    """Every kernel's launch count and launch shapes, and the plain NTTs'
-    counts on CUDA tensors, set to 0: just before a path is driven."""
-    from she_tpu_torch.ops import dim0_cuda, ntt, ntt_cuda, ntt_mxu, ntt_mxu_cuda, simple_pir_cuda
+    """Every kernel's launch count and launch shapes, the plain NTTs' and
+    key-switch passes' counts on CUDA tensors, and the port's count of key
+    switches and expansion levels set to 0: just before a path is driven."""
+    from she_tpu_torch.bfv import keys
+    from she_tpu_torch.ops import dim0_cuda, key_switch, key_switch_cuda, ntt, ntt_cuda, ntt_mxu, ntt_mxu_cuda
+    from she_tpu_torch.ops import simple_pir_cuda
+    from she_tpu_torch.pir import serving
 
-    for wrapper in (ntt_cuda, dim0_cuda, simple_pir_cuda, ntt_mxu_cuda):
+    for wrapper in (ntt_cuda, dim0_cuda, simple_pir_cuda, ntt_mxu_cuda, key_switch_cuda):
         wrapper.reset_launches()
-    for counts in (ntt.plain_calls_on_cuda, ntt_mxu.plain_calls_on_cuda):
+    for counts in (ntt.plain_calls_on_cuda, ntt_mxu.plain_calls_on_cuda, key_switch.plain_calls_on_cuda):
         for k in counts:
             counts[k] = 0
+    keys.reset_switches()
+    serving.reset_levels_run()
 
 
-def read_counts(label: str, use_dim0_int8: bool, simple_pir: bool = False, mxu: bool = False) -> dict:
+def key_switch_counts(label: str, launches: dict, switches: bool, expands: bool) -> None:
+    """Fails unless each of ks_digits, ks_mac and ks_finish launched once a
+    key switch the port ran (bfv/keys.switches) and expand_combine once an
+    expansion level (pir/serving.levels_run); if a path that switches keys
+    (`switches`) ran no key switch, or one that expands queries in batches
+    (`expands`) no level; or if a plain key-switch pass ran on CUDA
+    tensors."""
+    from she_tpu_torch.bfv import keys
+    from she_tpu_torch.ops import key_switch
+    from she_tpu_torch.pir import serving
+
+    ran = keys.switches | serving.levels_run
+    if any(launches[k] != ran["key_switch"] for k in KS_SWITCH) or launches["expand_combine"] != ran["expansion_level"]:
+        raise AssertionError(f"[{label}] key-switch launches {[launches[k] for k in KS_KERNELS]} against "
+                             f"{ran['key_switch']} key switches and {ran['expansion_level']} expansion levels")
+    if (switches and not ran["key_switch"]) or (expands and not ran["expansion_level"]):
+        raise AssertionError(f"[{label}] the path ran {ran} key switches and expansion levels")
+    if any(key_switch.plain_calls_on_cuda.values()):
+        raise AssertionError(f"[{label}] a plain key-switch pass ran on CUDA tensors: {key_switch.plain_calls_on_cuda}")
+
+
+def read_counts(label: str, use_dim0_int8: bool, simple_pir: bool = False, mxu: bool = False,
+                switches: bool = True, expands: bool = True) -> dict:
     """The counts of the path just driven. Fails if a kernel of the path
     never launched, if the int8 dim-0 kernel launched on a path that serves
     the MAC form, if the SimplePIR kernel launched on another protocol's
     path, if the NTT took the other route than the path's (`mxu`: the
-    matrix NTT's fused kernel, else the butterfly kernels), or if a plain
-    NTT ran on CUDA tensors."""
-    from she_tpu_torch.ops import dim0_cuda, ntt, ntt_cuda, ntt_mxu, ntt_mxu_cuda, simple_pir_cuda
+    matrix NTT's fused kernel, else the butterfly kernels), if a plain
+    NTT ran on CUDA tensors, or as key_switch_counts says (`switches`,
+    `expands`: the path switches keys, and expands queries in batches)."""
+    from she_tpu_torch.ops import dim0_cuda, key_switch_cuda, ntt, ntt_cuda, ntt_mxu, ntt_mxu_cuda, simple_pir_cuda
 
     launches = (dict(ntt_cuda.launches) | dict(dim0_cuda.launches) | dict(simple_pir_cuda.launches)
-                | dict(ntt_mxu_cuda.launches))
+                | dict(ntt_mxu_cuda.launches) | dict(key_switch_cuda.launches))
     plain_on_cuda = {f"{k}_{d}": v for k, counts in (("ntt", ntt.plain_calls_on_cuda),
                                                     ("ntt_mxu", ntt_mxu.plain_calls_on_cuda))
                      for d, v in counts.items()}
@@ -342,9 +399,10 @@ def read_counts(label: str, use_dim0_int8: bool, simple_pir: bool = False, mxu: 
         raise AssertionError(f"[{label}] the SimplePIR kernel ran on another path: {launches}")
     if any(plain_on_cuda.values()):
         raise AssertionError(f"[{label}] a plain NTT ran on CUDA tensors: {plain_on_cuda}")
+    key_switch_counts(label, launches, switches, expands)
     return dict(launches=launches, launch_shapes=dict(ntt_cuda.launch_shapes),
                 dim0_shapes=dict(dim0_cuda.launch_shapes), simple_pir_shapes=dict(simple_pir_cuda.launch_shapes),
-                mxu_shapes=dict(ntt_mxu_cuda.launch_shapes))
+                mxu_shapes=dict(ntt_mxu_cuda.launch_shapes), ks_shapes=dict(key_switch_cuda.launch_shapes))
 
 
 def kernel_bound_ms(shape, moduli, degree) -> float:
@@ -500,13 +558,13 @@ def shape_timing(path: str, launch_shapes, batches: int) -> dict:
     return out
 
 
-def random_residues(moduli, shape, degree, seed):
+def random_residues(moduli, shape, degree, seed, device="cuda"):
     """int64 [*shape, L, N] uniform residues, drawn on the card."""
     import torch
 
-    g = torch.Generator(device="cuda")
+    g = torch.Generator(device=device)
     g.manual_seed(seed)
-    rows = [torch.randint(0, q, tuple(shape) + (degree,), generator=g, device="cuda") for q in moduli]
+    rows = [torch.randint(0, q, tuple(shape) + (degree,), generator=g, device=device) for q in moduli]
     return torch.stack(rows, dim=-2)
 
 
@@ -662,7 +720,7 @@ def profile_batch(path: str, server, queries, ek) -> dict:
     if busy_us <= 0:
         raise AssertionError("the profiler saw no device work in the profiled batch")
     kernel_ms = {k: sum(us for name, us in by_name.items() if f"{k}_kernel" in name) / 1e3
-                 for k in ("ntt_forward", "ntt_inverse", "dim0_int8")}
+                 for k in NTT_AND_DIM0 + KS_KERNELS}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     log(f"[{path}] profiled batch: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
         f"idle share {1 - busy_us / wall_us:.3f}, {launches} device kernels and copies")
@@ -820,7 +878,8 @@ def main_path(path: str, seed: int, batches: int) -> dict:
         steady_batches=len(steady), queries_per_s=BATCH / statistics.median(steady),
         peak_bytes=peak, launches=launches,
         launches_per_batch={k: v / batches for k, v in launches.items()},
-        launch_shapes=counts["launch_shapes"], dim0_shapes=counts["dim0_shapes"], batches=batches,
+        launch_shapes=counts["launch_shapes"],
+        ks_shapes=counts["ks_shapes"], dim0_shapes=counts["dim0_shapes"], batches=batches,
     )
 
 
@@ -1103,6 +1162,7 @@ def keyword_path(seed: int, batches: int) -> tuple[dict, tuple]:
         wire_out_s=wire_out_s, wire_s_per_batch=statistics.median(wire_s), stream_s=stream_s, segments=segments,
         stages_ms=stages, profile=profiled, min_noise_budget=min_budget, peak_bytes=peak, launches=launches,
         launches_per_batch={k: v / batches for k, v in launches.items()}, launch_shapes=counts["launch_shapes"],
+        ks_shapes=counts["ks_shapes"],
         dim0_shapes=counts["dim0_shapes"], dim0_form="int8" if use_int8 else "mac", batches=batches,
         absent_queries=n_absent,
     ), (ctx, processed, rows, absent)
@@ -1167,7 +1227,8 @@ def large_value_path(seed: int) -> dict:
         f"answer equals the per-query server's; kernel launches {launches}")
     return dict(path=label, keywords=count, value_size=value_size, queries=n_queries, chunks=chunks,
                 dimensions=list(parameter.dimensions), process_s=process_s, batch_s=batch_s,
-                launches=launches, launch_shapes=counts["launch_shapes"], dim0_shapes=counts["dim0_shapes"],
+                launches=launches, launch_shapes=counts["launch_shapes"],
+                ks_shapes=counts["ks_shapes"], dim0_shapes=counts["dim0_shapes"],
                 batches=1)
 
 
@@ -1270,7 +1331,7 @@ def service_phase(ctx, processed, rows: dict, absent: list, seed: int) -> dict:
         got = client.decrypt(_read_response(ctx, answer), kw, sk)
         if got != rows.get(kw):
             raise AssertionError(f"[{label}] keyword {kw.hex()} came back as {got!r}, expected {rows.get(kw)!r}")
-    counts = read_counts(label, False)
+    counts = read_counts(label, False, expands=False)  # the per-query server: no batched expansion
     log(f"[{label}] PirService over the {len(rows)}-keyword database: config {len(config_bytes)} bytes, "
         f"evaluation keys {key_bytes} bytes; {len(keywords)} PIR requests as bytes ({len(keywords) - 1} present "
         f"keywords gave their values, 1 absent gave None; {answer_bytes} bytes an answer); seconds a request "
@@ -1278,7 +1339,7 @@ def service_phase(ctx, processed, rows: dict, absent: list, seed: int) -> dict:
         f"kernel launches {counts['launches']}")
     return dict(path=label, requests=len(keywords), request_s=request_s, median_request_s=statistics.median(request_s),
                 config_bytes=len(config_bytes), evaluation_key_bytes=key_bytes, answer_bytes=answer_bytes,
-                launches=counts["launches"], launch_shapes=counts["launch_shapes"],
+                launches=counts["launches"], launch_shapes=counts["launch_shapes"], ks_shapes=counts["ks_shapes"],
                 dim0_shapes=counts["dim0_shapes"], batches=1)
 
 
@@ -1357,7 +1418,7 @@ def spir_phase(seed: int) -> dict:
         got = None if sealed is None else oprf_client.decrypt(sealed, parsed)
         if got != rows.get(kw):
             raise AssertionError(f"[{label}] keyword {kw.hex()} came back as {got!r}, expected {rows.get(kw)!r}")
-    counts = read_counts(label, False)
+    counts = read_counts(label, False, expands=False)  # the per-query server: no batched expansion
     log(f"[{label}] {count} keywords sealed (OPRF P-384 + AES-192-GCM) and processed in {process_s:.3f} s "
         f"({1e3 * process_s / count:.1f} ms a row); {len(keywords)} lookups ({n_absent} absent): every present "
         f"value unsealed to its value, every absent keyword gave None; OPRF round trip median "
@@ -1365,7 +1426,8 @@ def spir_phase(seed: int) -> dict:
         f"kernel launches {counts['launches']}")
     return dict(path=label, keywords=count, lookups=len(keywords), absent=n_absent, process_s=process_s,
                 oprf_s=oprf_s, pir_request_s=pir_s, launches=counts["launches"],
-                launch_shapes=counts["launch_shapes"], dim0_shapes=counts["dim0_shapes"], batches=1)
+                launch_shapes=counts["launch_shapes"],
+                ks_shapes=counts["ks_shapes"], dim0_shapes=counts["dim0_shapes"], batches=1)
 
 
 PNNS_STAGES = {"stack": "stacking", "baby_steps": "baby_step_rotations", "to_eval": "to_eval",
@@ -1451,7 +1513,7 @@ def pnns_path(label: str, seed: int, batches: int) -> dict:
         torch.cuda.synchronize()
         batch_s.append(time.perf_counter() - t0)
         all_responses.append(responses)
-    counts = read_counts(label, False)
+    counts = read_counts(label, False, expands=False)  # rotations: key switches, no expansion
     launches = counts["launches"]
     peak = torch.cuda.max_memory_allocated()
     steady = batch_s[1:]
@@ -1513,6 +1575,7 @@ def pnns_path(label: str, seed: int, batches: int) -> dict:
         steady_batches=len(steady), queries_per_s=PNNS_BATCH / statistics.median(steady), stream_s=stream_s,
         stages_ms=stages, profile=profiled, min_noise_budget=min_budget, peak_bytes=peak, launches=launches,
         launches_per_batch={k: v / served for k, v in launches.items()}, launch_shapes=counts["launch_shapes"],
+        ks_shapes=counts["ks_shapes"],
         dim0_shapes=counts["dim0_shapes"], batches=served, setup_launch_shapes=setup_shapes,
     )
 
@@ -1688,7 +1751,7 @@ def simple_pir_path(seed: int, batches: int) -> dict:
     single = server.compute_response(queries[0].queries)
     torch.cuda.synchronize()
     single_s = time.perf_counter() - t0
-    counts = read_counts(label, False, simple_pir=True)
+    counts = read_counts(label, False, simple_pir=True, switches=False, expands=False)
     peak = torch.cuda.max_memory_allocated()
     served_shapes = {(tuple(server.planes.data.shape), server.planes.rows, tuple(q.shape), b_bits): c
                      for q, c in ((requests, batches), (queries[0].queries, 1))}
@@ -1734,7 +1797,8 @@ def simple_pir_path(seed: int, batches: int) -> dict:
         query_s=query_s, median_query_s=statistics.median(query_s), batch_s=batch_s, median_s_per_batch=median,
         max_s_per_batch=max(batch_s), queries_per_s=SIMPLE_PIR_BATCH / median, single_s=single_s, peak_bytes=peak,
         span=span,
-        launches=counts["launches"], launch_shapes=counts["launch_shapes"], dim0_shapes=counts["dim0_shapes"],
+        launches=counts["launches"], launch_shapes=counts["launch_shapes"],
+        ks_shapes=counts["ks_shapes"], dim0_shapes=counts["dim0_shapes"],
         simple_pir_rows=rows, served_batches=batches,
         batches=1,  # the NTT runs in the set-up and the clients, not per batch: shape_timing counts a run
     )
@@ -1774,6 +1838,195 @@ def ntt_kernel_entries(shapes: dict, paths: dict, checked: dict | None) -> list:
             **({"route64": checked["route64"][name]} if checked else {}),
         ))
     return out
+
+
+def ks_bytes(key) -> int:
+    """The bytes one key-switch launch must move (`key` a
+    key_switch_cuda.KsKey): each int64 input read once, each output
+    written once; the constants are a few words."""
+    name, shape, moduli, variant = key
+    words, l_ks, n = 8, len(moduli), shape[-1]
+    if name == "ks_digits":  # c1 [..., L_t, N] in, [..., L_t, L_ks, N] out
+        return words * prod(shape) * (1 + l_ks)
+    if name == "ks_mac":  # fwd [..., L_t, L_ks, N] and the key [L_t, 2, L_ks, N] in, [..., 2, L_ks, N] out
+        batch, l_t = prod(shape[:-3]), shape[-3]
+        return words * n * l_ks * (batch * l_t + l_t * 2 + batch * 2)
+    if name == "ks_finish":  # inv [..., 2, L_ks, N], c0 and c1 where given in, [..., 2, L_t, N] out
+        batch, l_t = prod(shape[:-3]), l_ks - 1
+        _, c0, c1, _ = variant
+        return words * n * batch * (2 * l_ks + (int(c0) + int(c1)) * l_t + 2 * l_t)
+    return words * 4 * prod(shape)  # expand_combine: the update and the parents in, both children out
+
+
+def ks_case(key, seed: int, device="cuda") -> dict:
+    """The inputs of one key-switch launch shape on the card, made from
+    `seed`: the kernel, its plain version and, where one PyTorch call
+    computes the kernel's whole function, that call, each as a function
+    of no arguments returning what the kernel writes. Indexed operands
+    read a random pool of `slots` through distinct random indices, c0 and
+    c1 are views of one stacked tensor, as on the main path.
+    expand_combine's kernel writes into a copy of the pool made here and
+    its plain version into a copy made at each call, so both start from
+    the same untouched pool and every slot is compared."""
+    import torch
+
+    from she_tpu_torch.core.context import get_poly_context
+    from she_tpu_torch.ops import key_switch as ks
+    from she_tpu_torch.ops import key_switch_cuda as kc
+
+    name, shape, moduli, variant = key
+    dev, n = torch.device(device), shape[-1]
+    ctx = get_poly_context(n, moduli, 64, dev)
+    target = moduli[:-1]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    library = None
+
+    def residues(mods, batch, salt):
+        return random_residues(mods, batch, n, seed + salt, dev)
+
+    def stacked(batch, slots, polys):
+        """A [slots or batch[0], *batch[1:], polys, L_t, N] tensor and the index of its axis 0."""
+        if slots is None:
+            return residues(target, tuple(batch) + (polys,), 1), None
+        index = torch.randperm(slots, generator=g, device=dev)[: batch[0]]
+        return residues(target, (slots,) + tuple(batch[1:]) + (polys,), 1), index
+
+    if name == "ks_digits":
+        element, slots = variant
+        base, index = stacked(shape[:-2], slots, 2)
+        c1 = base[..., 1, :, :]
+        kernel = lambda: kc.ks_digits(c1, moduli, element, index)  # noqa: E731
+        plain = lambda: ks.ks_digits_plain(c1, ctx, element, index)  # noqa: E731
+        if element is None and index is None:
+            library = lambda: torch.remainder(c1.unsqueeze(-2), ctx.q_col)  # noqa: E731
+    elif name == "ks_mac":
+        fwd = residues(moduli, shape[:-2], 2)
+        key_rows = residues(moduli, (shape[-3], 2), 3)
+        kernel = lambda: kc.ks_mac(fwd, key_rows, moduli)  # noqa: E731
+        plain = lambda: ks.ks_mac_plain(fwd, key_rows, ctx)  # noqa: E731
+    elif name == "ks_finish":
+        element, has_c0, has_c1, slots = variant
+        inv = residues(moduli, shape[:-2], 2)
+        base, index = stacked(shape[:-3], slots, 2)
+        c0 = base[..., 0, :, :] if has_c0 else None
+        c1 = base[..., 1, :, :] if has_c1 else None
+        kernel = lambda: kc.ks_finish(inv, moduli, c0, c1, element, index)  # noqa: E731
+        plain = lambda: ks.ks_finish_plain(inv, ctx, c0, c1, element, index)  # noqa: E731
+    else:
+        shift, slots = variant
+        pool = residues(moduli, (slots,) + tuple(shape[1:-2]), 1)
+        update = residues(moduli, shape[:-2], 2)
+        slot_order = torch.randperm(slots, generator=g, device=dev)
+        parents, child0, child1 = (slot_order[i * shape[0]: (i + 1) * shape[0]] for i in range(3))
+
+        work = pool.clone()  # written in place at each call: the same values, since no child is a parent
+
+        def kernel():
+            kc.expand_combine(work, update, parents, child0, child1, shift, moduli)
+            return work
+
+        def plain():
+            out = pool.clone()
+            ks.expand_combine_plain(out, update, parents, child0, child1, shift, ctx)
+            return out
+
+    return dict(kernel=kernel, plain=plain, library=library)
+
+
+def ks_shape_timing(paths: dict) -> list:
+    """Each key-switch kernel at every launch shape of the paths' runs
+    (launch_shapes of ops/key_switch_cuda.py, keyed by KsKey), in two
+    passes so that every kernel is timed before any plain version runs:
+    first the kernel (mean of 20 launches after a warm-up, CUDA events)
+    and, where one PyTorch call computes the whole function, that call;
+    then, on the same inputs made again from the same seed, the plain
+    version (3 calls; 1 where a modulus takes the wide route), and the
+    kernel held bit-equal to it. Rows: ms, plain_ms, library_ms, bytes,
+    byte bound and its share, launches a batch by path."""
+    import torch
+
+    from she_tpu_torch.ops import modarith
+
+    keys = {}
+    for path, result in paths.items():
+        for key, count in result.get("ks_shapes", {}).items():
+            keys.setdefault(key, {})[path] = count / result["batches"]
+    ordered = sorted(keys, key=lambda k: (KS_KERNELS.index(k.name), -ks_bytes(k), str(k)))
+    rows = []
+    for i, key in enumerate(ordered):
+        case = ks_case(key, 100 + 7 * i)
+        ms = cuda_ms(case["kernel"], 20)
+        library_ms = None if case["library"] is None else cuda_ms(case["library"], 20)
+        bound = 1e3 * ks_bytes(key) / HBM_BYTES_PER_S
+        rows.append(dict(name=key.name, shape=list(key.shape), moduli=list(key.moduli), variant=list(key.variant),
+                         ms=ms, library_ms=library_ms, bytes=ks_bytes(key), bound_ms=bound, share_of_bound=bound / ms,
+                         launches_per_batch=keys[key]))
+        del case
+        torch.cuda.empty_cache()
+    for i, (key, row) in enumerate(zip(ordered, rows)):
+        case = ks_case(key, 100 + 7 * i)
+        got = case["kernel"]().clone()
+        want = case["plain"]()
+        err = int((got - want).abs().max()) if got.numel() else 0
+        if not torch.equal(got, want):
+            raise AssertionError(f"{key.name} at {key.shape}, moduli {key.moduli}, {key.variant}: max |kernel - plain| "
+                                 f"= {err}")
+        plain_iters = 1 if modarith.is_wide(max(key.moduli)) else 3
+        row.update(max_abs_err=err, plain_ms=cuda_ms(case["plain"], plain_iters), plain_iters=plain_iters)
+        log(f"{key.name} {tuple(key.shape)} moduli {key.moduli} {tuple(key.variant)} "
+            f"(a batch: {row['launches_per_batch']}): bit-equal to plain; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms (x{plain_iters}), "
+            + ("" if row["library_ms"] is None else f"torch.remainder {row['library_ms']:.4f} ms, ")
+            + f"byte bound {row['bound_ms']:.4f} ms ({100 * row['share_of_bound']:.1f}% of bound)")
+        del case, got, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+KS_LIBRARY = {
+    "ks_digits": "torch.remainder(c1.unsqueeze(-2), q) where no Galois element is given; none computes the signed "
+                 "gather and the reduction in one call",
+    "ks_mac": "none: no PyTorch call computes a modular sum of 128-bit products",
+    "ks_finish": "none: no PyTorch call computes the divide-and-round by q_ks",
+    "expand_combine": "none: no PyTorch call computes a modular add and a negacyclic shift into indexed slots",
+}
+
+
+def ks_kernel_entries(rows: list, paths: dict) -> list:
+    """The key-switch kernels' entries of the kernels line, at each
+    kernel's widest shape (by bytes); library_ms where a PyTorch call
+    computes the function at that shape, else the widest shape that has
+    one (ks_digits of a relinearization), else null."""
+    out = []
+    for name in KS_KERNELS:
+        mine = [r for r in rows if r["name"] == name]
+        if not mine:
+            raise AssertionError(f"no served path launched {name}")
+        widest = max(mine, key=lambda r: r["bytes"])
+        with_library = [r for r in mine if r["library_ms"] is not None]
+        library_row = widest if widest["library_ms"] is not None else (
+            max(with_library, key=lambda r: r["bytes"]) if with_library else None)
+        launches_by_path = {p: v["launches"].get(name, 0) for p, v in paths.items() if "launches" in v}
+        out.append(dict(
+            name=name, route="cuda", source=KERNEL_SOURCES[name], replaces=KS_REPLACES[name],
+            launches=sum(launches_by_path.values()), max_abs_err=max(r["max_abs_err"] for r in mine),
+            ms=widest["ms"], plain_ms=widest["plain_ms"], bound_ms=widest["bound_ms"], bound_by="bytes",
+            library_ms=None if library_row is None else library_row["library_ms"], library=KS_LIBRARY[name],
+            library_shape=None if library_row is None else library_row["shape"], widest_shape=widest["shape"],
+            widest_moduli=widest["moduli"], widest_variant=widest["variant"], launches_by_path=launches_by_path,
+            shapes=mine,
+        ))
+    return out
+
+
+def ks_summary(entries: list, paths: dict, card: str) -> str:
+    stage = {p: {k: round(v["stages_ms"][k], 3) for k in ("expansion", "behz_relinearize") if k in v["stages_ms"]}
+             for p, v in paths.items() if "stages_ms" in v}
+    return ("key switch: " + "; ".join(
+        f"{e['name']} {e['ms']:.4f} ms at {tuple(e['widest_shape'])} against a byte bound of {e['bound_ms']:.4f} ms "
+        f"({100 * e['bound_ms'] / e['ms']:.1f}%), plain {e['plain_ms']:.4f} ms, "
+        + ("" if e["library_ms"] is None else f"library {e['library_ms']:.4f} ms, ")
+        + f"{e['launches']} launches" for e in entries) + f"; expansion and BEHZ device ms by path {stage}; on {card}")
 
 
 def serve_both_routes(label: str, path: str, seed: int, batches: int) -> dict:
@@ -2312,13 +2565,17 @@ def _rank_part(label: str, mesh, run, reps: int, kernels: tuple) -> dict:
     the first's. The kernel counts, gloo's staging and the peak device
     memory are read around the calls: each of `kernels` must have
     launched, the int8 dim-0 kernel only where it is one of them, the
-    SimplePIR kernel and the plain NTT on CUDA tensors never."""
+    SimplePIR kernel and the plain NTT on CUDA tensors never, and the
+    key-switch kernels as key_switch_counts says (the part switches keys
+    where ks_digits is one of `kernels`, and expands queries in batches
+    where expand_combine is)."""
     import torch
 
-    from she_tpu_torch.ops import dim0_cuda, ntt, ntt_cuda, simple_pir_cuda
+    from she_tpu_torch.ops import dim0_cuda, key_switch_cuda, ntt, ntt_cuda, simple_pir_cuda
     from she_tpu_torch.parallel import collectives
 
     outs, seconds = [], []
+    rank = torch.distributed.get_rank()
     reset_counts()
     collectives.reset_staged()
     torch.cuda.synchronize()
@@ -2329,8 +2586,9 @@ def _rank_part(label: str, mesh, run, reps: int, kernels: tuple) -> dict:
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         outs.append(out)
-    rank = torch.distributed.get_rank()
-    launches = dict(ntt_cuda.launches) | dict(dim0_cuda.launches) | dict(simple_pir_cuda.launches)
+    launches = (dict(ntt_cuda.launches) | dict(dim0_cuda.launches) | dict(simple_pir_cuda.launches)
+                | dict(key_switch_cuda.launches))
+    key_switch_counts(f"{label} rank {rank}", launches, "ks_digits" in kernels, "expand_combine" in kernels)
     if (any(launches[k] == 0 for k in kernels) or (launches["dim0_int8"] and "dim0_int8" not in kernels)
             or launches["simple_pir_matmul"] or any(ntt.plain_calls_on_cuda.values())):
         raise AssertionError(f"[{label}] rank {rank}: launches {launches} (the part's kernels: {kernels}), plain "
@@ -2341,7 +2599,8 @@ def _rank_part(label: str, mesh, run, reps: int, kernels: tuple) -> dict:
     return dict(rank=rank, s=seconds, staged_bytes=collectives.staged["bytes"],
                 staged_s=collectives.staged["seconds"], peak_bytes=torch.cuda.max_memory_allocated(),
                 launches=launches, launch_shapes=dict(ntt_cuda.launch_shapes),
-                dim0_shapes=dict(dim0_cuda.launch_shapes), reps=reps, out=[t.cpu().numpy() for t in outs[0]])
+                dim0_shapes=dict(dim0_cuda.launch_shapes), ks_shapes=dict(key_switch_cuda.launch_shapes), reps=reps,
+                out=[t.cpu().numpy() for t in outs[0]])
 
 
 def _rank_pir_server(spec: dict, device):
@@ -2380,7 +2639,7 @@ def mesh_world2(mesh, specs: dict) -> dict:
         responses = meshmod.batch_parallel_response(server, queries, ek, mesh)
         return [torch.stack([r.ciphertexts[0][0].stacked() for r in responses])]
 
-    out = {"a": _rank_part("mesh (a)", mesh, serve_a, MESH_REPS, NTT_AND_DIM0)}
+    out = {"a": _rank_part("mesh (a)", mesh, serve_a, MESH_REPS, NTT_AND_DIM0 + KS_KERNELS)}
     del server, queries
     torch.cuda.empty_cache()
     spec = specs["d"]
@@ -2397,7 +2656,7 @@ def mesh_world2(mesh, specs: dict) -> dict:
         return [torch.stack([torch.stack([c.stacked() for c in r.ciphertext_matrices[0].ciphertexts])
                              for r in responses])]
 
-    out["d"] = _rank_part("mesh (d)", mesh, serve_d, MESH_REPS, NTT_KERNELS)
+    out["d"] = _rank_part("mesh (d)", mesh, serve_d, MESH_REPS, NTT_KERNELS + KS_SWITCH)
     return out
 
 
@@ -2425,7 +2684,7 @@ def mesh_world4(mesh, specs: dict) -> dict:
     wide4 = meshmod.make_mesh((4,), ("db",), mesh.backend, dev)
     ctx, server, ek, queries = _rank_pir_server(specs["b"], dev)
     out = {"b": _rank_part("mesh (b)", mesh, lambda: [meshmod.two_axis_response(server, queries, ek, mesh)[0][0]],
-                           MESH_REPS, NTT_AND_DIM0)}
+                           MESH_REPS, NTT_AND_DIM0 + KS_KERNELS)}
 
     # (c): (b)'s chunk and the expansion of its first half-batch
     ct_ctx = server.ct_ctx
@@ -2509,17 +2768,18 @@ def _merge_parts(label: str, parts: list) -> dict:
     peak memory."""
     from collections import Counter
 
-    launches, shapes, dim0 = Counter(), Counter(), Counter()
+    launches, shapes, dim0, ks = Counter(), Counter(), Counter(), Counter()
     for p in parts:
         launches.update(p["launches"])
         shapes.update(p["launch_shapes"])
         dim0.update(p["dim0_shapes"])
+        ks.update(p["ks_shapes"])
     reps = parts[0]["reps"]
     per_rank = [dict(rank=p["rank"], s_per_call=p["s"], median_s=statistics.median(p["s"][1:] or p["s"]),
                      staged_bytes=p["staged_bytes"], staged_s=p["staged_s"], peak_bytes=p["peak_bytes"])
                 for p in parts]
     return dict(path=label, launches=dict(launches), launches_per_batch={k: v / reps for k, v in launches.items()},
-                launch_shapes=dict(shapes), dim0_shapes=dict(dim0), batches=reps, ranks=per_rank)
+                launch_shapes=dict(shapes), dim0_shapes=dict(dim0), ks_shapes=dict(ks), batches=reps, ranks=per_rank)
 
 
 def _log_part(entry: dict, card: str, what: str) -> None:
@@ -2657,6 +2917,8 @@ def run(args) -> int:
         return mesh_only(args, card)
     if args.only == "ntt_mxu":
         return ntt_mxu_only(args, card)
+    if args.only == "key_switch":
+        return key_switch_only(args, card)
 
     checked = kernel_phase(args.seed)
     paths = {}
@@ -2664,6 +2926,7 @@ def run(args) -> int:
         paths.update(drive())
         torch.cuda.empty_cache()
     cli = cli_phase(args.seed)
+    ks_rows = ks_shape_timing(paths)  # before the NTT's and dim-0's plain versions
     shapes, dim0_rows = timed_launch_shapes(paths)
     for name, rows in shape_timing("cli:simple_pir_process_database", cli.pop("simple_pir_launch_shapes"), 1).items():
         if not rows:
@@ -2685,6 +2948,8 @@ def run(args) -> int:
     mxu_entry = ntt_mxu_kernel_entry(paths[next(iter(NTT_MXU_PATHS))].pop("ntt_mxu_rows"),
                                      {p: paths[p]["launches"]["ntt_mxu"] for p in NTT_MXU_PATHS})
     kernels.append(mxu_entry)
+    ks_entries = ks_kernel_entries(ks_rows, paths)
+    kernels += ks_entries
     if sorted(k["name"] for k in kernels) != sorted(KERNEL_SOURCES):
         raise AssertionError(f"the kernels line names {[k['name'] for k in kernels]}, not {list(KERNEL_SOURCES)}")
     widest = max(dim0_rows, key=lambda r: r["bytes"])
@@ -2725,6 +2990,7 @@ def run(args) -> int:
                            card))
     log(ntt_mxu_summary(paths, mxu_entry, card))
     log(mesh_summary(paths, card))
+    log(ks_summary(ks_entries, paths, card))
     log(f"cli: every tool exited 0 on the card, {sum(cli['seconds'].values()):.3f} s in all, on {card}")
     log(f"dim0_int8 at the widest served shape ({widest['path']}, digits {widest['digits_shape']}, query "
         f"{widest['query_shape']}): {widest['ms']:.4f} ms against a bound of {widest['bound_ms']:.4f} ms "
@@ -2755,9 +3021,9 @@ def timed_launch_shapes(paths: dict) -> tuple[dict, list]:
 
 def launch_rows(path: dict) -> None:
     """A path's launch counters, keyed by ntt_cuda.LaunchKey (and
-    ntt_mxu_cuda.DirectionKey) and by the int8 dim-0 kernel's (digits shape,
-    query shape, moduli), as JSON rows, in place."""
-    for key in ("launch_shapes", "setup_launch_shapes", "mxu_shapes"):
+    ntt_mxu_cuda.DirectionKey, key_switch_cuda.KsKey) and by the int8 dim-0
+    kernel's (digits shape, query shape, moduli), as JSON rows, in place."""
+    for key in ("launch_shapes", "setup_launch_shapes", "mxu_shapes", "ks_shapes"):
         if key in path:
             path[key] = [dict(k._asdict(), launches=v) for k, v in path[key].items()]
     path["dim0_shapes"] = [dict(digits_shape=k[0], query_shape=k[1], moduli=k[2], launches=v)
@@ -2849,16 +3115,19 @@ def mesh_summary(paths: dict, card: str) -> str:
 
 
 def mesh_only(args, card: str) -> int:
-    """--only mesh: the mesh phase alone, every NTT and int8 dim-0 launch
-    shape of its ranks held to the plain version and timed in this
-    process after the ranks have exited; then the kernels line (the NTT
-    kernels and dim0_int8, with the ranks' launches) and the last line."""
+    """--only mesh: the mesh phase alone, every NTT, int8 dim-0 and
+    key-switch launch shape of its ranks held to the plain version and
+    timed in this process after the ranks have exited; then the kernels
+    line (the NTT kernels, dim0_int8 and the key-switch kernels, with the
+    ranks' launches) and the last line."""
     paths = mesh_phase(args.seed)
+    ks_rows = ks_shape_timing(paths)
     shapes, dim0_rows = timed_launch_shapes(paths)
     kernels = ntt_kernel_entries(shapes, paths, None)
     entry = dim0_kernel_entry(dim0_rows, dim0_w64_check(), sum(p["launches"]["dim0_int8"] for p in paths.values()))
     entry["launches_by_path"] = {p: v["launches"]["dim0_int8"] for p, v in paths.items()}
     kernels.append(entry)
+    kernels += ks_kernel_entries(ks_rows, paths)
     log(mesh_summary(paths, card))
     return report(args, card, kernels, paths=paths)
 
@@ -2875,15 +3144,31 @@ def ntt_mxu_only(args, card: str) -> int:
     return report(args, card, [entry], paths=paths)
 
 
+def key_switch_only(args, card: str) -> int:
+    """--only key_switch: the w32 and keyword cells, then each key-switch
+    kernel at every shape they launched it with (ks_shape_timing); then
+    the kernels line (the four key-switch kernels, with these cells'
+    launches) and the last line."""
+    paths = {"w32": main_path("w32", args.seed, args.batches)}
+    paths["keyword"] = keyword_path(args.seed, args.batches)[0]
+    entries = ks_kernel_entries(ks_shape_timing(paths), paths)
+    for path, p in paths.items():
+        log(f"{path}: median {p['median_s_per_batch']:.4f} s/batch, device ms by stage "
+            f"{ {k: round(v, 3) for k, v in p['stages_ms'].items()} }, on {card}")
+    log(ks_summary(entries, paths, card))
+    return report(args, card, entries, paths=paths)
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batches", type=int, default=3, help="query batches to serve (>= 3)")
     parser.add_argument("--seed", type=int, default=0, help="seed of the database, keys and indices")
     parser.add_argument("--json-out", default=None, help="also write the full results to this file")
-    parser.add_argument("--only", choices=["dim0", "simple_pir", "mesh", "ntt_mxu"], default=None,
+    parser.add_argument("--only", choices=["dim0", "simple_pir", "mesh", "ntt_mxu", "key_switch"], default=None,
                         help="run one phase alone: dim0, the int8 dim-0 kernel at every served shape; "
                              "simple_pir, the SimplePIR cell; mesh, multi-device serving with gloo ranks; "
-                             "ntt_mxu, the matrix NTT (SHE_TPU_NTT_MXU=1) on the MulPIR cells")
+                             "ntt_mxu, the matrix NTT (SHE_TPU_NTT_MXU=1) on the MulPIR cells; key_switch, "
+                             "the w32 and keyword cells and the key-switch kernels at their shapes")
     args = parser.parse_args(argv)
     if args.batches < 3:
         parser.error("--batches must be at least 3")

@@ -695,13 +695,15 @@ def relinearize(ct: Ciphertext, evaluation_key) -> Ciphertext:
         raise errors.InvalidCorrectionFactor(str(ct.correction_factor))
     if evaluation_key.relinearization_key is None:
         raise errors.MissingRelinearizationKey()
-    u0, u1 = keysmod.compute_key_switching_update(
-        ct.context, ct.polys[2], evaluation_key.relinearization_key.key_switch_key
+    c0, c1, c2 = ct.polys
+    if c2.fmt != COEFF:
+        raise errors.InvalidFormat("key switch target must be Coeff")
+    for p in (c0, c1):
+        polymod.check_same(p, c2)
+    out = keysmod.key_switch(
+        ct.context, c2.data, evaluation_key.relinearization_key.key_switch_key, c0=c0.data, c1=c1.data
     )
-    return Ciphertext(
-        ct.context, [polymod.add(ct.polys[0], u0), polymod.add(ct.polys[1], u1)],
-        ct.correction_factor,
-    )
+    return Ciphertext.from_stacked(ct.context, out, c2.context, COEFF, ct.correction_factor)
 
 
 def apply_galois(ct: Ciphertext, element: int, evaluation_key) -> Ciphertext:
@@ -716,14 +718,12 @@ def apply_galois(ct: Ciphertext, element: int, evaluation_key) -> Ciphertext:
         raise errors.InvalidFormat("applyGalois requires canonical (Coeff) format")
     if evaluation_key.galois_key is None or element not in evaluation_key.galois_key.keys:
         raise errors.MissingGaloisKey(str(element))
-    ct_ctx = ct.polys[0].context
-    perm = galoismod.apply_galois_coeff(ct.stacked(), ct_ctx.q_col, element)
-    u0, u1 = keysmod.compute_key_switching_update(
-        ct.context, PolyRq(perm[..., 1, :, :], ct_ctx, COEFF),
-        evaluation_key.galois_key.keys[element],
+    c0, c1 = ct.polys
+    polymod.check_same(c0, c1)
+    out = keysmod.key_switch(
+        ct.context, c1.data, evaluation_key.galois_key.keys[element], element=element, c0=c0.data
     )
-    c0 = polymod.add(PolyRq(perm[..., 0, :, :], ct_ctx, COEFF), u0)
-    return Ciphertext(ct.context, [c0, u1], ct.correction_factor)
+    return Ciphertext.from_stacked(ct.context, out, c1.context, COEFF, ct.correction_factor)
 
 
 def rotate_columns(ct: Ciphertext, step: int, evaluation_key) -> Ciphertext:

@@ -5,14 +5,16 @@ Keys.swift:19-283): one special key-switching modulus q_ks (the last
 coefficient modulus); key-switch keys are seeded encryptions of 0 over the
 full key-switching context with q_ks * currentKey folded into c0.
 
-The update is written in the row-vectorized form of she_tpu's
-_compute_key_switching_update_w32: every decomposition digit is reduced
-mod every key-switching modulus, transformed by ONE batched forward NTT,
-multiplied into the key with one lazy MAC (int64 at w32, the exact wide
-route of ops/wide.py at w64, she_tpu keys.py:312-347), and the result goes
-through ONE batched inverse NTT before q_ks is dropped. It is bit-identical
-to she_tpu's per-modulus _compute_key_switching_update, and it works on a
-target with any leading batch axes.
+A key switch (`key_switch`) runs in the row-vectorized form of she_tpu's
+_compute_key_switching_update_w32 as ops/key_switch.py's passes around two
+batched NTTs: ks_digits reduces every decomposition digit (after the
+Galois gather, where an element is given) mod every key-switching
+modulus, ONE forward NTT, ks_mac multiplies them into the key with one
+lazy MAC, ONE inverse NTT, and ks_finish drops q_ks and adds the result
+into the ciphertext. On a CUDA card each pass is a hand-written kernel
+(csrc/key_switch.cu). It is bit-identical to she_tpu's per-modulus
+_compute_key_switching_update, and it works on a target with any leading
+batch axes.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from .. import errors
 from ..core import poly as polymod
 from ..core.poly import COEFF, EVAL, PolyRq
 from ..ops import galois as galoismod
+from ..ops import key_switch as ks
 from ..ops import modarith as ma
 from ..ops import ntt as nttmod
 from ..rng.ctr_drbg import SystemRng
@@ -144,22 +147,40 @@ def generate_evaluation_key(context, config: EvaluationKeyConfig, secret_key, er
     return EvaluationKey(galois, relin)
 
 
+# key switches run since the last reset: on a CUDA card each launches
+# ks_digits, ks_mac and ks_finish once
+switches = {"key_switch": 0}
+
+
+def reset_switches() -> None:
+    for k in switches:
+        switches[k] = 0
+
+
+def key_switch(context, target: torch.Tensor, ksk: KeySwitchKey, element: int | None = None, index=None,
+               c0=None, c1=None) -> torch.Tensor:
+    """Switch the key of `target`, int64 [..., L_t, N] Coeff data over the
+    first L_t ciphertext moduli: with `element`, of its Galois image.
+    Returns [..., 2, L_t, N] Coeff: the update (u0, u1) alone, with g(c0)
+    added into u0 (c0 and `element` given: apply_galois), or with c0 and
+    c1 added into u0 and u1 (both given, no element: relinearize). `index` gathers axis 0 of target, c0 and c1 (the
+    expansion's slot pool, read in place). Reference
+    Bfv+Keys.swift:123-208."""
+    L_t = target.shape[-2]
+    ks_ctx = context.key_switching_contexts[L_t - 1]
+    digits = ks.ks_digits(target, ks_ctx, element, index)  # [..., L_t, L_ks, N]
+    fwd = nttmod.forward_ntt(digits, ks_ctx.ntt_tables)
+    acc = ks.ks_mac(fwd, ksk.key_rows(L_t), ks_ctx)  # [..., 2, L_ks, N]
+    inv = nttmod.inverse_ntt(acc, ks_ctx.ntt_tables)
+    switches["key_switch"] += 1
+    return ks.ks_finish(inv, ks_ctx, c0, c1, element, index)  # [..., 2, L_t, N]
+
+
 def compute_key_switching_update(context, target: PolyRq, ksk: KeySwitchKey) -> list[PolyRq]:
     """Key-switching update for a Coeff target [..., L_t, N]: returns one
     Coeff poly over the target's context per key component
     (reference Bfv+Keys.swift:123-208)."""
     if target.fmt != COEFF:
         raise errors.InvalidFormat("key switch target must be Coeff")
-    t_ctx = target.context
-    L_t = len(t_ctx.moduli)
-    ks_ctx = context.key_switching_contexts[L_t - 1]
-    q = ks_ctx.q_col  # [L_ks, 1]
-    # digit j reduced mod every key-switching modulus: [..., L_t, L_ks, N]
-    digits = torch.remainder(target.data.unsqueeze(-2), q)
-    fwd = nttmod.forward_ntt(digits, ks_ctx.ntt_tables)
-    key = ksk.key_rows(L_t)  # [L_t, comps, L_ks, N]
-    terms = ((fwd[..., j, None, :, :], key[j]) for j in range(L_t))
-    acc = ma.sum_products_mod(terms, q, ks_ctx.max_signed_lazy_product_count())
-    inv = nttmod.inverse_ntt(acc, ks_ctx.ntt_tables)  # [..., comps, L_ks, N]
-    out = polymod.divide_and_round_q_last_data(inv, ks_ctx)  # [..., comps, L_t, N]
-    return [PolyRq(out[..., c, :, :], t_ctx, COEFF) for c in range(out.shape[-3])]
+    out = key_switch(context, target.data, ksk)
+    return [PolyRq(out[..., c, :, :], target.context, COEFF) for c in range(out.shape[-3])]

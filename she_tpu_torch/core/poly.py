@@ -58,7 +58,7 @@ class PolyRq:
         return self.data.cpu().numpy()
 
 
-def _check_same(a: PolyRq, b: PolyRq):
+def check_same(a: PolyRq, b: PolyRq):
     if a.context is not b.context:
         raise errors.IncompatibleContexts(f"{a.context} vs {b.context}")
     if a.fmt != b.fmt:
@@ -66,12 +66,12 @@ def _check_same(a: PolyRq, b: PolyRq):
 
 
 def add(a: PolyRq, b: PolyRq) -> PolyRq:
-    _check_same(a, b)
+    check_same(a, b)
     return PolyRq(ma.add_mod(a.data, b.data, a.context.q_col), a.context, a.fmt)
 
 
 def sub(a: PolyRq, b: PolyRq) -> PolyRq:
-    _check_same(a, b)
+    check_same(a, b)
     return PolyRq(ma.sub_mod(a.data, b.data, a.context.q_col), a.context, a.fmt)
 
 
@@ -82,7 +82,7 @@ def neg(a: PolyRq) -> PolyRq:
 def mul_eval(a: PolyRq, b: PolyRq) -> PolyRq:
     """Pointwise product in Eval format (reference PolyRq *=,
     PolyRq.swift:184-204)."""
-    _check_same(a, b)
+    check_same(a, b)
     if a.fmt != EVAL:
         raise errors.InvalidFormat("multiplication requires Eval format")
     return PolyRq(ma.mul_mod(a.data, b.data, a.context.q_col), a.context, EVAL)
@@ -177,16 +177,20 @@ def _device_power_of_x_maps(n: int, power: int, device: torch.device):
     return None if maps is None else (maps[0], torch.from_numpy(maps[1]).to(device))
 
 
+def multiply_power_of_x_data(data: torch.Tensor, power: int, ctx: PolyContext) -> torch.Tensor:
+    """multiply_power_of_x on raw int64 [..., L, N] Coeff data over ctx."""
+    maps = _device_power_of_x_maps(ctx.degree, power, data.device)
+    if maps is None:
+        return data
+    rot, mask = maps
+    rolled = torch.roll(data, rot, dims=-1)
+    return torch.where(mask, ma.neg_mod(rolled, ctx.q_col), rolled)
+
+
 def multiply_power_of_x(a: PolyRq, power: int) -> PolyRq:
     """Negacyclic multiply by x^power (reference PolyRq.multiplyPowerOfX,
     PolyRq.swift:398-422)."""
     if a.fmt != COEFF:
         raise errors.InvalidFormat("multiplyPowerOfX requires Coeff")
-    ctx = a.context
-    maps = _device_power_of_x_maps(ctx.degree, power, ctx.device)
-    if maps is None:
-        return a
-    rot, mask = maps
-    rolled = torch.roll(a.data, rot, dims=-1)
-    out = torch.where(mask, ma.neg_mod(rolled, ctx.q_col), rolled)
-    return PolyRq(out, ctx, COEFF)
+    out = multiply_power_of_x_data(a.data, power, a.context)
+    return a if out is a.data else PolyRq(out, a.context, COEFF)

@@ -12,8 +12,11 @@ contract it keeps, bit-identical responses, is this module's.
 
 * Level-batched oblivious expansion: every node at one level of the
   expansion tree applies the same Galois element, so each level is ONE
-  batched Galois + key switch over a [nodes * queries, 2, L, N] tensor
-  held in a slot pool [slots, queries, 2, L, N].
+  batched Galois + key switch over the level's [nodes, queries, 2, L, N]
+  parents, read in place from a slot pool [slots, queries, 2, L, N]
+  (bfv/keys.key_switch with the parents' slot indices), then ONE
+  expand_combine that writes both children into their slots
+  (ops/key_switch.py; on a CUDA card, kernels of csrc/key_switch.cu).
 * Dim-0 ct-pt inner products for all columns at once against the database
   chunk packed on the device, in one of two forms. The int8 digit form
   (dim0_int8, the default on a CUDA card at 32-bit scalars, as she_tpu
@@ -41,10 +44,12 @@ import torch
 
 from .. import errors
 from ..bfv import bfv
+from ..bfv import keys as keysmod
 from ..core.poly import COEFF, EVAL
 from ..io import coeffs as coeffio
 from ..ops import digits as dg
 from ..ops import dim0_cuda
+from ..ops import key_switch as ks
 from ..ops import modarith as ma
 from . import index_pir as ip
 from . import keyword_pir as kp
@@ -100,20 +105,31 @@ def build_expansion_plan(output_count: int) -> ExpansionPlan:
 def _plan_on_device(output_count: int, device: torch.device):
     """The plan's slot indices as device tensors, made once: per non-empty
     level (log_step, parents, first children, second children), then the
-    leaf slots in output order and their doubling mask."""
+    leaf slots in output order and their doubling mask. Each level's slots
+    are checked here, on the host, as expand_combine needs them."""
     plan = build_expansion_plan(output_count)
 
     def idx(values):
         return torch.tensor(values, dtype=torch.int64, device=device)
 
-    levels = [
-        (i + 1, idx([p for p, _, _ in lv]), idx([c for _, c, _ in lv]), idx([c for _, _, c in lv]))
-        for i, lv in enumerate(plan.levels)
-        if lv
-    ]
+    levels = []
+    for i, lv in enumerate(plan.levels):
+        if lv:
+            parents, child0, child1 = ([node[k] for node in lv] for k in range(3))
+            ks.check_level_slots(parents, child0, child1)
+            levels.append((i + 1, idx(parents), idx(child0), idx(child1)))
     leaves = idx([s for s, _ in plan.leaves])
     doubled = torch.tensor([d for _, d in plan.leaves], device=device).view(-1, 1, 1, 1, 1)
     return plan.slot_count, levels, leaves, doubled
+
+
+# expansion levels combined since the last reset: on a CUDA card each
+# launches expand_combine once
+levels_run = {"expansion_level": 0}
+
+
+def reset_levels_run() -> None:
+    levels_run["expansion_level"] = 0
 
 
 def _mark(on_stage, stage: str) -> None:
@@ -139,14 +155,13 @@ def expand_stacked(stacked: torch.Tensor, output_count: int, evaluation_key, con
     pool[0] = stacked
     for log_step, parent_idx, child0_idx, child1_idx in levels:
         element, apply_count = ip.expansion_step_element(evaluation_key, context.degree, log_step)
-        parents = _ct(context, pool.index_select(0, parent_idx), ct_ctx)  # [n, B, 2, L, N]
-        c1 = parents
-        for _ in range(apply_count):
-            c1 = bfv.apply_galois(c1, element, evaluation_key)
-        p0 = bfv.ct_add(c1, parents)
-        p1 = bfv.multiply_power_of_x(bfv.ct_sub(parents, c1), -(1 << (log_step - 1)))
-        pool[child0_idx] = p0.stacked()
-        pool[child1_idx] = p1.stacked()
+        key = evaluation_key.galois_key.keys[element]
+        # the parents' Galois image, key-switched, read from the pool in place: [n, B, 2, L, N]
+        image = keysmod.key_switch(context, pool[:, :, 1], key, element, parent_idx, c0=pool[:, :, 0])
+        for _ in range(apply_count - 1):
+            image = keysmod.key_switch(context, image[:, :, 1], key, element, c0=image[:, :, 0])
+        ks.expand_combine(pool, image, parent_idx, child0_idx, child1_idx, 1 << (log_step - 1), ct_ctx)
+        levels_run["expansion_level"] += 1
     out = pool.index_select(0, leaves)
     twice = ma.add_mod(out, out, ct_ctx.q_col)
     return torch.where(doubled, twice, out)

@@ -50,6 +50,10 @@ def test_only_ntt_mxu_selects_the_matrix_ntt_phase():
     assert chip_smoke.parse_args(["--only", "ntt_mxu"]).only == "ntt_mxu"
 
 
+def test_only_key_switch_selects_the_key_switch_cells():
+    assert chip_smoke.parse_args(["--only", "key_switch"]).only == "key_switch"
+
+
 def test_ntt_mxu_cells():
     """The matrix NTT serves the w32 cell for --batches batches and one
     batch of the w64 cell (8 digits), and checks its kernel at 60-bit
@@ -66,15 +70,35 @@ def test_ntt_mxu_cells():
 
 def test_kernels_line_names_every_kernel():
     """The kernels line (run() checks its names against KERNEL_SOURCES)
-    covers all four sources the package builds: the NTT's two kernels,
-    dim0_int8, simple_pir_matmul and ntt_mxu."""
+    covers all five sources the package builds: the NTT's two kernels,
+    dim0_int8, simple_pir_matmul, ntt_mxu and the key switch's four."""
     from she_tpu_torch.ops import kernel_build
 
     assert set(chip_smoke.KERNEL_SOURCES) == {"ntt_forward", "ntt_inverse", "dim0_int8", "simple_pir_matmul",
-                                              "ntt_mxu"}
+                                              "ntt_mxu", "ks_digits", "ks_mac", "ks_finish", "expand_combine"}
     assert set(chip_smoke.KERNEL_SOURCES.values()) == {
         f"she_tpu_torch/csrc/{source}" for source in kernel_build.SOURCES.values()}
-    assert len(kernel_build.SOURCES) == 4
+    assert len(kernel_build.SOURCES) == 5
+    assert set(chip_smoke.KS_REPLACES) == set(chip_smoke.KS_KERNELS) == set(chip_smoke.KS_LIBRARY)
+
+
+def test_key_switch_byte_bounds():
+    """At the keyword cell's widest expansion level (16,384 target
+    polynomials, L_t = 2, L_ks = 3, N = 4096; U = 16,384 x 4096 x 8 bytes)
+    ks_digits moves 8 U, ks_mac 12 U and the key, ks_finish 12 U (c0 read,
+    c1 not) and expand_combine 16 U; a relinearization's ks_finish reads c1
+    too."""
+    from she_tpu_torch.ops.key_switch_cuda import KsKey
+
+    moduli, unit = (1, 2, 3), 128 * 128 * 4096 * 8
+    assert chip_smoke.ks_bytes(KsKey("ks_digits", (128, 128, 2, 4096), moduli, (3, 511))) == 8 * unit
+    key_bytes = 2 * 2 * 3 * 4096 * 8
+    assert chip_smoke.ks_bytes(KsKey("ks_mac", (128, 128, 2, 3, 4096), moduli, ())) == 12 * unit + key_bytes
+    galois, relin = (3, True, False, 511), (None, True, True, None)
+    assert chip_smoke.ks_bytes(KsKey("ks_finish", (128, 128, 2, 3, 4096), moduli, galois)) == 12 * unit
+    assert chip_smoke.ks_bytes(KsKey("ks_finish", (128, 128, 2, 3, 4096), moduli, relin)) == 14 * unit
+    assert chip_smoke.ks_bytes(KsKey("expand_combine", (128, 128, 2, 2, 4096), moduli[:2], (64, 511))) == 16 * unit
+    assert 1e3 * 8 * unit / chip_smoke.HBM_BYTES_PER_S == pytest.approx(1.282, abs=5e-4)
 
 
 def test_mxu_bound():
@@ -171,15 +195,20 @@ def test_served_dim0_shapes():
 def test_launch_rows():
     """The paths' launch counters as the JSON rows of --json-out: the NTT's
     by ntt_cuda.LaunchKey (a sharded NTT's block tables too), the int8
-    dim-0 kernel's by (digits shape, query shape, moduli)."""
+    dim-0 kernel's by (digits shape, query shape, moduli), the key switch's
+    by key_switch_cuda.KsKey."""
     import json
     from collections import Counter
 
     from she_tpu_torch.ops.ntt_cuda import LaunchKey
 
+    from she_tpu_torch.ops.key_switch_cuda import KsKey
+
     path = dict(launch_shapes=Counter({LaunchKey("ntt_forward", (3, 2048), (17, 97), (4096, 2, 1)): 2}),
-                dim0_shapes=Counter({((2, 8, 4, 32), (8, 4, 2, 8), (17, 97)): 1}))
+                dim0_shapes=Counter({((2, 8, 4, 32), (8, 4, 2, 8), (17, 97)): 1}),
+                ks_shapes=Counter({KsKey("ks_digits", (4, 1, 8), (17, 97), (3, None)): 5}))
     chip_smoke.launch_rows(path)
     assert json.loads(json.dumps(path)) == dict(
         launch_shapes=[dict(name="ntt_forward", shape=[3, 2048], moduli=[17, 97], block=[4096, 2, 1], launches=2)],
-        dim0_shapes=[dict(digits_shape=[2, 8, 4, 32], query_shape=[8, 4, 2, 8], moduli=[17, 97], launches=1)])
+        dim0_shapes=[dict(digits_shape=[2, 8, 4, 32], query_shape=[8, 4, 2, 8], moduli=[17, 97], launches=1)],
+        ks_shapes=[dict(name="ks_digits", shape=[4, 1, 8], moduli=[17, 97], variant=[3, None], launches=5)])
