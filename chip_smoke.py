@@ -104,7 +104,18 @@ then PNNS (BatchedPnnsServer), 16 cosine-similarity queries a batch over a
    before any plain version, beside its byte bound (and
    torch.remainder where that one call computes ks_digits), then held
    bit-equal to its plain version;
-14. print one JSON line with every kernel's numbers, and as the last line
+14. the BEHZ product (behz_kernel_timing, behz_plain_checks): every path
+   that multiplies ciphertexts (w32, w64, keyword, keyword_large, the
+   service, mesh (a), (b) and (e)) lifts each side to [q, B_sk], sums the
+   tensor product and scales it by t, and floors it back to q through the
+   three kernels of csrc/behz.cu; every path fails unless behz_lift
+   launched twice and behz_tensor_mac once a tensor product the port ran
+   (bfv.behz_runs), behz_floor once a floor, and no plain BEHZ pass ran
+   on CUDA tensors; each kernel is timed at the widest shape of each path
+   first, before any plain BEHZ version runs (and before the key switch's
+   are timed), beside its byte bound; after the key switch's checks every
+   launched shape is held bit-equal to its plain version;
+15. print one JSON line with every kernel's numbers, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without the last line. Run from the repository
@@ -117,7 +128,8 @@ the w64 check, then prints the kernels line and the last line.
 shapes held and timed too), then prints the kernels line and the last
 line. `--only mesh` does the same for step 10 and `--only ntt_mxu` for
 step 11. `--only key_switch` serves the w32 and keyword cells and runs
-step 13 on their shapes.
+step 13 on their shapes. `--only behz` serves the w32, w64 and keyword
+cells and runs step 14 on their shapes.
 """
 
 from __future__ import annotations
@@ -218,6 +230,13 @@ KS_SWITCH = KS_KERNELS[:3]
 # the she_tpu functions each replaces (none is a Pallas kernel: XLA fuses them)
 KS_REPLACES = {"ks_digits": "she_tpu/ops/galois.py:61", "ks_mac": "she_tpu/bfv/keys.py:319",
                "ks_finish": "she_tpu/core/poly.py:207", "expand_combine": "she_tpu/pir/serving.py:160"}
+# the BEHZ product's kernels (csrc/behz.cu): a tensor product launches
+# behz_lift twice (a side) and behz_tensor_mac once, a floor behz_floor once
+BEHZ_KERNELS = ("behz_lift", "behz_tensor_mac", "behz_floor")
+BEHZ_REPLACES = {"behz_lift": "she_tpu/core/rns.py:376", "behz_tensor_mac": "she_tpu/bfv/bfv.py:734",
+                 "behz_floor": "she_tpu/core/rns.py:458"}
+BEHZ_LIBRARY = ("none: no PyTorch call computes a base conversion between moduli sets or a modular sum of 128-bit "
+                "products")
 
 # the matrix NTT (ntt_mxu): she_tpu's opt-in SHE_TPU_NTT_MXU=1 on the
 # MulPIR cells, label -> (path of PATHS, batches: None for --batches)
@@ -235,6 +254,9 @@ KERNEL_SOURCES = {
     "ks_mac": "she_tpu_torch/csrc/key_switch.cu",
     "ks_finish": "she_tpu_torch/csrc/key_switch.cu",
     "expand_combine": "she_tpu_torch/csrc/key_switch.cu",
+    "behz_lift": "she_tpu_torch/csrc/behz.cu",
+    "behz_tensor_mac": "she_tpu_torch/csrc/behz.cu",
+    "behz_floor": "she_tpu_torch/csrc/behz.cu",
 }
 MESH_PATHS = ("mesh_batch_w32", "mesh_two_axis_w32", "mesh_pnns_w32", "mesh_dim0_psum", "mesh_sharded")
 
@@ -284,8 +306,9 @@ def ptxas_lines(name: str) -> list[str]:
     and of the SimplePIR kernel's instances that serve the cell (two D
     planes against four query planes, 32 and 8 request rows), with the
     dynamic shared memory and stages of their rings; and of the matrix
-    NTT's fused kernel at 4, 8 and 9 digits, both directions; and of
-    every key-switch kernel instance (each one is served)."""
+    NTT's fused kernel at 4, 8 and 9 digits, both directions; of every
+    key-switch kernel instance (each one is served); and of the BEHZ
+    kernels (the lift and the floor at every L)."""
     import re
 
     from she_tpu_torch.ops import kernel_build
@@ -319,6 +342,9 @@ def ptxas_lines(name: str) -> list[str]:
             variant = (("update", "galois", "relinearize")[int(m.group(2))] if m.group(2)
                        else {"0": "no gather", "1": "gather"}.get(m.group(3)))
             label = m.group(1) + (f"<{variant}>" if variant else "")
+        elif "Compiling entry function" in line and "behz_" in line:
+            m = re.search(r"(behz_(?:lift|floor|tensor_mac)_kernel)(?:ILi(\d)E)?", line)
+            label = m.group(1) + (f"<L={m.group(2)}>" if m.group(2) else "")
         elif label and ("Used" in line or "spill" in line):
             out.append(f"{label}: {line.strip()}")
     return out
@@ -332,21 +358,24 @@ def prod(shape) -> int:
 
 
 def reset_counts() -> None:
-    """Every kernel's launch count and launch shapes, the plain NTTs' and
-    key-switch passes' counts on CUDA tensors, and the port's count of key
-    switches and expansion levels set to 0: just before a path is driven."""
-    from she_tpu_torch.bfv import keys
-    from she_tpu_torch.ops import dim0_cuda, key_switch, key_switch_cuda, ntt, ntt_cuda, ntt_mxu, ntt_mxu_cuda
-    from she_tpu_torch.ops import simple_pir_cuda
+    """Every kernel's launch count and launch shapes, the plain NTTs',
+    key-switch and BEHZ passes' counts on CUDA tensors, and the port's
+    count of key switches, expansion levels, tensor products and floors set
+    to 0: just before a path is driven."""
+    from she_tpu_torch.bfv import bfv, keys
+    from she_tpu_torch.ops import behz, behz_cuda, dim0_cuda, key_switch, key_switch_cuda, ntt, ntt_cuda, ntt_mxu
+    from she_tpu_torch.ops import ntt_mxu_cuda, simple_pir_cuda
     from she_tpu_torch.pir import serving
 
-    for wrapper in (ntt_cuda, dim0_cuda, simple_pir_cuda, ntt_mxu_cuda, key_switch_cuda):
+    for wrapper in (ntt_cuda, dim0_cuda, simple_pir_cuda, ntt_mxu_cuda, key_switch_cuda, behz_cuda):
         wrapper.reset_launches()
-    for counts in (ntt.plain_calls_on_cuda, ntt_mxu.plain_calls_on_cuda, key_switch.plain_calls_on_cuda):
+    for counts in (ntt.plain_calls_on_cuda, ntt_mxu.plain_calls_on_cuda, key_switch.plain_calls_on_cuda,
+                   behz.plain_calls_on_cuda):
         for k in counts:
             counts[k] = 0
     keys.reset_switches()
     serving.reset_levels_run()
+    bfv.reset_behz_runs()
 
 
 def key_switch_counts(label: str, launches: dict, switches: bool, expands: bool) -> None:
@@ -370,19 +399,40 @@ def key_switch_counts(label: str, launches: dict, switches: bool, expands: bool)
         raise AssertionError(f"[{label}] a plain key-switch pass ran on CUDA tensors: {key_switch.plain_calls_on_cuda}")
 
 
+def behz_counts(label: str, launches: dict, multiplies: bool) -> None:
+    """Fails unless behz_lift launched twice and behz_tensor_mac once a
+    tensor product the port ran (bfv.behz_runs) and behz_floor once a
+    floor; if a path that multiplies ciphertexts (`multiplies`) ran no
+    product or no floor; or if a plain BEHZ pass ran on CUDA tensors."""
+    from she_tpu_torch.bfv import bfv
+    from she_tpu_torch.ops import behz
+
+    ran = bfv.behz_runs
+    if (launches["behz_lift"] != 2 * ran["tensor_product"] or launches["behz_tensor_mac"] != ran["tensor_product"]
+            or launches["behz_floor"] != ran["floor"]):
+        raise AssertionError(f"[{label}] BEHZ launches {[launches[k] for k in BEHZ_KERNELS]} against "
+                             f"{ran['tensor_product']} tensor products and {ran['floor']} floors")
+    if multiplies and not (ran["tensor_product"] and ran["floor"]):
+        raise AssertionError(f"[{label}] the path ran {ran} tensor products and floors")
+    if any(behz.plain_calls_on_cuda.values()):
+        raise AssertionError(f"[{label}] a plain BEHZ pass ran on CUDA tensors: {behz.plain_calls_on_cuda}")
+
+
 def read_counts(label: str, use_dim0_int8: bool, simple_pir: bool = False, mxu: bool = False,
-                switches: bool = True, expands: bool = True) -> dict:
+                switches: bool = True, expands: bool = True, multiplies: bool = True) -> dict:
     """The counts of the path just driven. Fails if a kernel of the path
     never launched, if the int8 dim-0 kernel launched on a path that serves
     the MAC form, if the SimplePIR kernel launched on another protocol's
     path, if the NTT took the other route than the path's (`mxu`: the
     matrix NTT's fused kernel, else the butterfly kernels), if a plain
     NTT ran on CUDA tensors, or as key_switch_counts says (`switches`,
-    `expands`: the path switches keys, and expands queries in batches)."""
-    from she_tpu_torch.ops import dim0_cuda, key_switch_cuda, ntt, ntt_cuda, ntt_mxu, ntt_mxu_cuda, simple_pir_cuda
+    `expands`: the path switches keys, and expands queries in batches) and
+    behz_counts (`multiplies`: the path multiplies ciphertexts)."""
+    from she_tpu_torch.ops import behz_cuda, dim0_cuda, key_switch_cuda, ntt, ntt_cuda, ntt_mxu, ntt_mxu_cuda
+    from she_tpu_torch.ops import simple_pir_cuda
 
     launches = (dict(ntt_cuda.launches) | dict(dim0_cuda.launches) | dict(simple_pir_cuda.launches)
-                | dict(ntt_mxu_cuda.launches) | dict(key_switch_cuda.launches))
+                | dict(ntt_mxu_cuda.launches) | dict(key_switch_cuda.launches) | dict(behz_cuda.launches))
     plain_on_cuda = {f"{k}_{d}": v for k, counts in (("ntt", ntt.plain_calls_on_cuda),
                                                     ("ntt_mxu", ntt_mxu.plain_calls_on_cuda))
                      for d, v in counts.items()}
@@ -400,9 +450,11 @@ def read_counts(label: str, use_dim0_int8: bool, simple_pir: bool = False, mxu: 
     if any(plain_on_cuda.values()):
         raise AssertionError(f"[{label}] a plain NTT ran on CUDA tensors: {plain_on_cuda}")
     key_switch_counts(label, launches, switches, expands)
+    behz_counts(label, launches, multiplies)
     return dict(launches=launches, launch_shapes=dict(ntt_cuda.launch_shapes),
                 dim0_shapes=dict(dim0_cuda.launch_shapes), simple_pir_shapes=dict(simple_pir_cuda.launch_shapes),
-                mxu_shapes=dict(ntt_mxu_cuda.launch_shapes), ks_shapes=dict(key_switch_cuda.launch_shapes))
+                mxu_shapes=dict(ntt_mxu_cuda.launch_shapes), ks_shapes=dict(key_switch_cuda.launch_shapes),
+                behz_shapes=dict(behz_cuda.launch_shapes))
 
 
 def kernel_bound_ms(shape, moduli, degree) -> float:
@@ -720,7 +772,7 @@ def profile_batch(path: str, server, queries, ek) -> dict:
     if busy_us <= 0:
         raise AssertionError("the profiler saw no device work in the profiled batch")
     kernel_ms = {k: sum(us for name, us in by_name.items() if f"{k}_kernel" in name) / 1e3
-                 for k in NTT_AND_DIM0 + KS_KERNELS}
+                 for k in NTT_AND_DIM0 + KS_KERNELS + BEHZ_KERNELS}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     log(f"[{path}] profiled batch: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
         f"idle share {1 - busy_us / wall_us:.3f}, {launches} device kernels and copies")
@@ -879,7 +931,7 @@ def main_path(path: str, seed: int, batches: int) -> dict:
         peak_bytes=peak, launches=launches,
         launches_per_batch={k: v / batches for k, v in launches.items()},
         launch_shapes=counts["launch_shapes"],
-        ks_shapes=counts["ks_shapes"], dim0_shapes=counts["dim0_shapes"], batches=batches,
+        ks_shapes=counts["ks_shapes"], behz_shapes=counts["behz_shapes"], dim0_shapes=counts["dim0_shapes"], batches=batches,
     )
 
 
@@ -1162,7 +1214,7 @@ def keyword_path(seed: int, batches: int) -> tuple[dict, tuple]:
         wire_out_s=wire_out_s, wire_s_per_batch=statistics.median(wire_s), stream_s=stream_s, segments=segments,
         stages_ms=stages, profile=profiled, min_noise_budget=min_budget, peak_bytes=peak, launches=launches,
         launches_per_batch={k: v / batches for k, v in launches.items()}, launch_shapes=counts["launch_shapes"],
-        ks_shapes=counts["ks_shapes"],
+        ks_shapes=counts["ks_shapes"], behz_shapes=counts["behz_shapes"],
         dim0_shapes=counts["dim0_shapes"], dim0_form="int8" if use_int8 else "mac", batches=batches,
         absent_queries=n_absent,
     ), (ctx, processed, rows, absent)
@@ -1228,7 +1280,7 @@ def large_value_path(seed: int) -> dict:
     return dict(path=label, keywords=count, value_size=value_size, queries=n_queries, chunks=chunks,
                 dimensions=list(parameter.dimensions), process_s=process_s, batch_s=batch_s,
                 launches=launches, launch_shapes=counts["launch_shapes"],
-                ks_shapes=counts["ks_shapes"], dim0_shapes=counts["dim0_shapes"],
+                ks_shapes=counts["ks_shapes"], behz_shapes=counts["behz_shapes"], dim0_shapes=counts["dim0_shapes"],
                 batches=1)
 
 
@@ -1339,7 +1391,7 @@ def service_phase(ctx, processed, rows: dict, absent: list, seed: int) -> dict:
         f"kernel launches {counts['launches']}")
     return dict(path=label, requests=len(keywords), request_s=request_s, median_request_s=statistics.median(request_s),
                 config_bytes=len(config_bytes), evaluation_key_bytes=key_bytes, answer_bytes=answer_bytes,
-                launches=counts["launches"], launch_shapes=counts["launch_shapes"], ks_shapes=counts["ks_shapes"],
+                launches=counts["launches"], launch_shapes=counts["launch_shapes"], ks_shapes=counts["ks_shapes"], behz_shapes=counts["behz_shapes"],
                 dim0_shapes=counts["dim0_shapes"], batches=1)
 
 
@@ -1427,7 +1479,7 @@ def spir_phase(seed: int) -> dict:
     return dict(path=label, keywords=count, lookups=len(keywords), absent=n_absent, process_s=process_s,
                 oprf_s=oprf_s, pir_request_s=pir_s, launches=counts["launches"],
                 launch_shapes=counts["launch_shapes"],
-                ks_shapes=counts["ks_shapes"], dim0_shapes=counts["dim0_shapes"], batches=1)
+                ks_shapes=counts["ks_shapes"], behz_shapes=counts["behz_shapes"], dim0_shapes=counts["dim0_shapes"], batches=1)
 
 
 PNNS_STAGES = {"stack": "stacking", "baby_steps": "baby_step_rotations", "to_eval": "to_eval",
@@ -1513,7 +1565,7 @@ def pnns_path(label: str, seed: int, batches: int) -> dict:
         torch.cuda.synchronize()
         batch_s.append(time.perf_counter() - t0)
         all_responses.append(responses)
-    counts = read_counts(label, False, expands=False)  # rotations: key switches, no expansion
+    counts = read_counts(label, False, expands=False, multiplies=False)  # rotations: key switches only
     launches = counts["launches"]
     peak = torch.cuda.max_memory_allocated()
     steady = batch_s[1:]
@@ -1575,7 +1627,7 @@ def pnns_path(label: str, seed: int, batches: int) -> dict:
         steady_batches=len(steady), queries_per_s=PNNS_BATCH / statistics.median(steady), stream_s=stream_s,
         stages_ms=stages, profile=profiled, min_noise_budget=min_budget, peak_bytes=peak, launches=launches,
         launches_per_batch={k: v / served for k, v in launches.items()}, launch_shapes=counts["launch_shapes"],
-        ks_shapes=counts["ks_shapes"],
+        ks_shapes=counts["ks_shapes"], behz_shapes=counts["behz_shapes"],
         dim0_shapes=counts["dim0_shapes"], batches=served, setup_launch_shapes=setup_shapes,
     )
 
@@ -1751,7 +1803,7 @@ def simple_pir_path(seed: int, batches: int) -> dict:
     single = server.compute_response(queries[0].queries)
     torch.cuda.synchronize()
     single_s = time.perf_counter() - t0
-    counts = read_counts(label, False, simple_pir=True, switches=False, expands=False)
+    counts = read_counts(label, False, simple_pir=True, switches=False, expands=False, multiplies=False)
     peak = torch.cuda.max_memory_allocated()
     served_shapes = {(tuple(server.planes.data.shape), server.planes.rows, tuple(q.shape), b_bits): c
                      for q, c in ((requests, batches), (queries[0].queries, 1))}
@@ -1798,7 +1850,7 @@ def simple_pir_path(seed: int, batches: int) -> dict:
         max_s_per_batch=max(batch_s), queries_per_s=SIMPLE_PIR_BATCH / median, single_s=single_s, peak_bytes=peak,
         span=span,
         launches=counts["launches"], launch_shapes=counts["launch_shapes"],
-        ks_shapes=counts["ks_shapes"], dim0_shapes=counts["dim0_shapes"],
+        ks_shapes=counts["ks_shapes"], behz_shapes=counts["behz_shapes"], dim0_shapes=counts["dim0_shapes"],
         simple_pir_rows=rows, served_batches=batches,
         batches=1,  # the NTT runs in the set-up and the clients, not per batch: shape_timing counts a run
     )
@@ -1838,6 +1890,16 @@ def ntt_kernel_entries(shapes: dict, paths: dict, checked: dict | None) -> list:
             **({"route64": checked["route64"][name]} if checked else {}),
         ))
     return out
+
+
+def launch_keys(paths: dict, field: str) -> dict:
+    """Every launch key of one kernel family (the paths' `field`:
+    "ks_shapes", "behz_shapes") -> its launches a batch by path."""
+    keys = {}
+    for path, result in paths.items():
+        for key, count in result.get(field, {}).items():
+            keys.setdefault(key, {})[path] = count / result["batches"]
+    return keys
 
 
 def ks_bytes(key) -> int:
@@ -1948,10 +2010,7 @@ def ks_shape_timing(paths: dict) -> list:
 
     from she_tpu_torch.ops import modarith
 
-    keys = {}
-    for path, result in paths.items():
-        for key, count in result.get("ks_shapes", {}).items():
-            keys.setdefault(key, {})[path] = count / result["batches"]
+    keys = launch_keys(paths, "ks_shapes")
     ordered = sorted(keys, key=lambda k: (KS_KERNELS.index(k.name), -ks_bytes(k), str(k)))
     rows = []
     for i, key in enumerate(ordered):
@@ -1996,7 +2055,8 @@ def ks_kernel_entries(rows: list, paths: dict) -> list:
     """The key-switch kernels' entries of the kernels line, at each
     kernel's widest shape (by bytes); library_ms where a PyTorch call
     computes the function at that shape, else the widest shape that has
-    one (ks_digits of a relinearization), else null."""
+    one (ks_digits of a relinearization), else null; library_shape_ms is
+    the kernel's own time at the library's shape."""
     out = []
     for name in KS_KERNELS:
         mine = [r for r in rows if r["name"] == name]
@@ -2012,7 +2072,8 @@ def ks_kernel_entries(rows: list, paths: dict) -> list:
             launches=sum(launches_by_path.values()), max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=widest["ms"], plain_ms=widest["plain_ms"], bound_ms=widest["bound_ms"], bound_by="bytes",
             library_ms=None if library_row is None else library_row["library_ms"], library=KS_LIBRARY[name],
-            library_shape=None if library_row is None else library_row["shape"], widest_shape=widest["shape"],
+            library_shape=None if library_row is None else library_row["shape"],
+            library_shape_ms=None if library_row is None else library_row["ms"], widest_shape=widest["shape"],
             widest_moduli=widest["moduli"], widest_variant=widest["variant"], launches_by_path=launches_by_path,
             shapes=mine,
         ))
@@ -2025,8 +2086,167 @@ def ks_summary(entries: list, paths: dict, card: str) -> str:
     return ("key switch: " + "; ".join(
         f"{e['name']} {e['ms']:.4f} ms at {tuple(e['widest_shape'])} against a byte bound of {e['bound_ms']:.4f} ms "
         f"({100 * e['bound_ms'] / e['ms']:.1f}%), plain {e['plain_ms']:.4f} ms, "
-        + ("" if e["library_ms"] is None else f"library {e['library_ms']:.4f} ms, ")
+        + ("" if e["library_ms"] is None else f"library {e['library_ms']:.4f} ms at {tuple(e['library_shape'])}, "
+           f"where the kernel takes {e['library_shape_ms']:.4f} ms, ")
         + f"{e['launches']} launches" for e in entries) + f"; expansion and BEHZ device ms by path {stage}; on {card}")
+
+
+def behz_bytes(key) -> int:
+    """The bytes one BEHZ launch must move (`key` a behz_cuda.BehzKey):
+    each int64 input read once, each output written once; the constants
+    travel with the launch."""
+    name, shape, moduli, _ = key
+    if name == "behz_lift":  # x [..., L, n] in, [..., 2L + 1, n] out
+        return 8 * prod(shape[:-2]) * shape[-1] * (3 * shape[-2] + 1)
+    if name == "behz_tensor_mac":  # la and lb [..., K, 2, M, n] in, [..., 3, M, n] out
+        return 8 * (2 * prod(shape) + prod(shape[:-4]) * 3 * prod(shape[-2:]))
+    return 8 * prod(shape[:-2]) * shape[-1] * (3 * len(moduli[0]) + 1)  # behz_floor: [..., 2L + 1, n] in, [..., L, n] out
+
+
+def strided_like(values, strides):
+    """`values` laid out with `strides`, as a launch read its input: a view
+    of a fresh buffer."""
+    import torch
+
+    size = 1 + sum((d - 1) * st for d, st in zip(values.shape, strides))
+    out = torch.zeros(size, dtype=values.dtype, device=values.device).as_strided(values.shape, strides)
+    out.copy_(values)
+    return out
+
+
+def behz_case(key, seed: int, device="cuda") -> dict:
+    """The inputs of one BEHZ launch shape on the card, made from `seed`,
+    the lift's and the floor's input laid out with the strides the launch
+    read it through: the kernel and its plain version, each a function of
+    no arguments returning what the kernel writes."""
+    import torch
+
+    from she_tpu_torch.core import rns
+    from she_tpu_torch.core.context import get_poly_context
+    from she_tpu_torch.ops import behz
+    from she_tpu_torch.ops import behz_cuda as bc
+
+    name, shape, moduli, variant = key
+    dev, n = torch.device(device), shape[-1]
+    if name == "behz_tensor_mac":
+        (scale,) = variant
+        ctx = get_poly_context(n, moduli, 64, dev)
+        la, lb = (random_residues(moduli, shape[:-2], n, seed + i, dev) for i in range(2))
+        return dict(kernel=lambda: bc.behz_tensor_mac(la, lb, moduli, scale),
+                    plain=lambda: behz.behz_tensor_mac_plain(la, lb, ctx, scale, -4))
+    q_moduli, bsk_moduli = moduli
+    if name == "behz_lift":
+        m_tilde, strides = variant
+        # the tool's m~ is the launch's: 2^16 at 32-bit scalars, 2^32 at 64
+        tool = rns.RnsTool(get_poly_context(n, q_moduli, 32 if m_tilde == 1 << 16 else 64, dev), 2, bsk_moduli)
+        x = strided_like(random_residues(q_moduli, shape[:-2], n, seed, dev), strides)
+        return dict(kernel=lambda: bc.behz_lift(x, q_moduli, bsk_moduli, m_tilde),
+                    plain=lambda: behz.behz_lift_plain(x, tool))
+    scale, strides = variant
+    tool = rns.RnsTool(get_poly_context(n, q_moduli, 64, dev), 2, bsk_moduli)
+    y = strided_like(random_residues(q_moduli + bsk_moduli, shape[:-2], n, seed, dev), strides)
+    return dict(kernel=lambda: bc.behz_floor(y, q_moduli, bsk_moduli, scale),
+                plain=lambda: behz.behz_floor_plain(y, tool, scale))
+
+
+def behz_kernel_timing(paths: dict) -> list:
+    """Each BEHZ kernel at the widest shape (by bytes) each path launched
+    it with, timed before any plain BEHZ version runs in the process: the
+    mean of 20 launches after a warm-up (CUDA events), beside its byte
+    bound. One row a kernel and path."""
+    import torch
+
+    keys = launch_keys(paths, "behz_shapes")
+    widest = {}
+    for key, by_path in keys.items():
+        for path in by_path:
+            if (key.name, path) not in widest or behz_bytes(key) > behz_bytes(widest[key.name, path]):
+                widest[key.name, path] = key
+    rows = []
+    for i, ((name, path), key) in enumerate(sorted(widest.items(), key=lambda kv: (BEHZ_KERNELS.index(kv[0][0]),
+                                                                                   kv[0][1]))):
+        case = behz_case(key, 200 + 7 * i)
+        ms = cuda_ms(case["kernel"], 20)
+        bound = 1e3 * behz_bytes(key) / HBM_BYTES_PER_S
+        rows.append(dict(name=name, path=path, key=key, shape=list(key.shape), moduli=key.moduli,
+                         variant=key.variant, ms=ms, bytes=behz_bytes(key), bound_ms=bound, share_of_bound=bound / ms,
+                         launches_per_batch=keys[key]))
+        log(f"{name} at {path}'s widest {tuple(key.shape)}: {ms:.4f} ms against a byte bound of {bound:.4f} ms "
+            f"({100 * bound / ms:.1f}%)")
+        del case
+        torch.cuda.empty_cache()
+    return rows
+
+
+def behz_plain_checks(paths: dict, rows: list) -> list:
+    """Every BEHZ launch shape of the paths' runs held bit-equal to its
+    plain version, on inputs made from a seed; the timed rows (`rows`,
+    behz_kernel_timing's) get their shape's plain time (3 calls after a
+    warm-up; 1 where a modulus takes the wide route) and its largest
+    difference. Returns one row a launched shape."""
+    import torch
+
+    from she_tpu_torch.ops import modarith
+
+    keys = launch_keys(paths, "behz_shapes")
+    checked = []
+    for i, key in enumerate(sorted(keys, key=lambda k: (BEHZ_KERNELS.index(k.name), -behz_bytes(k), str(k)))):
+        case = behz_case(key, 300 + 7 * i)
+        got = case["kernel"]().clone()
+        want = case["plain"]()
+        err = int((got - want).abs().max()) if got.numel() else 0
+        if not torch.equal(got, want):
+            raise AssertionError(f"{key.name} at {key.shape}, moduli {key.moduli}, {key.variant}: max |kernel - plain| "
+                                 f"= {err}")
+        timed = [r for r in rows if r["key"] == key]
+        if timed:
+            wide = modarith.is_wide(max(key.moduli if key.name == "behz_tensor_mac" else key.moduli[0] + key.moduli[1]))
+            plain_iters = 1 if wide else 3
+            plain_ms = cuda_ms(case["plain"], plain_iters)
+            for r in timed:
+                r.update(max_abs_err=err, plain_ms=plain_ms, plain_iters=plain_iters)
+        checked.append(dict(name=key.name, shape=list(key.shape), moduli=key.moduli, variant=key.variant,
+                            bytes=behz_bytes(key), launches_per_batch=keys[key], max_abs_err=err))
+        log(f"{key.name} {tuple(key.shape)} moduli {key.moduli} {key.variant} (a batch: {keys[key]}): bit-equal to "
+            f"plain" + (f"; plain {timed[0]['plain_ms']:.4f} ms (x{timed[0]['plain_iters']})" if timed else ""))
+        del case, got, want
+        torch.cuda.empty_cache()
+    for r in rows:
+        r.pop("key")
+    return checked
+
+
+def behz_kernel_entries(rows: list, checked: list, paths: dict) -> list:
+    """The BEHZ kernels' entries of the kernels line, at each kernel's
+    widest timed shape (by bytes), with the timed row of every path;
+    library_ms is null: no PyTorch call computes the function."""
+    out = []
+    for name in BEHZ_KERNELS:
+        mine = [r for r in rows if r["name"] == name]
+        if not mine:
+            raise AssertionError(f"no served path launched {name}")
+        widest = max(mine, key=lambda r: r["bytes"])
+        launches_by_path = {p: v["launches"].get(name, 0) for p, v in paths.items() if "launches" in v}
+        out.append(dict(
+            name=name, route="cuda", source=KERNEL_SOURCES[name], replaces=BEHZ_REPLACES[name],
+            launches=sum(launches_by_path.values()),
+            max_abs_err=max(r["max_abs_err"] for r in checked if r["name"] == name),
+            ms=widest["ms"], plain_ms=widest["plain_ms"], bound_ms=widest["bound_ms"], bound_by="bytes",
+            library_ms=None, library=BEHZ_LIBRARY, widest_shape=widest["shape"], widest_path=widest["path"],
+            launches_by_path=launches_by_path, shapes=mine,
+            checked_shapes=sum(r["name"] == name for r in checked),
+        ))
+    return out
+
+
+def behz_summary(entries: list, paths: dict, card: str) -> str:
+    stage = {p: round(v["stages_ms"]["behz_relinearize"], 3) for p, v in paths.items()
+             if "behz_relinearize" in v.get("stages_ms", {})}
+    return ("BEHZ: " + "; ".join(
+        f"{e['name']} {e['ms']:.4f} ms at {e['widest_path']}'s {tuple(e['widest_shape'])} against a byte bound of "
+        f"{e['bound_ms']:.4f} ms ({100 * e['bound_ms'] / e['ms']:.1f}%), plain {e['plain_ms']:.4f} ms, "
+        f"{e['launches']} launches, {e['checked_shapes']} shapes bit-equal" for e in entries)
+        + f"; behz_relinearize device ms by path {stage}; on {card}")
 
 
 def serve_both_routes(label: str, path: str, seed: int, batches: int) -> dict:
@@ -2568,10 +2788,11 @@ def _rank_part(label: str, mesh, run, reps: int, kernels: tuple) -> dict:
     SimplePIR kernel and the plain NTT on CUDA tensors never, and the
     key-switch kernels as key_switch_counts says (the part switches keys
     where ks_digits is one of `kernels`, and expands queries in batches
-    where expand_combine is)."""
+    where expand_combine is) and the BEHZ kernels as behz_counts says (the
+    part multiplies ciphertexts where behz_lift is one of `kernels`)."""
     import torch
 
-    from she_tpu_torch.ops import dim0_cuda, key_switch_cuda, ntt, ntt_cuda, simple_pir_cuda
+    from she_tpu_torch.ops import behz_cuda, dim0_cuda, key_switch_cuda, ntt, ntt_cuda, simple_pir_cuda
     from she_tpu_torch.parallel import collectives
 
     outs, seconds = [], []
@@ -2587,8 +2808,9 @@ def _rank_part(label: str, mesh, run, reps: int, kernels: tuple) -> dict:
         seconds.append(time.perf_counter() - t0)
         outs.append(out)
     launches = (dict(ntt_cuda.launches) | dict(dim0_cuda.launches) | dict(simple_pir_cuda.launches)
-                | dict(key_switch_cuda.launches))
+                | dict(key_switch_cuda.launches) | dict(behz_cuda.launches))
     key_switch_counts(f"{label} rank {rank}", launches, "ks_digits" in kernels, "expand_combine" in kernels)
+    behz_counts(f"{label} rank {rank}", launches, "behz_lift" in kernels)
     if (any(launches[k] == 0 for k in kernels) or (launches["dim0_int8"] and "dim0_int8" not in kernels)
             or launches["simple_pir_matmul"] or any(ntt.plain_calls_on_cuda.values())):
         raise AssertionError(f"[{label}] rank {rank}: launches {launches} (the part's kernels: {kernels}), plain "
@@ -2599,7 +2821,8 @@ def _rank_part(label: str, mesh, run, reps: int, kernels: tuple) -> dict:
     return dict(rank=rank, s=seconds, staged_bytes=collectives.staged["bytes"],
                 staged_s=collectives.staged["seconds"], peak_bytes=torch.cuda.max_memory_allocated(),
                 launches=launches, launch_shapes=dict(ntt_cuda.launch_shapes),
-                dim0_shapes=dict(dim0_cuda.launch_shapes), ks_shapes=dict(key_switch_cuda.launch_shapes), reps=reps,
+                dim0_shapes=dict(dim0_cuda.launch_shapes), ks_shapes=dict(key_switch_cuda.launch_shapes),
+                behz_shapes=dict(behz_cuda.launch_shapes), reps=reps,
                 out=[t.cpu().numpy() for t in outs[0]])
 
 
@@ -2639,7 +2862,7 @@ def mesh_world2(mesh, specs: dict) -> dict:
         responses = meshmod.batch_parallel_response(server, queries, ek, mesh)
         return [torch.stack([r.ciphertexts[0][0].stacked() for r in responses])]
 
-    out = {"a": _rank_part("mesh (a)", mesh, serve_a, MESH_REPS, NTT_AND_DIM0 + KS_KERNELS)}
+    out = {"a": _rank_part("mesh (a)", mesh, serve_a, MESH_REPS, NTT_AND_DIM0 + KS_KERNELS + BEHZ_KERNELS)}
     del server, queries
     torch.cuda.empty_cache()
     spec = specs["d"]
@@ -2684,7 +2907,7 @@ def mesh_world4(mesh, specs: dict) -> dict:
     wide4 = meshmod.make_mesh((4,), ("db",), mesh.backend, dev)
     ctx, server, ek, queries = _rank_pir_server(specs["b"], dev)
     out = {"b": _rank_part("mesh (b)", mesh, lambda: [meshmod.two_axis_response(server, queries, ek, mesh)[0][0]],
-                           MESH_REPS, NTT_AND_DIM0 + KS_KERNELS)}
+                           MESH_REPS, NTT_AND_DIM0 + KS_KERNELS + BEHZ_KERNELS)}
 
     # (c): (b)'s chunk and the expansion of its first half-batch
     ct_ctx = server.ct_ctx
@@ -2751,7 +2974,7 @@ def mesh_world4(mesh, specs: dict) -> dict:
     a, b = (bfv.encrypt(bfv.encode(ctx, [int(v) for v in vals]), sk, seed=bytes([i]) * 32,
                         err_rng=nist_aes128_ctr(bytes([i + 1]) * 32)) for i, vals in enumerate((va, vb)))
     part = _rank_part("mesh (e) sharded_ct_mul S=2", mesh, lambda: [sharded.sharded_ct_mul(a, b, mesh, "db").stacked()],
-                      MESH_REPS, NTT_KERNELS)
+                      MESH_REPS, NTT_KERNELS + BEHZ_KERNELS)
     product = bfv.Ciphertext.from_stacked(ctx, torch.from_numpy(part["out"][0]).to(dev), ctx.ciphertext_context)
     full = np.convolve(va, vb)
     folded = full[: ctx.degree].copy()
@@ -2768,18 +2991,20 @@ def _merge_parts(label: str, parts: list) -> dict:
     peak memory."""
     from collections import Counter
 
-    launches, shapes, dim0, ks = Counter(), Counter(), Counter(), Counter()
+    launches, shapes, dim0, ks, bz = Counter(), Counter(), Counter(), Counter(), Counter()
     for p in parts:
         launches.update(p["launches"])
         shapes.update(p["launch_shapes"])
         dim0.update(p["dim0_shapes"])
         ks.update(p["ks_shapes"])
+        bz.update(p["behz_shapes"])
     reps = parts[0]["reps"]
     per_rank = [dict(rank=p["rank"], s_per_call=p["s"], median_s=statistics.median(p["s"][1:] or p["s"]),
                      staged_bytes=p["staged_bytes"], staged_s=p["staged_s"], peak_bytes=p["peak_bytes"])
                 for p in parts]
     return dict(path=label, launches=dict(launches), launches_per_batch={k: v / reps for k, v in launches.items()},
-                launch_shapes=dict(shapes), dim0_shapes=dict(dim0), ks_shapes=dict(ks), batches=reps, ranks=per_rank)
+                launch_shapes=dict(shapes), dim0_shapes=dict(dim0), ks_shapes=dict(ks), behz_shapes=dict(bz), batches=reps,
+                ranks=per_rank)
 
 
 def _log_part(entry: dict, card: str, what: str) -> None:
@@ -2919,6 +3144,8 @@ def run(args) -> int:
         return ntt_mxu_only(args, card)
     if args.only == "key_switch":
         return key_switch_only(args, card)
+    if args.only == "behz":
+        return behz_only(args, card)
 
     checked = kernel_phase(args.seed)
     paths = {}
@@ -2926,7 +3153,9 @@ def run(args) -> int:
         paths.update(drive())
         torch.cuda.empty_cache()
     cli = cli_phase(args.seed)
+    behz_rows = behz_kernel_timing(paths)  # before any plain BEHZ version
     ks_rows = ks_shape_timing(paths)  # before the NTT's and dim-0's plain versions
+    behz_checked = behz_plain_checks(paths, behz_rows)
     shapes, dim0_rows = timed_launch_shapes(paths)
     for name, rows in shape_timing("cli:simple_pir_process_database", cli.pop("simple_pir_launch_shapes"), 1).items():
         if not rows:
@@ -2950,6 +3179,8 @@ def run(args) -> int:
     kernels.append(mxu_entry)
     ks_entries = ks_kernel_entries(ks_rows, paths)
     kernels += ks_entries
+    behz_entries = behz_kernel_entries(behz_rows, behz_checked, paths)
+    kernels += behz_entries
     if sorted(k["name"] for k in kernels) != sorted(KERNEL_SOURCES):
         raise AssertionError(f"the kernels line names {[k['name'] for k in kernels]}, not {list(KERNEL_SOURCES)}")
     widest = max(dim0_rows, key=lambda r: r["bytes"])
@@ -2991,6 +3222,7 @@ def run(args) -> int:
     log(ntt_mxu_summary(paths, mxu_entry, card))
     log(mesh_summary(paths, card))
     log(ks_summary(ks_entries, paths, card))
+    log(behz_summary(behz_entries, paths, card))
     log(f"cli: every tool exited 0 on the card, {sum(cli['seconds'].values()):.3f} s in all, on {card}")
     log(f"dim0_int8 at the widest served shape ({widest['path']}, digits {widest['digits_shape']}, query "
         f"{widest['query_shape']}): {widest['ms']:.4f} ms against a bound of {widest['bound_ms']:.4f} ms "
@@ -3021,9 +3253,10 @@ def timed_launch_shapes(paths: dict) -> tuple[dict, list]:
 
 def launch_rows(path: dict) -> None:
     """A path's launch counters, keyed by ntt_cuda.LaunchKey (and
-    ntt_mxu_cuda.DirectionKey, key_switch_cuda.KsKey) and by the int8 dim-0
-    kernel's (digits shape, query shape, moduli), as JSON rows, in place."""
-    for key in ("launch_shapes", "setup_launch_shapes", "mxu_shapes", "ks_shapes"):
+    ntt_mxu_cuda.DirectionKey, key_switch_cuda.KsKey, behz_cuda.BehzKey)
+    and by the int8 dim-0 kernel's (digits shape, query shape, moduli), as
+    JSON rows, in place."""
+    for key in ("launch_shapes", "setup_launch_shapes", "mxu_shapes", "ks_shapes", "behz_shapes"):
         if key in path:
             path[key] = [dict(k._asdict(), launches=v) for k, v in path[key].items()]
     path["dim0_shapes"] = [dict(digits_shape=k[0], query_shape=k[1], moduli=k[2], launches=v)
@@ -3115,19 +3348,22 @@ def mesh_summary(paths: dict, card: str) -> str:
 
 
 def mesh_only(args, card: str) -> int:
-    """--only mesh: the mesh phase alone, every NTT, int8 dim-0 and
-    key-switch launch shape of its ranks held to the plain version and
-    timed in this process after the ranks have exited; then the kernels
-    line (the NTT kernels, dim0_int8 and the key-switch kernels, with the
-    ranks' launches) and the last line."""
+    """--only mesh: the mesh phase alone, every NTT, int8 dim-0,
+    key-switch and BEHZ launch shape of its ranks held to the plain
+    version and timed in this process after the ranks have exited; then
+    the kernels line (the NTT kernels, dim0_int8, the key-switch and the
+    BEHZ kernels, with the ranks' launches) and the last line."""
     paths = mesh_phase(args.seed)
+    behz_rows = behz_kernel_timing(paths)
     ks_rows = ks_shape_timing(paths)
+    behz_checked = behz_plain_checks(paths, behz_rows)
     shapes, dim0_rows = timed_launch_shapes(paths)
     kernels = ntt_kernel_entries(shapes, paths, None)
     entry = dim0_kernel_entry(dim0_rows, dim0_w64_check(), sum(p["launches"]["dim0_int8"] for p in paths.values()))
     entry["launches_by_path"] = {p: v["launches"]["dim0_int8"] for p, v in paths.items()}
     kernels.append(entry)
     kernels += ks_kernel_entries(ks_rows, paths)
+    kernels += behz_kernel_entries(behz_rows, behz_checked, paths)
     log(mesh_summary(paths, card))
     return report(args, card, kernels, paths=paths)
 
@@ -3159,16 +3395,33 @@ def key_switch_only(args, card: str) -> int:
     return report(args, card, entries, paths=paths)
 
 
+def behz_only(args, card: str) -> int:
+    """--only behz: the w32, w64 and keyword cells, then each BEHZ kernel
+    timed at the widest shape of each cell and held to its plain version
+    at every shape they launched it with; then the kernels line (the three
+    BEHZ kernels, with these cells' launches) and the last line."""
+    paths = {path: main_path(path, args.seed, args.batches) for path in PATHS}
+    paths["keyword"] = keyword_path(args.seed, args.batches)[0]
+    rows = behz_kernel_timing(paths)
+    entries = behz_kernel_entries(rows, behz_plain_checks(paths, rows), paths)
+    for path, p in paths.items():
+        log(f"{path}: median {p['median_s_per_batch']:.4f} s/batch, peak {p['peak_bytes']} bytes, device ms by stage "
+            f"{ {k: round(v, 3) for k, v in p['stages_ms'].items()} }, on {card}")
+    log(behz_summary(entries, paths, card))
+    return report(args, card, entries, paths=paths)
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batches", type=int, default=3, help="query batches to serve (>= 3)")
     parser.add_argument("--seed", type=int, default=0, help="seed of the database, keys and indices")
     parser.add_argument("--json-out", default=None, help="also write the full results to this file")
-    parser.add_argument("--only", choices=["dim0", "simple_pir", "mesh", "ntt_mxu", "key_switch"], default=None,
+    parser.add_argument("--only", choices=["dim0", "simple_pir", "mesh", "ntt_mxu", "key_switch", "behz"], default=None,
                         help="run one phase alone: dim0, the int8 dim-0 kernel at every served shape; "
                              "simple_pir, the SimplePIR cell; mesh, multi-device serving with gloo ranks; "
                              "ntt_mxu, the matrix NTT (SHE_TPU_NTT_MXU=1) on the MulPIR cells; key_switch, "
-                             "the w32 and keyword cells and the key-switch kernels at their shapes")
+                             "the w32 and keyword cells and the key-switch kernels at their shapes; behz, the w32, "
+                             "w64 and keyword cells and the BEHZ kernels at their shapes")
     args = parser.parse_args(argv)
     if args.batches < 3:
         parser.error("--batches must be at least 3")

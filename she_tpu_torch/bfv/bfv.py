@@ -29,6 +29,7 @@ from ..core import rns as rnsmod
 from ..core.context import PolyContext, get_poly_context
 from ..core.poly import COEFF, EVAL, PolyRq
 from ..device import resolve_device
+from ..ops import behz
 from ..ops import galois as galoismod
 from ..ops import modarith as ma
 from ..ops import ntt as nttmod
@@ -586,65 +587,102 @@ def mod_switch_down_to_single(a: Ciphertext) -> Ciphertext:
 # ---------------------------------------------------------------------------
 
 
-def _compute_behz_polys(ct: Ciphertext) -> list[PolyRq]:
-    """Lift each poly to [q, B_sk] and NTT (reference Bfv+Multiply.swift:51-57)."""
-    tool = ct.context.get_rns_tool(ct.moduli_count)
-    lifted = tool.lift_q_to_qbsk(ct.stacked())  # one lift and NTT for all polys
-    ev = polymod.forward_ntt(PolyRq(lifted, tool.q_bsk_context, COEFF))
-    return [PolyRq(ev.data[..., p, :, :], tool.q_bsk_context, EVAL) for p in range(len(ct.polys))]
+# BEHZ products run since the last reset: on a CUDA card each tensor
+# product launches behz_lift twice (one a side) and behz_tensor_mac once,
+# each drop_extended_base behz_floor once
+behz_runs = {"tensor_product": 0, "floor": 0}
+
+
+def reset_behz_runs() -> None:
+    for k in behz_runs:
+        behz_runs[k] = 0
+
+
+def stacked_view(ct: Ciphertext) -> torch.Tensor:
+    """ct.stacked() without its copy where the polys are equally spaced
+    views of one tensor (a Ciphertext made by from_stacked): a strided view
+    that the BEHZ kernels read in place. Otherwise the stacked copy."""
+    datas = [p.data for p in ct.polys]
+    first = datas[0]
+    if len(datas) > 1:
+        step = datas[1].storage_offset() - first.storage_offset()
+        ptr = first.untyped_storage().data_ptr()
+        if step > 0 and all(d.untyped_storage().data_ptr() == ptr and d.shape == first.shape
+                            and d.stride() == first.stride() and d.storage_offset() == first.storage_offset() + i * step
+                            for i, d in enumerate(datas)):
+            return first.as_strided(first.shape[:-2] + (len(datas),) + first.shape[-2:],
+                                    first.stride()[:-2] + (step,) + first.stride()[-2:])
+    return ct.stacked()
+
+
+def _lifted_eval(ct: Ciphertext, tool) -> torch.Tensor:
+    """Lift each poly to [q, B_sk] and NTT (reference
+    Bfv+Multiply.swift:51-57): [..., polys, L + L_bsk, N] Eval."""
+    lifted = tool.lift_q_to_qbsk(stacked_view(ct))  # one lift and NTT for all polys
+    return polymod.forward_ntt(PolyRq(lifted, tool.q_bsk_context, COEFF)).data
+
+
+def tensor_product(lhs: Ciphertext, rhs: Ciphertext, axis: int | None = None, scale: int = 1) -> Ciphertext:
+    """The tensor product in the extended base [q, B_sk] (reference
+    Bfv+Multiply.swift:63-85): a 3-poly Eval ciphertext over [q, B_sk],
+    summed over the K axis at `axis` of the polys' [..., K, L, N] data
+    where one is given, each row times `scale` mod its modulus. On a CUDA
+    card: two behz_lift launches, their forward NTTs and one
+    behz_tensor_mac (ops/behz.py)."""
+    if lhs.context is not rhs.context:
+        raise errors.IncompatibleContexts("different contexts")
+    if len(lhs.polys) != 2 or len(rhs.polys) != 2:
+        raise errors.InvalidCiphertext("multiply requires 2-poly ciphertexts")
+    if lhs.correction_factor != 1 or rhs.correction_factor != 1:
+        raise errors.InvalidCorrectionFactor("multiply requires correction factor 1")
+    if lhs.fmt != COEFF or rhs.fmt != COEFF:
+        raise errors.InvalidFormat("multiply requires canonical (Coeff) ciphertexts")
+    tool = lhs.context.get_rns_tool(lhs.moduli_count)
+    ext_ctx = tool.q_bsk_context
+    # the K axis of the stacked [..., K, polys, L, N] data
+    stacked_axis = None if axis is None else (axis - 1 if axis < 0 else axis)
+    out = behz.behz_tensor_mac(_lifted_eval(lhs, tool), _lifted_eval(rhs, tool), ext_ctx, scale, stacked_axis)
+    behz_runs["tensor_product"] += 1
+    return Ciphertext.from_stacked(lhs.context, out, ext_ctx, EVAL)
 
 
 def multiply_without_scaling(a: Ciphertext, b: Ciphertext) -> Ciphertext:
     """Tensor product in the extended base (Bfv+Multiply.swift:63-85)."""
-    if a.context is not b.context:
-        raise errors.IncompatibleContexts("different contexts")
-    if len(a.polys) != 2 or len(b.polys) != 2:
-        raise errors.InvalidCiphertext("multiply requires 2-poly ciphertexts")
-    if a.correction_factor != 1 or b.correction_factor != 1:
-        raise errors.InvalidCorrectionFactor("multiply requires correction factor 1")
-    if a.fmt != COEFF or b.fmt != COEFF:
-        raise errors.InvalidFormat("multiply requires canonical (Coeff) ciphertexts")
-    la, lb = _compute_behz_polys(a), _compute_behz_polys(b)
-    p0 = polymod.mul_eval(la[0], lb[0])
-    p1 = polymod.add(polymod.mul_eval(la[0], lb[1]), polymod.mul_eval(la[1], lb[0]))
-    p2 = polymod.mul_eval(la[1], lb[1])
-    return Ciphertext(a.context, [p0, p1, p2], correction_factor=1)
+    return tensor_product(a, b)
 
 
-def drop_extended_base(ct: Ciphertext) -> Ciphertext:
+def drop_extended_base(ct: Ciphertext, scale: int | None = None) -> Ciphertext:
     """[q, B_sk] -> q: multiply by t, inverse NTT, BEHZ floor
-    (Bfv+Multiply.swift:31-48)."""
+    (Bfv+Multiply.swift:31-48). `scale` is the factor applied first: t by
+    default, as she_tpu does; 1 for a product that tensor_product already
+    scaled by t. The scale runs inside the floor (behz_floor), after the
+    inverse NTT, which is linear mod each modulus: the same bits."""
     count = ct.moduli_count
     if count % 2 != 1 or count < 3:
         raise errors.InvalidCiphertext("extended-base ciphertext must have odd moduli count >= 3")
     tool = ct.context.get_rns_tool((count - 1) // 2)
     ext_ctx = ct.polys[0].context
-    t = ct.context.plaintext_modulus
-    scaled = polymod.mul_scalar_rows(PolyRq(ct.stacked(), ext_ctx, EVAL), [t] * count)
-    coeff = polymod.inverse_ntt(scaled)  # one inverse NTT for all polys
-    floored = tool.floor_qbsk_to_q(coeff.data)
+    coeff = polymod.inverse_ntt(PolyRq(stacked_view(ct), ext_ctx, EVAL))  # one inverse NTT for all polys
+    floored = tool.floor_qbsk_to_q(coeff.data, ct.context.plaintext_modulus if scale is None else scale)
+    behz_runs["floor"] += 1
     return Ciphertext.from_stacked(
         ct.context, floored, tool.input_context, COEFF, ct.correction_factor
     )
 
 
 def ct_mul(a: Ciphertext, b: Ciphertext) -> Ciphertext:
-    """Full BEHZ ct*ct, yielding a 3-poly ciphertext (relinearize to get 2)."""
-    return drop_extended_base(multiply_without_scaling(a, b))
+    """Full BEHZ ct*ct, yielding a 3-poly ciphertext (relinearize to get 2):
+    the scale by t runs once, in the tensor product."""
+    return drop_extended_base(tensor_product(a, b, scale=a.context.plaintext_modulus), scale=1)
 
 
 def inner_product_ct_ct_stacked(lhs: Ciphertext, rhs: Ciphertext, axis: int = -3) -> Ciphertext:
     """sum over `axis` of lhs_k * rhs_k for ciphertexts whose polys carry a
     K axis at `axis` of their [..., K, L, N] data: the products accumulate
-    in the extended [q, B_sk] base with one scaling/floor at the end
-    (reference Bfv.swift:236-651)."""
-    prod = multiply_without_scaling(lhs, rhs)
-    ext_ctx = prod.polys[0].context
-    q = ext_ctx.q_col
-    polys = []
-    for p in prod.polys:
-        polys.append(PolyRq(ma.sum_mod(p.data, q, axis), ext_ctx, EVAL))
-    return drop_extended_base(Ciphertext(prod.context, polys, prod.correction_factor))
+    in the extended [q, B_sk] base, scaled by t once, with one floor at
+    the end (reference Bfv.swift:236-651)."""
+    prod = tensor_product(lhs, rhs, axis, lhs.context.plaintext_modulus)
+    return drop_extended_base(prod, scale=1)
 
 
 def inner_product_ct_ct(lhs: list[Ciphertext], rhs: list[Ciphertext]) -> Ciphertext:

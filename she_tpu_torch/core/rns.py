@@ -2,8 +2,10 @@
 
 The port of she_tpu/core/rns.py (and the reference's _RnsBaseConverter /
 _RnsTool, RnsBaseConverter.swift:14-144, RnsTool.swift:18-475). Constants
-are precomputed on the host with Python big ints; the device path is
-modular multiply-adds over int64 [..., L, N] tensors through ops/modarith,
+are precomputed on the host with Python big ints. The lift and the floor
+dispatch to ops/behz.py: its kernels on a CUDA tensor, and on the CPU
+their plain versions, which are this module's passes: modular
+multiply-adds over int64 [..., L, N] tensors through ops/modarith,
 whose lazy sums are bounded by modarith.lazy_product_count: the int64
 route at 32-bit scalars, the exact wide route (ops/wide.py) at 64 bits,
 where m~ = 2^32, gamma = 2^62 - 40797 and 61-bit B_sk primes make every
@@ -21,6 +23,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..ops import behz
 from ..ops import modarith as ma
 from ..utils import nt
 from .context import PolyContext, get_poly_context
@@ -218,9 +221,8 @@ class RnsTool:
 
     def lift_q_to_qbsk(self, x: torch.Tensor) -> torch.Tensor:
         """Alg 2: [..., L, N] over q -> [..., L + L_bsk, N] over [q, B_sk]
-        (RnsTool.swift:324-331)."""
-        bsk = self.small_montgomery_reduce(self.convert_approximate_bsk_mtilde(x))
-        return torch.cat((x, bsk), dim=-2)
+        (RnsTool.swift:324-331): ops/behz.behz_lift."""
+        return behz.behz_lift(x, self)
 
     def approximate_floor(self, y: torch.Tensor) -> torch.Tensor:
         """Uncorrected RNS floor: [..., L + L_bsk, N] over [q, B_sk] ->
@@ -250,10 +252,11 @@ class RnsTool:
         adj_le = ma.mul_mod(alpha, self.neg_b_mod_q, q, bound=m_sk)
         return ma.add_mod(out, torch.where(exceeds, adj_gt, adj_le), q)
 
-    def floor_qbsk_to_q(self, y: torch.Tensor) -> torch.Tensor:
+    def floor_qbsk_to_q(self, y: torch.Tensor, scale: int = 1) -> torch.Tensor:
         """[..., L + L_bsk, N] over [q, B_sk] -> floor(x/q) over q
-        (RnsTool.swift:453-456)."""
-        return self.convert_approximate_bsk_to_q(self.approximate_floor(y))
+        (RnsTool.swift:453-456), each row of y first times `scale` mod its
+        modulus (1: none): ops/behz.behz_floor."""
+        return behz.behz_floor(y, self, scale)
 
     # -- host helpers -------------------------------------------------------
 

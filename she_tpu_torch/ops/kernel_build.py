@@ -1,8 +1,9 @@
 """Builds the port's CUDA sources with nvcc and loads them with ctypes.
 
 Each source under she_tpu_torch/csrc/ compiles on first use into a shared
-library with a plain C interface, named by a hash of the source and the
-flags, in csrc/build/ (listed in .gitignore). Nothing is built when the
+library with a plain C interface, named by a hash of the source, the
+headers it includes from csrc/ and the flags, in csrc/build/ (listed in
+.gitignore). Nothing is built when the
 package is imported. `build` starts one nvcc per source at once and waits
 for all of them; `load` builds what is missing and opens it.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -20,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = {"ntt": "ntt.cu", "dim0_int8": "dim0_int8.cu", "simple_pir_matmul": "simple_pir_matmul.cu",
-           "ntt_mxu": "ntt_mxu.cu", "key_switch": "key_switch.cu"}
+           "ntt_mxu": "ntt_mxu.cu", "key_switch": "key_switch.cu", "behz": "behz.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -40,9 +42,31 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def source_bytes(name: str) -> bytes:
+    """The source of `name` and every header it includes from csrc/ with a
+    quoted #include, recursively, each once."""
+    seen, parts = set(), []
+
+    def add(path: Path) -> None:
+        if path in seen or not path.is_file():
+            return
+        seen.add(path)
+        data = path.read_bytes()
+        parts.append(data)
+        for header in _INCLUDE.findall(data):
+            add(path.parent / header.decode())
+
+    add(CSRC / SOURCES[name])
+    return b"".join(parts)
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library's path, named by a hash of the source, its headers and
+    the flags: an edit to a header builds anew."""
+    digest = hashlib.sha256(source_bytes(name) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

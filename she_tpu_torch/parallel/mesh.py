@@ -53,7 +53,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from .. import errors
 from ..bfv import bfv
-from ..core.poly import EVAL, PolyRq
+from ..core.poly import EVAL
 from ..ops import modarith as ma
 from ..pir import serving
 from . import collectives
@@ -240,9 +240,11 @@ def dim0_partial_psum(db_chunk: torch.Tensor, query_eval: torch.Tensor, ct_ctx, 
 def _fold_dimensions_partitioned(server, columns: torch.Tensor, rest: torch.Tensor, evaluation_key, mesh: Mesh,
                                  axis: str) -> torch.Tensor:
     """server.fold_dimensions with each dimension's ct-ct terms split over
-    `axis`: a rank lifts and multiplies its dim_size/S pairs, the
-    extended-base sums are combined by the butterfly, then one
-    drop_extended_base and relinearization (she_tpu mesh.py:229-286)."""
+    `axis`: a rank lifts and multiplies its dim_size/S pairs (one
+    tensor_product, scaled by t: the sum of scaled partials is the scaled
+    sum, bit for bit), the extended-base sums are combined by the
+    butterfly, then one floor, unscaled, and relinearization (she_tpu
+    mesh.py:229-286)."""
     ctx, ct_ctx = server.context, server.ct_ctx
     query_start = 0
     for dim_size in server.parameter.dimensions[1:]:
@@ -251,14 +253,12 @@ def _fold_dimensions_partitioned(server, columns: torch.Tensor, rest: torch.Tens
         groups = []
         for start in range(0, columns.shape[1], dim_size):
             v1 = columns[:, start + terms.start : start + terms.stop]
-            prod = bfv.multiply_without_scaling(
-                bfv.Ciphertext.from_stacked(ctx, v0, ct_ctx), bfv.Ciphertext.from_stacked(ctx, v1, ct_ctx)
-            )
+            prod = bfv.tensor_product(bfv.Ciphertext.from_stacked(ctx, v0, ct_ctx),
+                                      bfv.Ciphertext.from_stacked(ctx, v1, ct_ctx), -3, ctx.plaintext_modulus)
             ext_ctx = prod.polys[0].context
-            partial = torch.stack([ma.sum_mod(p.data, ext_ctx.q_col, -3) for p in prod.polys])
-            summed = butterfly_add(partial, ext_ctx.q_col, mesh, axis)
-            acc = bfv.Ciphertext(prod.context, [PolyRq(p, ext_ctx, EVAL) for p in summed], prod.correction_factor)
-            groups.append(bfv.relinearize(bfv.drop_extended_base(acc), evaluation_key).stacked())
+            summed = butterfly_add(bfv.stacked_view(prod), ext_ctx.q_col, mesh, axis)  # [B, 3, M, N]
+            acc = bfv.Ciphertext.from_stacked(prod.context, summed, ext_ctx, EVAL, prod.correction_factor)
+            groups.append(bfv.relinearize(bfv.drop_extended_base(acc, scale=1), evaluation_key).stacked())
         columns = torch.stack(groups, dim=1)  # [B, groups, 2, L, N]
         query_start += dim_size
     if columns.shape[1] != 1:

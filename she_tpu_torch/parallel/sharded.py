@@ -20,9 +20,10 @@ parallel/mesh.py):
 * `limb_parallel_ntt_fns`: the L rows split over the axis; each rank
   transforms its rows with their rows' tables, no collective.
 * `sharded_ct_mul`: the BEHZ ct x ct multiply (bfv.ct_mul) with every
-  polynomial sharded on N: the lift, the sharded forward NTT, the row
-  products, the scaling by t, the sharded inverse and the floor, all on
-  the shard; only the NTTs exchange.
+  polynomial sharded on N: the lift (read in place from the rank's block
+  of N/S columns), the sharded forward NTT, the tensor product scaled by
+  t, the sharded inverse and the floor, all on the shard, through the
+  BEHZ kernels of ops/behz.py on a CUDA card; only the NTTs exchange.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 from .. import errors
 from ..bfv import bfv
 from ..core.poly import COEFF
+from ..ops import behz
 from ..ops import modarith as ma
 from ..ops import ntt as nttmod
 from ..ops import wide
@@ -130,16 +132,14 @@ def sharded_ct_mul(a: "bfv.Ciphertext", b: "bfv.Ciphertext", mesh, axis: str = "
     tool = ctx.get_rns_tool(a.moduli_count)
     qbsk = tool.q_bsk_context
     sn = ShardedNtt(mesh, qbsk.ntt_tables, axis)
-    q = qbsk.q_col
+    columns = slice(sn.block * sn.n_local, (sn.block + 1) * sn.n_local)
 
     def lifted_eval(ct):  # [2, L + L_bsk, N/S] Eval
-        return sn.forward_local(tool.lift_q_to_qbsk(sn._block(ct.stacked())))
+        return sn.forward_local(tool.lift_q_to_qbsk(bfv.stacked_view(ct)[..., columns]))
 
-    la, lb = lifted_eval(a), lifted_eval(b)
-    p1 = ma.add_mod(ma.mul_mod(la[0], lb[1], q), ma.mul_mod(la[1], lb[0], q), q)
-    prods = torch.stack((ma.mul_mod(la[0], lb[0], q), p1, ma.mul_mod(la[1], lb[1], q)))
-    t = ctx.plaintext_modulus
-    scaled = ma.mul_mod(prods, qbsk.column(t % m for m in qbsk.moduli), q)
+    scaled = behz.behz_tensor_mac(lifted_eval(a), lifted_eval(b), qbsk, ctx.plaintext_modulus)  # [3, M, N/S]
     floored = tool.floor_qbsk_to_q(sn.inverse_local(scaled))  # [3, L, N/S]
+    for k in bfv.behz_runs:  # one tensor product and one floor, as bfv.ct_mul counts them
+        bfv.behz_runs[k] += 1
     whole = collectives.all_gather_batch(floored, mesh, axis, dim=-1)
     return bfv.Ciphertext.from_stacked(ctx, whole, tool.input_context, COEFF, a.correction_factor)

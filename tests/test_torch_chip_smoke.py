@@ -1,5 +1,5 @@
-"""chip_smoke.py's phase selection, its cells (the mesh phase's too) and
-its table of served int8 dim-0 shapes, on the CPU: the script is imported
+"""chip_smoke.py's phase selection, its cells (the mesh phase's too), its
+table of served int8 dim-0 shapes and its byte bounds, on the CPU: the script is imported
 (its top level needs only the standard library) and its arguments
 parsed; nothing runs on a card."""
 
@@ -54,6 +54,10 @@ def test_only_key_switch_selects_the_key_switch_cells():
     assert chip_smoke.parse_args(["--only", "key_switch"]).only == "key_switch"
 
 
+def test_only_behz_selects_the_behz_cells():
+    assert chip_smoke.parse_args(["--only", "behz"]).only == "behz"
+
+
 def test_ntt_mxu_cells():
     """The matrix NTT serves the w32 cell for --batches batches and one
     batch of the w64 cell (8 digits), and checks its kernel at 60-bit
@@ -70,16 +74,19 @@ def test_ntt_mxu_cells():
 
 def test_kernels_line_names_every_kernel():
     """The kernels line (run() checks its names against KERNEL_SOURCES)
-    covers all five sources the package builds: the NTT's two kernels,
-    dim0_int8, simple_pir_matmul, ntt_mxu and the key switch's four."""
+    covers all six sources the package builds: the NTT's two kernels,
+    dim0_int8, simple_pir_matmul, ntt_mxu, the key switch's four and the
+    BEHZ product's three."""
     from she_tpu_torch.ops import kernel_build
 
     assert set(chip_smoke.KERNEL_SOURCES) == {"ntt_forward", "ntt_inverse", "dim0_int8", "simple_pir_matmul",
-                                              "ntt_mxu", "ks_digits", "ks_mac", "ks_finish", "expand_combine"}
+                                              "ntt_mxu", "ks_digits", "ks_mac", "ks_finish", "expand_combine",
+                                              "behz_lift", "behz_tensor_mac", "behz_floor"}
     assert set(chip_smoke.KERNEL_SOURCES.values()) == {
         f"she_tpu_torch/csrc/{source}" for source in kernel_build.SOURCES.values()}
-    assert len(kernel_build.SOURCES) == 5
+    assert len(kernel_build.SOURCES) == 6
     assert set(chip_smoke.KS_REPLACES) == set(chip_smoke.KS_KERNELS) == set(chip_smoke.KS_LIBRARY)
+    assert set(chip_smoke.BEHZ_REPLACES) == set(chip_smoke.BEHZ_KERNELS)
 
 
 def test_key_switch_byte_bounds():
@@ -99,6 +106,37 @@ def test_key_switch_byte_bounds():
     assert chip_smoke.ks_bytes(KsKey("ks_finish", (128, 128, 2, 3, 4096), moduli, relin)) == 14 * unit
     assert chip_smoke.ks_bytes(KsKey("expand_combine", (128, 128, 2, 2, 4096), moduli[:2], (64, 511))) == 16 * unit
     assert 1e3 * 8 * unit / chip_smoke.HBM_BYTES_PER_S == pytest.approx(1.282, abs=5e-4)
+
+
+def test_behz_byte_bounds():
+    """At the keyword cell (128 queries, K = 31 pairs, L = 2, L_bsk = 3,
+    N = 4096) the lift of both sides moves 3.641 GB (1.087 ms at 3.35
+    TB/s), the MAC 2.663 GB and the floor 0.088 GB; at w64 (K = 4,
+    N = 8192) 0.940, 0.797 and 0.176 GB."""
+    from she_tpu_torch.ops.behz_cuda import BehzKey
+
+    q, bsk = (1, 2), (3, 4, 5)
+    ext = q + bsk
+    for (K, n), (lift, mac, floor) in (((31, 4096), (3.641, 2.663, 0.088)), ((4, 8192), (0.940, 0.797, 0.176))):
+        both_sides = 2 * chip_smoke.behz_bytes(BehzKey("behz_lift", (128, K, 2, 2, n), (q, bsk), (1 << 16, ())))
+        assert both_sides / 1e9 == pytest.approx(lift, abs=5e-4)
+        assert chip_smoke.behz_bytes(BehzKey("behz_tensor_mac", (128, K, 2, 5, n), ext, (17,))) / 1e9 == pytest.approx(
+            mac, abs=5e-4)
+        assert chip_smoke.behz_bytes(BehzKey("behz_floor", (128, 3, 7, n), (q, bsk), (1, ()))) / 1e9 == pytest.approx(
+            floor, abs=5e-4)
+    keyword_lift = 2 * chip_smoke.behz_bytes(BehzKey("behz_lift", (128, 31, 2, 2, 4096), (q, bsk), (1 << 16, ())))
+    assert 1e3 * keyword_lift / chip_smoke.HBM_BYTES_PER_S == pytest.approx(1.087, abs=5e-4)
+
+
+def test_strided_like_keeps_the_layout():
+    """A launch's input made again with its recorded strides (a transposed
+    view, a block of columns) holds the same values at the same strides."""
+    import torch
+
+    base = torch.arange(2 * 3 * 4 * 8).reshape(2, 3, 4, 8)
+    for view in (base.transpose(0, 1), base[..., 4:], base.transpose(0, 1)[:, :, 1:3]):
+        again = chip_smoke.strided_like(view.contiguous(), view.stride())
+        assert again.stride() == view.stride() and torch.equal(again, view)
 
 
 def test_mxu_bound():
@@ -202,13 +240,17 @@ def test_launch_rows():
 
     from she_tpu_torch.ops.ntt_cuda import LaunchKey
 
+    from she_tpu_torch.ops.behz_cuda import BehzKey
     from she_tpu_torch.ops.key_switch_cuda import KsKey
 
     path = dict(launch_shapes=Counter({LaunchKey("ntt_forward", (3, 2048), (17, 97), (4096, 2, 1)): 2}),
                 dim0_shapes=Counter({((2, 8, 4, 32), (8, 4, 2, 8), (17, 97)): 1}),
-                ks_shapes=Counter({KsKey("ks_digits", (4, 1, 8), (17, 97), (3, None)): 5}))
+                ks_shapes=Counter({KsKey("ks_digits", (4, 1, 8), (17, 97), (3, None)): 5}),
+                behz_shapes=Counter({BehzKey("behz_floor", (4, 3, 8), ((17,), (97, 113)), (5, (24, 8, 1))): 2}))
     chip_smoke.launch_rows(path)
     assert json.loads(json.dumps(path)) == dict(
         launch_shapes=[dict(name="ntt_forward", shape=[3, 2048], moduli=[17, 97], block=[4096, 2, 1], launches=2)],
         dim0_shapes=[dict(digits_shape=[2, 8, 4, 32], query_shape=[8, 4, 2, 8], moduli=[17, 97], launches=1)],
-        ks_shapes=[dict(name="ks_digits", shape=[4, 1, 8], moduli=[17, 97], variant=[3, None], launches=5)])
+        ks_shapes=[dict(name="ks_digits", shape=[4, 1, 8], moduli=[17, 97], variant=[3, None], launches=5)],
+        behz_shapes=[dict(name="behz_floor", shape=[4, 3, 8], moduli=[[17], [97, 113]], variant=[5, [24, 8, 1]],
+                          launches=2)])

@@ -1,30 +1,37 @@
 #!/usr/bin/env python3
-"""Split the device time of the port's key switches by part, on one NVIDIA card.
+"""Split the device time of the port's key switches and BEHZ products by part, on one NVIDIA card.
 
 For each cell asked for (keyword, w32, w64, pnns_w32, pnns_w64: the cells
 of chip_smoke.py, built the same way from the same seeds) it serves
 `--batches` batches and reports the median seconds a batch, the device ms
 by stage of one batch (chip_smoke.stage_split, CUDA events), and one more
-batch under torch.profiler with each part of a key switch inside a
-record_function range: its device ms (the kernels the profiler links to the
-range) and its kernel launches, apart for the expansion, the
-relinearizations and the other Galois rotations (PNNS). The parts: the
-Galois gather, the digits (each digit reduced mod every key-switching
-modulus), the forward NTT, the MAC against the key, the inverse NTT, the
-divide-and-round by q_ks, the add into c0 (and c1) and the expansion's
-combine (c' + parent, (parent - c') x^-k into the slot pool); `other` is
-the rest of the stage (the pool's index_select and scatters, stacking
-copies, the leaves' doubling). A CUDA-event span of every part is kept
-beside it.
+batch under torch.profiler with each part inside a record_function range:
+its device ms (the kernels the profiler links to the range) and its kernel
+launches, apart for the expansion, the BEHZ stage (the higher dimensions'
+ct x ct inner products and their relinearizations, serving's
+fold_dimensions) and the other Galois rotations (PNNS). A CUDA-event span
+of every part is kept beside it.
+
+The key switch's parts: the Galois gather, the digits (each digit reduced
+mod every key-switching modulus), the forward NTT, the MAC against the
+key, the inverse NTT, the divide-and-round by q_ks, the add into c0 (and
+c1) and the expansion's combine (c' + parent, (parent - c') x^-k into the
+slot pool). The BEHZ stage's parts: the lift to [q, B_sk], the forward
+NTT, the tensor product, its sum over the K pairs, the scale by t, the
+inverse NTT, the floor back to q and the relinearization (one part,
+its key switch inside). `other` is the rest of a stage (the pool's
+index_select and scatters, stacking copies, the leaves' doubling).
 
 The port and chip_smoke.py are imported from `--root`, so the same script
 measures a checkout of an older commit and this tree: where the tree has
-ops/key_switch.py its four functions are the parts (the gather and the
-digits are one kernel there, as are the divide-and-round and the add);
-otherwise the plain passes of that tree's key switch are labelled where
-they are called. Key and query randomness comes from a generator seeded
-with --seed (os.urandom is replaced in the port's modules), so two trees
-answer with the same bits: each cell prints a digest of its responses.
+ops/key_switch.py its four functions are the key switch's parts (the
+gather and the digits are one kernel there, as are the divide-and-round
+and the add), and where it has ops/behz.py its tensor MAC is one part
+(product, sum and scale in one kernel); otherwise the plain passes are
+labelled where they are called. Key and query randomness comes from a
+generator seeded with --seed (os.urandom is replaced in the port's
+modules), so two trees answer with the same bits: each cell prints a
+digest of its responses.
 
 Run from the repository root, on a machine with the card:
   python3 tools/key_switch_split.py [--root DIR] [--cells keyword,w64] [--batches 3] [--json-out FILE]
@@ -115,8 +122,11 @@ def instrument(labels: Labels) -> str:
     from she_tpu_torch.pir import serving
 
     bfv.apply_galois = labels.stage_wrapper("galois", bfv.apply_galois)
-    bfv.relinearize = labels.stage_wrapper("relinearize", bfv.relinearize)
+    # one part inside the BEHZ stage, a stage of its own elsewhere
+    bfv.relinearize = labels.part_wrapper("relinearize", labels.stage_wrapper("relinearize", bfv.relinearize))
     serving.expand_stacked = labels.stage_wrapper("expansion", serving.expand_stacked)
+    serving.BatchedMulPirServer.fold_dimensions = labels.stage_wrapper(
+        "behz", serving.BatchedMulPirServer.fold_dimensions)
     ntt.forward_ntt = labels.part_wrapper("ntt_fwd", ntt.forward_ntt)
     ntt.inverse_ntt = labels.part_wrapper("ntt_inv", ntt.inverse_ntt)
     try:
@@ -137,6 +147,31 @@ def instrument(labels: Labels) -> str:
     serving.bfv = proxy(bfv, ct_add=labels.part_wrapper("combine", bfv.ct_add),
                         ct_sub=labels.part_wrapper("combine", bfv.ct_sub),
                         multiply_power_of_x=labels.part_wrapper("combine", bfv.multiply_power_of_x))
+    return "plain"
+
+
+def instrument_behz(labels: Labels) -> str:
+    """Wrap the BEHZ product's parts: the lift and the floor (RnsTool's
+    methods in every tree), and where the tree has ops/behz.py its tensor
+    MAC, else the plain product, sum over K and scale by t; returns which
+    kind of tree it is."""
+    from she_tpu_torch.bfv import bfv
+    from she_tpu_torch.core import poly, rns
+    from she_tpu_torch.ops import modarith
+
+    rns.RnsTool.lift_q_to_qbsk = labels.part_wrapper("lift", rns.RnsTool.lift_q_to_qbsk)
+    rns.RnsTool.floor_qbsk_to_q = labels.part_wrapper("floor", rns.RnsTool.floor_qbsk_to_q)
+    try:
+        behz = importlib.import_module("she_tpu_torch.ops.behz")
+    except ImportError:
+        behz = None
+    if behz is not None:
+        behz.behz_tensor_mac = labels.part_wrapper("tensor_mac", behz.behz_tensor_mac)
+        return "kernels"
+    poly.mul_eval = labels.part_wrapper("product", poly.mul_eval)
+    poly.add = labels.part_wrapper("product", poly.add)
+    poly.mul_scalar_rows = labels.part_wrapper("scale", poly.mul_scalar_rows)
+    bfv.ma = proxy(modarith, sum_mod=labels.part_wrapper("sum", modarith.sum_mod))
     return "plain"
 
 
@@ -342,13 +377,14 @@ def main() -> int:
     kernel_build.build()
     labels = Labels()
     kind = instrument(labels)
+    behz_kind = instrument_behz(labels)
     seed_urandom(args.seed)
     card = cs.card_line()
-    print(f"key_switch_split: tree {root} ({kind} key switch), card {card}", flush=True)
+    print(f"key_switch_split: tree {root} ({kind} key switch, {behz_kind} BEHZ product), card {card}", flush=True)
     results = {cell: run_cell(cs, labels, cell, args.seed, args.batches) for cell in cells}
     if args.json_out:
         with open(args.json_out, "w") as f:
-            json.dump(dict(root=str(root), kind=kind, card=card, cells=results), f, indent=1)
+            json.dump(dict(root=str(root), kind=kind, behz_kind=behz_kind, card=card, cells=results), f, indent=1)
     print(json.dumps({cell: dict(digest=r["digest"], median_s_per_batch=r["median_s_per_batch"])
                       for cell, r in results.items()}))
     return 0
