@@ -115,7 +115,22 @@ then PNNS (BatchedPnnsServer), 16 cosine-similarity queries a batch over a
    first, before any plain BEHZ version runs (and before the key switch's
    are timed), beside its byte bound; after the key switch's checks every
    launched shape is held bit-equal to its plain version;
-15. print one JSON line with every kernel's numbers, and as the last line
+15. the dim-0 MAC and the expansion's leaves (mac_kernel_timing,
+   mac_plain_checks; ks_shape_timing for expand_leaves): every MAC a path
+   serves (the w64 cell's dim-0, both PNNS cells' BSGS products, the
+   per-query server's ct x pt products behind the service and Symmetric
+   PIR, mesh (c) at 64 bits and (d), the CLI's warm pnns, the matrix NTT's
+   w64 batch) goes through csrc/dim0_mac.cu, and every batched
+   expansion writes its leaves from the level that makes them, through
+   expand_combine's leaf instance (expand_leaves); a path fails if it
+   serves a MAC and never launched dim0_mac, if a plain MAC ran on CUDA
+   tensors, or if an expansion level that wrote leaves did not launch
+   expand_leaves; dim0_mac is timed at the widest shape of each path
+   first, before any plain MAC runs, beside its byte bound, then held
+   bit-equal to its plain version at every launched shape; expand_leaves
+   is timed with the key switch's kernels, beside torch.index_select of
+   the same leaves;
+16. print one JSON line with every kernel's numbers, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without the last line. Run from the repository
@@ -129,7 +144,8 @@ shapes held and timed too), then prints the kernels line and the last
 line. `--only mesh` does the same for step 10 and `--only ntt_mxu` for
 step 11. `--only key_switch` serves the w32 and keyword cells and runs
 step 13 on their shapes. `--only behz` serves the w32, w64 and keyword
-cells and runs step 14 on their shapes.
+cells and runs step 14 on their shapes. `--only dim0_mac` serves the w64,
+w32, keyword and both PNNS cells and runs step 15 on their shapes.
 """
 
 from __future__ import annotations
@@ -224,12 +240,14 @@ MESH_REPS = 3  # calls of each part on each rank, the first a warm-up
 NTT_KERNELS = ("ntt_forward", "ntt_inverse")
 NTT_AND_DIM0 = NTT_KERNELS + ("dim0_int8",)
 # the key switch's kernels (csrc/key_switch.cu): a key switch launches the
-# first three once each, an expansion level expand_combine once
-KS_KERNELS = ("ks_digits", "ks_mac", "ks_finish", "expand_combine")
+# first three once each, an expansion level expand_combine once, or its leaf
+# instance (expand_leaves) where the level writes leaves into the output
+KS_KERNELS = ("ks_digits", "ks_mac", "ks_finish", "expand_combine", "expand_leaves")
 KS_SWITCH = KS_KERNELS[:3]
 # the she_tpu functions each replaces (none is a Pallas kernel: XLA fuses them)
 KS_REPLACES = {"ks_digits": "she_tpu/ops/galois.py:61", "ks_mac": "she_tpu/bfv/keys.py:319",
-               "ks_finish": "she_tpu/core/poly.py:207", "expand_combine": "she_tpu/pir/serving.py:160"}
+               "ks_finish": "she_tpu/core/poly.py:207", "expand_combine": "she_tpu/pir/serving.py:160",
+               "expand_leaves": "she_tpu/pir/serving.py:168"}
 # the BEHZ product's kernels (csrc/behz.cu): a tensor product launches
 # behz_lift twice (a side) and behz_tensor_mac once, a floor behz_floor once
 BEHZ_KERNELS = ("behz_lift", "behz_tensor_mac", "behz_floor")
@@ -237,6 +255,10 @@ BEHZ_REPLACES = {"behz_lift": "she_tpu/core/rns.py:376", "behz_tensor_mac": "she
                  "behz_floor": "she_tpu/core/rns.py:458"}
 BEHZ_LIBRARY = ("none: no PyTorch call computes a base conversion between moduli sets or a modular sum of 128-bit "
                 "products")
+# the dim-0 MAC (csrc/dim0_mac.cu): every dim-0 MAC form, PNNS BSGS product and
+# ct x pt inner product; the function of she_tpu that the w64 cell serves
+MAC_REPLACES = "she_tpu/pir/serving.py:344"
+MAC_LIBRARY = "none: no PyTorch call computes a modular sum of 128-bit products"
 
 # the matrix NTT (ntt_mxu): she_tpu's opt-in SHE_TPU_NTT_MXU=1 on the
 # MulPIR cells, label -> (path of PATHS, batches: None for --batches)
@@ -257,7 +279,14 @@ KERNEL_SOURCES = {
     "behz_lift": "she_tpu_torch/csrc/behz.cu",
     "behz_tensor_mac": "she_tpu_torch/csrc/behz.cu",
     "behz_floor": "she_tpu_torch/csrc/behz.cu",
+    "expand_leaves": "she_tpu_torch/csrc/key_switch.cu",
+    "dim0_mac": "she_tpu_torch/csrc/dim0_mac.cu",
 }
+# ptxas_lines' labels of each kernel's instances
+PTXAS_LABELS = {"ks_digits": "ks_digits_kernel", "ks_mac": "ks_mac_kernel", "ks_finish": "ks_finish_kernel",
+                "expand_combine": "expand_combine_kernel", "expand_leaves": "expand_leaves", "dim0_mac": "dim0_mac_kernel"}
+# profiler names of the kernels where f"{name}_kernel" does not single them out
+PROFILE_NAMES = {"expand_combine": "expand_combine_kernel<false", "expand_leaves": "expand_combine_kernel<true"}
 MESH_PATHS = ("mesh_batch_w32", "mesh_two_axis_w32", "mesh_pnns_w32", "mesh_dim0_psum", "mesh_sharded")
 
 
@@ -307,8 +336,9 @@ def ptxas_lines(name: str) -> list[str]:
     planes against four query planes, 32 and 8 request rows), with the
     dynamic shared memory and stages of their rings; and of the matrix
     NTT's fused kernel at 4, 8 and 9 digits, both directions; of every
-    key-switch kernel instance (each one is served); and of the BEHZ
-    kernels (the lift and the floor at every L)."""
+    key-switch kernel instance (each one is served, expand_combine's leaf
+    instances as expand_leaves); of the BEHZ kernels (the lift and the
+    floor at every L); and of every tile of the dim-0 MAC."""
     import re
 
     from she_tpu_torch.ops import kernel_build
@@ -337,11 +367,19 @@ def ptxas_lines(name: str) -> list[str]:
             m = re.search(r"ntt_mxu_kernelILi(\d)ELb([01])E", line)
             label = (f"ntt_mxu_kernel<D={m.group(1)}, {'forward' if m.group(2) == '1' else 'inverse'}>"
                      if m and m.group(1) in "489" else None)
-        elif "Compiling entry function" in line and re.search(r"ks_\w+_kernel|expand_combine_kernel", line):
-            m = re.search(r"(ks_\w+?_kernel|expand_combine_kernel)(?:ILNS_\d+FinishE(\d)E|ILb([01])E)?", line)
+        elif "Compiling entry function" in line and "expand_combine_kernel" in line:
+            m = re.search(r"expand_combine_kernelILb([01])ELb([01])E", line)
+            label = ("expand_combine_kernel" if m is None else
+                     {"00": "expand_combine_kernel", "10": "expand_leaves (expand_combine_kernel<leaves>)",
+                      "11": "expand_leaves (expand_combine_kernel<leaves, doubled>)"}.get(m.group(1) + m.group(2)))
+        elif "Compiling entry function" in line and re.search(r"ks_\w+_kernel", line):
+            m = re.search(r"(ks_\w+?_kernel)(?:ILNS_\d+FinishE(\d)E|ILb([01])E)?", line)
             variant = (("update", "galois", "relinearize")[int(m.group(2))] if m.group(2)
                        else {"0": "no gather", "1": "gather"}.get(m.group(3)))
             label = m.group(1) + (f"<{variant}>" if variant else "")
+        elif "Compiling entry function" in line and "dim0_mac_kernel" in line:
+            m = re.search(r"dim0_mac_kernelILi(\d+)ELi(\d+)E", line)
+            label = f"dim0_mac_kernel<MT={m.group(1)}, M2T={m.group(2)}>" if m else None
         elif "Compiling entry function" in line and "behz_" in line:
             m = re.search(r"(behz_(?:lift|floor|tensor_mac)_kernel)(?:ILi(\d)E)?", line)
             label = m.group(1) + (f"<L={m.group(2)}>" if m.group(2) else "")
@@ -359,18 +397,19 @@ def prod(shape) -> int:
 
 def reset_counts() -> None:
     """Every kernel's launch count and launch shapes, the plain NTTs',
-    key-switch and BEHZ passes' counts on CUDA tensors, and the port's
-    count of key switches, expansion levels, tensor products and floors set
-    to 0: just before a path is driven."""
+    key-switch, BEHZ and dim-0 MAC passes' counts on CUDA tensors, and the
+    port's count of key switches, expansion levels (and of them those that
+    write leaves), tensor products and floors set to 0: just before a path
+    is driven."""
     from she_tpu_torch.bfv import bfv, keys
-    from she_tpu_torch.ops import behz, behz_cuda, dim0_cuda, key_switch, key_switch_cuda, ntt, ntt_cuda, ntt_mxu
-    from she_tpu_torch.ops import ntt_mxu_cuda, simple_pir_cuda
+    from she_tpu_torch.ops import behz, behz_cuda, dim0_cuda, dim0_mac, dim0_mac_cuda, key_switch, key_switch_cuda
+    from she_tpu_torch.ops import ntt, ntt_cuda, ntt_mxu, ntt_mxu_cuda, simple_pir_cuda
     from she_tpu_torch.pir import serving
 
-    for wrapper in (ntt_cuda, dim0_cuda, simple_pir_cuda, ntt_mxu_cuda, key_switch_cuda, behz_cuda):
+    for wrapper in (ntt_cuda, dim0_cuda, simple_pir_cuda, ntt_mxu_cuda, key_switch_cuda, behz_cuda, dim0_mac_cuda):
         wrapper.reset_launches()
     for counts in (ntt.plain_calls_on_cuda, ntt_mxu.plain_calls_on_cuda, key_switch.plain_calls_on_cuda,
-                   behz.plain_calls_on_cuda):
+                   behz.plain_calls_on_cuda, dim0_mac.plain_calls_on_cuda):
         for k in counts:
             counts[k] = 0
     keys.reset_switches()
@@ -380,20 +419,24 @@ def reset_counts() -> None:
 
 def key_switch_counts(label: str, launches: dict, switches: bool, expands: bool) -> None:
     """Fails unless each of ks_digits, ks_mac and ks_finish launched once a
-    key switch the port ran (bfv/keys.switches) and expand_combine once an
-    expansion level (pir/serving.levels_run); if a path that switches keys
+    key switch the port ran (bfv/keys.switches), expand_leaves once an
+    expansion level that wrote leaves and expand_combine once any other
+    level (pir/serving.levels_run); if a path that switches keys
     (`switches`) ran no key switch, or one that expands queries in batches
-    (`expands`) no level; or if a plain key-switch pass ran on CUDA
-    tensors."""
+    (`expands`) no level or no level that wrote its leaves; or if a plain
+    key-switch pass (the leaves' too) ran on CUDA tensors."""
     from she_tpu_torch.bfv import keys
     from she_tpu_torch.ops import key_switch
     from she_tpu_torch.pir import serving
 
     ran = keys.switches | serving.levels_run
-    if any(launches[k] != ran["key_switch"] for k in KS_SWITCH) or launches["expand_combine"] != ran["expansion_level"]:
+    if (any(launches[k] != ran["key_switch"] for k in KS_SWITCH)
+            or launches["expand_leaves"] != ran["leaf_level"]
+            or launches["expand_combine"] != ran["expansion_level"] - ran["leaf_level"]):
         raise AssertionError(f"[{label}] key-switch launches {[launches[k] for k in KS_KERNELS]} against "
-                             f"{ran['key_switch']} key switches and {ran['expansion_level']} expansion levels")
-    if (switches and not ran["key_switch"]) or (expands and not ran["expansion_level"]):
+                             f"{ran['key_switch']} key switches and {ran['expansion_level']} expansion levels, "
+                             f"{ran['leaf_level']} of them writing leaves")
+    if (switches and not ran["key_switch"]) or (expands and not (ran["expansion_level"] and ran["leaf_level"])):
         raise AssertionError(f"[{label}] the path ran {ran} key switches and expansion levels")
     if any(key_switch.plain_calls_on_cuda.values()):
         raise AssertionError(f"[{label}] a plain key-switch pass ran on CUDA tensors: {key_switch.plain_calls_on_cuda}")
@@ -418,8 +461,21 @@ def behz_counts(label: str, launches: dict, multiplies: bool) -> None:
         raise AssertionError(f"[{label}] a plain BEHZ pass ran on CUDA tensors: {behz.plain_calls_on_cuda}")
 
 
+def mac_counts(label: str, launches: dict, mac: bool) -> None:
+    """Fails if a path that serves a MAC (`mac`: the w64 dim-0, PNNS's BSGS
+    product, the per-query server's ct x pt products) never launched
+    dim0_mac, or if a plain dim-0, BSGS or ct x pt MAC ran on CUDA
+    tensors."""
+    from she_tpu_torch.ops import dim0_mac
+
+    if mac and not launches["dim0_mac"]:
+        raise AssertionError(f"[{label}] the path serves a MAC and never launched dim0_mac: {launches}")
+    if any(dim0_mac.plain_calls_on_cuda.values()):
+        raise AssertionError(f"[{label}] a plain dim-0 MAC ran on CUDA tensors: {dim0_mac.plain_calls_on_cuda}")
+
+
 def read_counts(label: str, use_dim0_int8: bool, simple_pir: bool = False, mxu: bool = False,
-                switches: bool = True, expands: bool = True, multiplies: bool = True) -> dict:
+                switches: bool = True, expands: bool = True, multiplies: bool = True, mac: bool = False) -> dict:
     """The counts of the path just driven. Fails if a kernel of the path
     never launched, if the int8 dim-0 kernel launched on a path that serves
     the MAC form, if the SimplePIR kernel launched on another protocol's
@@ -427,12 +483,14 @@ def read_counts(label: str, use_dim0_int8: bool, simple_pir: bool = False, mxu: 
     matrix NTT's fused kernel, else the butterfly kernels), if a plain
     NTT ran on CUDA tensors, or as key_switch_counts says (`switches`,
     `expands`: the path switches keys, and expands queries in batches) and
-    behz_counts (`multiplies`: the path multiplies ciphertexts)."""
-    from she_tpu_torch.ops import behz_cuda, dim0_cuda, key_switch_cuda, ntt, ntt_cuda, ntt_mxu, ntt_mxu_cuda
-    from she_tpu_torch.ops import simple_pir_cuda
+    behz_counts (`multiplies`: the path multiplies ciphertexts) and
+    mac_counts (`mac`: the path serves a MAC)."""
+    from she_tpu_torch.ops import behz_cuda, dim0_cuda, dim0_mac_cuda, key_switch_cuda, ntt, ntt_cuda, ntt_mxu
+    from she_tpu_torch.ops import ntt_mxu_cuda, simple_pir_cuda
 
     launches = (dict(ntt_cuda.launches) | dict(dim0_cuda.launches) | dict(simple_pir_cuda.launches)
-                | dict(ntt_mxu_cuda.launches) | dict(key_switch_cuda.launches) | dict(behz_cuda.launches))
+                | dict(ntt_mxu_cuda.launches) | dict(key_switch_cuda.launches) | dict(behz_cuda.launches)
+                | dict(dim0_mac_cuda.launches))
     plain_on_cuda = {f"{k}_{d}": v for k, counts in (("ntt", ntt.plain_calls_on_cuda),
                                                     ("ntt_mxu", ntt_mxu.plain_calls_on_cuda))
                      for d, v in counts.items()}
@@ -451,10 +509,11 @@ def read_counts(label: str, use_dim0_int8: bool, simple_pir: bool = False, mxu: 
         raise AssertionError(f"[{label}] a plain NTT ran on CUDA tensors: {plain_on_cuda}")
     key_switch_counts(label, launches, switches, expands)
     behz_counts(label, launches, multiplies)
+    mac_counts(label, launches, mac)
     return dict(launches=launches, launch_shapes=dict(ntt_cuda.launch_shapes),
                 dim0_shapes=dict(dim0_cuda.launch_shapes), simple_pir_shapes=dict(simple_pir_cuda.launch_shapes),
                 mxu_shapes=dict(ntt_mxu_cuda.launch_shapes), ks_shapes=dict(key_switch_cuda.launch_shapes),
-                behz_shapes=dict(behz_cuda.launch_shapes))
+                behz_shapes=dict(behz_cuda.launch_shapes), mac_shapes=dict(dim0_mac_cuda.launch_shapes))
 
 
 def kernel_bound_ms(shape, moduli, degree) -> float:
@@ -661,16 +720,18 @@ def digit_bmm_ms(digits, query, D: int) -> float:
 
 
 def dim0_case(label: str, moduli, C: int, d0: int, P: int, N: int, seed: int) -> dict:
-    """The int8 dim-0 kernel at one shape on random residues: equal to the
-    int64 / wide MAC (dim0_inner_products) bit for bit at the full shape
-    and to the plain digit form on the first DIM0_CUT_N n; then timed
-    (CUDA events: the kernel over 20 launches, the MAC over 3, the plain
-    digit form once) beside the digit-bmm yardstick and the bound."""
+    """The int8 dim-0 kernel at one shape on random residues: equal bit for
+    bit to the plain int64 / wide MAC (ops/dim0_mac.dim0_mac_plain, not
+    the dim0_mac kernel that dim0_inner_products launches on the card) at
+    the full shape and to the plain digit form on the first DIM0_CUT_N n;
+    then timed (CUDA events: the kernel over 20 launches, the plain MAC
+    over 3, the plain digit form once) beside the digit-bmm yardstick and
+    the bound."""
     import torch
 
     from she_tpu_torch.core.context import get_poly_context
     from she_tpu_torch.ops import digits as dg
-    from she_tpu_torch.ops import dim0_cuda
+    from she_tpu_torch.ops import dim0_cuda, dim0_mac
     from she_tpu_torch.pir import serving
 
     D, L = dg.digit_count(moduli), len(moduli)
@@ -679,7 +740,7 @@ def dim0_case(label: str, moduli, C: int, d0: int, P: int, N: int, seed: int) ->
     ctx = get_poly_context(N, tuple(moduli), 64, db.device)
     digits = serving.pack_database_chunk_digits(db, ctx)
     got = dim0_cuda.dim0_int8(digits, query, ctx)
-    err_mac = int((got - serving.dim0_inner_products(db, query, ctx)).abs().max())
+    err_mac = int((got - dim0_mac.dim0_mac_plain(db, query, ctx)).abs().max())
     del got
     cut = min(DIM0_CUT_N, N)
     cut_digits = serving.pack_database_chunk_digits(db[..., :cut].contiguous(), ctx)
@@ -687,10 +748,10 @@ def dim0_case(label: str, moduli, C: int, d0: int, P: int, N: int, seed: int) ->
     err_plain = int((dim0_cuda.dim0_int8(cut_digits, cut_query, ctx)
                      - serving.dim0_inner_products_int8(cut_digits, cut_query, ctx)).abs().max())
     if err_mac or err_plain:
-        raise AssertionError(f"{label} dim0_int8 at C={C}, d0={d0}, P={P}, N={N}: max |kernel - MAC| = {err_mac}, "
+        raise AssertionError(f"{label} dim0_int8 at C={C}, d0={d0}, P={P}, N={N}: max |kernel - plain MAC| = {err_mac}, "
                              f"max |kernel - plain digit form| = {err_plain}")
     ms = cuda_ms(lambda: dim0_cuda.dim0_int8(digits, query, ctx), 20)
-    mac_ms = cuda_ms(lambda: serving.dim0_inner_products(db, query, ctx), 3)
+    mac_ms = cuda_ms(lambda: dim0_mac.dim0_mac_plain(db, query, ctx), 3)
     plain_ms = cuda_ms(lambda: serving.dim0_inner_products_int8(digits, query, ctx), 1)
     library_ms = digit_bmm_ms(digits, query, D)
     bound = dim0_bound(L, N, digits.shape[2], d0, P, C, D)
@@ -698,8 +759,8 @@ def dim0_case(label: str, moduli, C: int, d0: int, P: int, N: int, seed: int) ->
                digits=D, C=C, d0=d0, P=P, max_abs_err=max(err_mac, err_plain), plain_check_n=cut, ms=ms,
                mac_ms=mac_ms, plain_ms=plain_ms, library_ms=library_ms, **bound,
                share_of_bound=bound["bound_ms"] / ms)
-    log(f"{label} dim0_int8 C={C} d0={d0} P={P} L={L} N={N} ({D} digits): equal to the MAC and (first {cut} n) "
-        f"to the plain digit form; kernel {ms:.4f} ms, MAC {mac_ms:.4f} ms, plain digit form {plain_ms:.4f} ms, "
+    log(f"{label} dim0_int8 C={C} d0={d0} P={P} L={L} N={N} ({D} digits): equal to the plain MAC and (first {cut} n) "
+        f"to the plain digit form; kernel {ms:.4f} ms, plain MAC {mac_ms:.4f} ms, plain digit form {plain_ms:.4f} ms, "
         f"digit bmm (float32, products only) {library_ms:.4f} ms; bound {bound['bound_ms']:.4f} ms by "
         f"{bound['bound_by']} ({bound['bytes']} bytes, {bound['operations']} int8 operations), "
         f"{100 * bound['bound_ms'] / ms:.1f}% of bound")
@@ -771,8 +832,8 @@ def profile_batch(path: str, server, queries, ek) -> dict:
     busy_us = sum(by_name.values())
     if busy_us <= 0:
         raise AssertionError("the profiler saw no device work in the profiled batch")
-    kernel_ms = {k: sum(us for name, us in by_name.items() if f"{k}_kernel" in name) / 1e3
-                 for k in NTT_AND_DIM0 + KS_KERNELS + BEHZ_KERNELS}
+    kernel_ms = {k: sum(us for name, us in by_name.items() if PROFILE_NAMES.get(k, f"{k}_kernel") in name) / 1e3
+                 for k in NTT_AND_DIM0 + KS_KERNELS + BEHZ_KERNELS + ("dim0_mac",)}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     log(f"[{path}] profiled batch: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
         f"idle share {1 - busy_us / wall_us:.3f}, {launches} device kernels and copies")
@@ -871,7 +932,7 @@ def main_path(path: str, seed: int, batches: int) -> dict:
         torch.cuda.synchronize()
         batch_s.append(time.perf_counter() - t0)
         all_responses.append(responses)
-    counts = read_counts(path, server.use_dim0_int8)
+    counts = read_counts(path, server.use_dim0_int8, mac=not server.use_dim0_int8)
     launches = counts["launches"]
     peak = torch.cuda.max_memory_allocated()
     for i, s in enumerate(batch_s):
@@ -931,7 +992,7 @@ def main_path(path: str, seed: int, batches: int) -> dict:
         peak_bytes=peak, launches=launches,
         launches_per_batch={k: v / batches for k, v in launches.items()},
         launch_shapes=counts["launch_shapes"],
-        ks_shapes=counts["ks_shapes"], behz_shapes=counts["behz_shapes"], dim0_shapes=counts["dim0_shapes"], batches=batches,
+        ks_shapes=counts["ks_shapes"], behz_shapes=counts["behz_shapes"], mac_shapes=counts["mac_shapes"], dim0_shapes=counts["dim0_shapes"], batches=batches,
     )
 
 
@@ -1214,7 +1275,7 @@ def keyword_path(seed: int, batches: int) -> tuple[dict, tuple]:
         wire_out_s=wire_out_s, wire_s_per_batch=statistics.median(wire_s), stream_s=stream_s, segments=segments,
         stages_ms=stages, profile=profiled, min_noise_budget=min_budget, peak_bytes=peak, launches=launches,
         launches_per_batch={k: v / batches for k, v in launches.items()}, launch_shapes=counts["launch_shapes"],
-        ks_shapes=counts["ks_shapes"], behz_shapes=counts["behz_shapes"],
+        ks_shapes=counts["ks_shapes"], behz_shapes=counts["behz_shapes"], mac_shapes=counts["mac_shapes"],
         dim0_shapes=counts["dim0_shapes"], dim0_form="int8" if use_int8 else "mac", batches=batches,
         absent_queries=n_absent,
     ), (ctx, processed, rows, absent)
@@ -1280,7 +1341,7 @@ def large_value_path(seed: int) -> dict:
     return dict(path=label, keywords=count, value_size=value_size, queries=n_queries, chunks=chunks,
                 dimensions=list(parameter.dimensions), process_s=process_s, batch_s=batch_s,
                 launches=launches, launch_shapes=counts["launch_shapes"],
-                ks_shapes=counts["ks_shapes"], behz_shapes=counts["behz_shapes"], dim0_shapes=counts["dim0_shapes"],
+                ks_shapes=counts["ks_shapes"], behz_shapes=counts["behz_shapes"], mac_shapes=counts["mac_shapes"], dim0_shapes=counts["dim0_shapes"],
                 batches=1)
 
 
@@ -1383,7 +1444,8 @@ def service_phase(ctx, processed, rows: dict, absent: list, seed: int) -> dict:
         got = client.decrypt(_read_response(ctx, answer), kw, sk)
         if got != rows.get(kw):
             raise AssertionError(f"[{label}] keyword {kw.hex()} came back as {got!r}, expected {rows.get(kw)!r}")
-    counts = read_counts(label, False, expands=False)  # the per-query server: no batched expansion
+    # the per-query server: no batched expansion, a ct x pt MAC a column
+    counts = read_counts(label, False, expands=False, mac=True)
     log(f"[{label}] PirService over the {len(rows)}-keyword database: config {len(config_bytes)} bytes, "
         f"evaluation keys {key_bytes} bytes; {len(keywords)} PIR requests as bytes ({len(keywords) - 1} present "
         f"keywords gave their values, 1 absent gave None; {answer_bytes} bytes an answer); seconds a request "
@@ -1391,7 +1453,7 @@ def service_phase(ctx, processed, rows: dict, absent: list, seed: int) -> dict:
         f"kernel launches {counts['launches']}")
     return dict(path=label, requests=len(keywords), request_s=request_s, median_request_s=statistics.median(request_s),
                 config_bytes=len(config_bytes), evaluation_key_bytes=key_bytes, answer_bytes=answer_bytes,
-                launches=counts["launches"], launch_shapes=counts["launch_shapes"], ks_shapes=counts["ks_shapes"], behz_shapes=counts["behz_shapes"],
+                launches=counts["launches"], launch_shapes=counts["launch_shapes"], ks_shapes=counts["ks_shapes"], behz_shapes=counts["behz_shapes"], mac_shapes=counts["mac_shapes"],
                 dim0_shapes=counts["dim0_shapes"], batches=1)
 
 
@@ -1470,7 +1532,8 @@ def spir_phase(seed: int) -> dict:
         got = None if sealed is None else oprf_client.decrypt(sealed, parsed)
         if got != rows.get(kw):
             raise AssertionError(f"[{label}] keyword {kw.hex()} came back as {got!r}, expected {rows.get(kw)!r}")
-    counts = read_counts(label, False, expands=False)  # the per-query server: no batched expansion
+    # the per-query server: no batched expansion, a ct x pt MAC a column
+    counts = read_counts(label, False, expands=False, mac=True)
     log(f"[{label}] {count} keywords sealed (OPRF P-384 + AES-192-GCM) and processed in {process_s:.3f} s "
         f"({1e3 * process_s / count:.1f} ms a row); {len(keywords)} lookups ({n_absent} absent): every present "
         f"value unsealed to its value, every absent keyword gave None; OPRF round trip median "
@@ -1479,7 +1542,7 @@ def spir_phase(seed: int) -> dict:
     return dict(path=label, keywords=count, lookups=len(keywords), absent=n_absent, process_s=process_s,
                 oprf_s=oprf_s, pir_request_s=pir_s, launches=counts["launches"],
                 launch_shapes=counts["launch_shapes"],
-                ks_shapes=counts["ks_shapes"], behz_shapes=counts["behz_shapes"], dim0_shapes=counts["dim0_shapes"], batches=1)
+                ks_shapes=counts["ks_shapes"], behz_shapes=counts["behz_shapes"], mac_shapes=counts["mac_shapes"], dim0_shapes=counts["dim0_shapes"], batches=1)
 
 
 PNNS_STAGES = {"stack": "stacking", "baby_steps": "baby_step_rotations", "to_eval": "to_eval",
@@ -1565,7 +1628,8 @@ def pnns_path(label: str, seed: int, batches: int) -> dict:
         torch.cuda.synchronize()
         batch_s.append(time.perf_counter() - t0)
         all_responses.append(responses)
-    counts = read_counts(label, False, expands=False, multiplies=False)  # rotations: key switches only
+    # rotations (key switches only) and the BSGS MAC
+    counts = read_counts(label, False, expands=False, multiplies=False, mac=True)
     launches = counts["launches"]
     peak = torch.cuda.max_memory_allocated()
     steady = batch_s[1:]
@@ -1627,7 +1691,7 @@ def pnns_path(label: str, seed: int, batches: int) -> dict:
         steady_batches=len(steady), queries_per_s=PNNS_BATCH / statistics.median(steady), stream_s=stream_s,
         stages_ms=stages, profile=profiled, min_noise_budget=min_budget, peak_bytes=peak, launches=launches,
         launches_per_batch={k: v / served for k, v in launches.items()}, launch_shapes=counts["launch_shapes"],
-        ks_shapes=counts["ks_shapes"], behz_shapes=counts["behz_shapes"],
+        ks_shapes=counts["ks_shapes"], behz_shapes=counts["behz_shapes"], mac_shapes=counts["mac_shapes"],
         dim0_shapes=counts["dim0_shapes"], batches=served, setup_launch_shapes=setup_shapes,
     )
 
@@ -1850,7 +1914,7 @@ def simple_pir_path(seed: int, batches: int) -> dict:
         max_s_per_batch=max(batch_s), queries_per_s=SIMPLE_PIR_BATCH / median, single_s=single_s, peak_bytes=peak,
         span=span,
         launches=counts["launches"], launch_shapes=counts["launch_shapes"],
-        ks_shapes=counts["ks_shapes"], behz_shapes=counts["behz_shapes"], dim0_shapes=counts["dim0_shapes"],
+        ks_shapes=counts["ks_shapes"], behz_shapes=counts["behz_shapes"], mac_shapes=counts["mac_shapes"], dim0_shapes=counts["dim0_shapes"],
         simple_pir_rows=rows, served_batches=batches,
         batches=1,  # the NTT runs in the set-up and the clients, not per batch: shape_timing counts a run
     )
@@ -1917,7 +1981,7 @@ def ks_bytes(key) -> int:
         batch, l_t = prod(shape[:-3]), l_ks - 1
         _, c0, c1, _ = variant
         return words * n * batch * (2 * l_ks + (int(c0) + int(c1)) * l_t + 2 * l_t)
-    return words * 4 * prod(shape)  # expand_combine: the update and the parents in, both children out
+    return words * 4 * prod(shape)  # expand_combine, expand_leaves: the update and the parents in, both children out
 
 
 def ks_case(key, seed: int, device="cuda") -> dict:
@@ -1996,7 +2060,53 @@ def ks_case(key, seed: int, device="cuda") -> dict:
     return dict(kernel=kernel, plain=plain, library=library)
 
 
-def ks_shape_timing(paths: dict) -> list:
+def leaves_case(key, seed: int, device="cuda") -> dict:
+    """The inputs of one expand_leaves launch shape, made from `seed`: a
+    pool of `slots` inner nodes and the output of `outputs` leaves as two
+    views of one buffer, the level's n parents, and 2n children of which
+    min(2n, outputs) are leaves at random output positions and the rest
+    new pool slots; where the launch doubled leaves, every third child is
+    doubled. The kernel writes into a copy of the buffer made here and its
+    plain version into one made at each call; both return the whole
+    buffer. The library yardstick is the parent design's leaf pass alone:
+    torch.index_select of the `outputs` leaves, in output order, from a
+    pool of every node."""
+    import torch
+
+    from she_tpu_torch.core.context import get_poly_context
+    from she_tpu_torch.ops import key_switch as ks
+    from she_tpu_torch.ops import key_switch_cuda as kc
+
+    _, shape, moduli, (shift, slots, outputs, doubling) = key
+    dev, n, nodes = torch.device(device), shape[-1], shape[0]
+    ctx = get_poly_context(n, moduli, 64, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    buffer = random_residues(moduli, (slots + outputs,) + tuple(shape[1:-2]), n, seed + 1, dev)
+    update = random_residues(moduli, shape[:-2], n, seed + 2, dev)
+    slot_order = torch.randperm(slots, generator=g, device=dev)
+    leaf_count = min(2 * nodes, outputs)
+    positions = torch.randperm(outputs, generator=g, device=dev)[:leaf_count]
+    children = torch.cat([-positions - 1, slot_order[nodes: nodes + 2 * nodes - leaf_count]])
+    children = children[torch.randperm(2 * nodes, generator=g, device=dev)]
+    parents, child0, child1 = slot_order[:nodes], children[:nodes].contiguous(), children[nodes:].contiguous()
+    doubled = (torch.arange(2 * nodes, device=dev) % 3 == 0).view(2, nodes) if doubling else None
+    work = buffer.clone()
+
+    def kernel():
+        kc.expand_combine(work[:slots], update, parents, child0, child1, shift, moduli, work[slots:], doubled)
+        return work
+
+    def plain():
+        out = buffer.clone()
+        ks.expand_combine_plain(out[:slots], update, parents, child0, child1, shift, ctx, out[slots:], doubled)
+        return out
+
+    leaf_slots = torch.randperm(slots + outputs, generator=g, device=dev)[:outputs]
+    return dict(kernel=kernel, plain=plain, library=lambda: buffer.index_select(0, leaf_slots))
+
+
+def ks_shape_timing(paths: dict, names=KS_KERNELS) -> list:
     """Each key-switch kernel at every launch shape of the paths' runs
     (launch_shapes of ops/key_switch_cuda.py, keyed by KsKey), in two
     passes so that every kernel is timed before any plain version runs:
@@ -2010,11 +2120,12 @@ def ks_shape_timing(paths: dict) -> list:
 
     from she_tpu_torch.ops import modarith
 
-    keys = launch_keys(paths, "ks_shapes")
+    keys = {k: v for k, v in launch_keys(paths, "ks_shapes").items() if k.name in names}
     ordered = sorted(keys, key=lambda k: (KS_KERNELS.index(k.name), -ks_bytes(k), str(k)))
+    case_of = {"expand_leaves": leaves_case}
     rows = []
     for i, key in enumerate(ordered):
-        case = ks_case(key, 100 + 7 * i)
+        case = case_of.get(key.name, ks_case)(key, 100 + 7 * i)
         ms = cuda_ms(case["kernel"], 20)
         library_ms = None if case["library"] is None else cuda_ms(case["library"], 20)
         bound = 1e3 * ks_bytes(key) / HBM_BYTES_PER_S
@@ -2024,7 +2135,7 @@ def ks_shape_timing(paths: dict) -> list:
         del case
         torch.cuda.empty_cache()
     for i, (key, row) in enumerate(zip(ordered, rows)):
-        case = ks_case(key, 100 + 7 * i)
+        case = case_of.get(key.name, ks_case)(key, 100 + 7 * i)
         got = case["kernel"]().clone()
         want = case["plain"]()
         err = int((got - want).abs().max()) if got.numel() else 0
@@ -2035,7 +2146,7 @@ def ks_shape_timing(paths: dict) -> list:
         row.update(max_abs_err=err, plain_ms=cuda_ms(case["plain"], plain_iters), plain_iters=plain_iters)
         log(f"{key.name} {tuple(key.shape)} moduli {key.moduli} {tuple(key.variant)} "
             f"(a batch: {row['launches_per_batch']}): bit-equal to plain; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms (x{plain_iters}), "
-            + ("" if row["library_ms"] is None else f"torch.remainder {row['library_ms']:.4f} ms, ")
+            + ("" if row["library_ms"] is None else f"library {row['library_ms']:.4f} ms, ")
             + f"byte bound {row['bound_ms']:.4f} ms ({100 * row['share_of_bound']:.1f}% of bound)")
         del case, got, want
         torch.cuda.empty_cache()
@@ -2048,17 +2159,19 @@ KS_LIBRARY = {
     "ks_mac": "none: no PyTorch call computes a modular sum of 128-bit products",
     "ks_finish": "none: no PyTorch call computes the divide-and-round by q_ks",
     "expand_combine": "none: no PyTorch call computes a modular add and a negacyclic shift into indexed slots",
+    "expand_leaves": "torch.index_select of the same leaves, in output order, from a pool of every node: the gather "
+                     "alone of the leaf pass it replaces, without the level's combine or the doubling",
 }
 
 
-def ks_kernel_entries(rows: list, paths: dict) -> list:
+def ks_kernel_entries(rows: list, paths: dict, names=KS_KERNELS) -> list:
     """The key-switch kernels' entries of the kernels line, at each
     kernel's widest shape (by bytes); library_ms where a PyTorch call
     computes the function at that shape, else the widest shape that has
     one (ks_digits of a relinearization), else null; library_shape_ms is
     the kernel's own time at the library's shape."""
     out = []
-    for name in KS_KERNELS:
+    for name in names:
         mine = [r for r in rows if r["name"] == name]
         if not mine:
             raise AssertionError(f"no served path launched {name}")
@@ -2075,7 +2188,7 @@ def ks_kernel_entries(rows: list, paths: dict) -> list:
             library_shape=None if library_row is None else library_row["shape"],
             library_shape_ms=None if library_row is None else library_row["ms"], widest_shape=widest["shape"],
             widest_moduli=widest["moduli"], widest_variant=widest["variant"], launches_by_path=launches_by_path,
-            shapes=mine,
+            shapes=mine, ptxas=[line for line in ptxas_lines("key_switch") if line.startswith(PTXAS_LABELS[name])],
         ))
     return out
 
@@ -2249,6 +2362,145 @@ def behz_summary(entries: list, paths: dict, card: str) -> str:
         + f"; behz_relinearize device ms by path {stage}; on {card}")
 
 
+def _distinct_words(shape, strides) -> int:
+    """Words an operand holds: a broadcast (stride 0) axis counted once."""
+    return prod(d for d, st in zip(shape, strides) if st != 0)
+
+
+def mac_bytes(key) -> int:
+    """The bytes one dim0_mac launch must move (`key` a
+    dim0_mac_cuda.MacKey): each word of both operands read once, each
+    output word written once."""
+    m1, m2 = prod(key.a_shape[:-3]), prod(key.b_shape[1:-2])
+    return 8 * (_distinct_words(key.a_shape, key.a_strides) + _distinct_words(key.b_shape, key.b_strides)
+                + m1 * m2 * prod(key.a_shape[-2:]))
+
+
+def mac_case(key, seed: int, device="cuda") -> dict:
+    """The inputs of one dim0_mac launch shape, made from `seed` and laid
+    out with the strides the launch read them through (a strided d0 slice,
+    PNNS's permuted diagonals): the kernel and its plain version, each a
+    function of no arguments."""
+    import torch
+
+    from she_tpu_torch.core.context import get_poly_context
+    from she_tpu_torch.ops import dim0_mac
+    from she_tpu_torch.ops import dim0_mac_cuda as dc
+
+    moduli, n = key.moduli, key.a_shape[-1]
+    dev = torch.device(device)
+    ctx = get_poly_context(n, moduli, 64, dev)
+    operands = []
+    for i, (shape, strides) in enumerate(((key.a_shape, key.a_strides), (key.b_shape, key.b_strides))):
+        full = tuple(d if st else 1 for d, st in zip(shape, strides))  # a broadcast axis made once, then expanded
+        laid = strided_like(random_residues(moduli, full[:-2], n, seed + i, dev), strides)
+        operands.append(laid.expand(shape))
+    a, b = operands
+    return dict(kernel=lambda: dc.dim0_mac(a, b, moduli), plain=lambda: dim0_mac.dim0_mac_plain(a, b, ctx))
+
+
+def mac_kernel_timing(paths: dict) -> list:
+    """dim0_mac at the widest shape (by bytes) each path launched it with,
+    timed before any plain dim-0 MAC runs in the process: the mean of 20
+    launches after a warm-up (CUDA events), beside its byte bound. One row
+    a path."""
+    import torch
+
+    keys = launch_keys(paths, "mac_shapes")
+    widest = {}
+    for key, by_path in keys.items():
+        for path in by_path:
+            if path not in widest or mac_bytes(key) > mac_bytes(widest[path]):
+                widest[path] = key
+    rows = []
+    for i, (path, key) in enumerate(sorted(widest.items())):
+        case = mac_case(key, 400 + 7 * i)
+        ms = cuda_ms(case["kernel"], 20)
+        bound = 1e3 * mac_bytes(key) / HBM_BYTES_PER_S
+        rows.append(dict(name="dim0_mac", path=path, key=key, a_shape=list(key.a_shape), b_shape=list(key.b_shape),
+                         moduli=list(key.moduli), ms=ms, bytes=mac_bytes(key), bound_ms=bound,
+                         share_of_bound=bound / ms, launches_per_batch=keys[key][path]))
+        log(f"dim0_mac at {path}'s widest a {key.a_shape} x b {key.b_shape}: {ms:.4f} ms against a byte bound of "
+            f"{bound:.4f} ms ({100 * bound / ms:.1f}%)")
+        del case
+        torch.cuda.empty_cache()
+    return rows
+
+
+def mac_plain_checks(paths: dict, rows: list) -> list:
+    """Every dim0_mac launch shape of the paths' runs held bit-equal to
+    its plain version, on inputs made from a seed; the timed rows get
+    their shape's plain time (3 calls after a warm-up; 1 where a modulus
+    takes the wide route) and its largest difference. Returns one row a
+    launched shape."""
+    import torch
+
+    from she_tpu_torch.ops import modarith
+
+    keys = launch_keys(paths, "mac_shapes")
+    checked = []
+    for i, key in enumerate(sorted(keys, key=lambda k: (-mac_bytes(k), str(k)))):
+        case = mac_case(key, 500 + 7 * i)
+        got = case["kernel"]()
+        want = case["plain"]()
+        err = int((got - want).abs().max()) if got.numel() else 0
+        if not torch.equal(got, want):
+            raise AssertionError(f"dim0_mac at a {key.a_shape} {key.a_strides} x b {key.b_shape} {key.b_strides}, "
+                                 f"moduli {key.moduli}: max |kernel - plain| = {err}")
+        timed = [r for r in rows if r["key"] == key]
+        if timed:
+            plain_iters = 1 if modarith.is_wide(max(key.moduli)) else 3
+            plain_ms = cuda_ms(case["plain"], plain_iters)
+            for r in timed:
+                r.update(max_abs_err=err, plain_ms=plain_ms, plain_iters=plain_iters)
+        checked.append(dict(a_shape=list(key.a_shape), a_strides=list(key.a_strides), b_shape=list(key.b_shape),
+                            b_strides=list(key.b_strides), moduli=list(key.moduli), bytes=mac_bytes(key),
+                            launches_per_batch=keys[key], max_abs_err=err))
+        log(f"dim0_mac a {key.a_shape} x b {key.b_shape} moduli {key.moduli} (a batch: {keys[key]}): bit-equal to "
+            f"plain" + (f"; plain {timed[0]['plain_ms']:.4f} ms (x{timed[0]['plain_iters']})" if timed else ""))
+        del case, got, want
+        torch.cuda.empty_cache()
+    for r in rows:
+        r.pop("key")
+    return checked
+
+
+def mac_kernel_entry(rows: list, checked: list, paths: dict) -> dict:
+    """dim0_mac's entry of the kernels line, at its widest timed shape (by
+    bytes), with the timed row of every path; library_ms is null: no
+    PyTorch call computes a modular sum of 128-bit products."""
+    if not rows:
+        raise AssertionError("no served path launched dim0_mac")
+    widest = max(rows, key=lambda r: r["bytes"])
+    launches_by_path = {p: v["launches"].get("dim0_mac", 0) for p, v in paths.items() if "launches" in v}
+    return dict(
+        name="dim0_mac", route="cuda", source=KERNEL_SOURCES["dim0_mac"], replaces=MAC_REPLACES,
+        launches=sum(launches_by_path.values()), max_abs_err=max(r["max_abs_err"] for r in checked),
+        ms=widest["ms"], plain_ms=widest["plain_ms"], bound_ms=widest["bound_ms"], bound_by="bytes",
+        library_ms=None, library=MAC_LIBRARY, widest_path=widest["path"], widest_a_shape=widest["a_shape"],
+        widest_b_shape=widest["b_shape"], launches_by_path=launches_by_path, shapes=rows,
+        checked_shapes=len(checked), ptxas=[line for line in ptxas_lines("dim0_mac")],
+    )
+
+
+def mac_summary(entry: dict, leaves: dict, paths: dict, card: str) -> str:
+    """dim0_mac's and expand_leaves' numbers, the dim-0 (and BSGS) stage
+    and the expansion by path, and each path's peak device memory."""
+    stage = {p: {k: round(v["stages_ms"][k], 3) for k in ("expansion", "dim0", "bsgs_mac") if k in v["stages_ms"]}
+             for p, v in paths.items() if "stages_ms" in v}
+    peaks = {p: v["peak_bytes"] for p, v in paths.items() if "peak_bytes" in v}
+    return (f"dim0_mac: {entry['ms']:.4f} ms at {entry['widest_path']}'s a {tuple(entry['widest_a_shape'])} x b "
+            f"{tuple(entry['widest_b_shape'])} against a byte bound of {entry['bound_ms']:.4f} ms "
+            f"({100 * entry['bound_ms'] / entry['ms']:.1f}%), plain {entry['plain_ms']:.4f} ms, "
+            f"{entry['launches']} launches by path {entry['launches_by_path']}, {entry['checked_shapes']} shapes "
+            f"bit-equal; by path " + "; ".join(f"{r['path']} {r['ms']:.4f} ms ({100 * r['share_of_bound']:.1f}%)"
+                                               for r in entry["shapes"])
+            + f"; expand_leaves {leaves['ms']:.4f} ms at {tuple(leaves['widest_shape'])} against a byte bound of "
+            f"{leaves['bound_ms']:.4f} ms ({100 * leaves['bound_ms'] / leaves['ms']:.1f}%), plain "
+            f"{leaves['plain_ms']:.4f} ms, index_select of the leaves {leaves['library_ms']:.4f} ms, "
+            f"{leaves['launches']} launches; stages ms by path {stage}; peak bytes by path {peaks}; on {card}")
+
+
 def serve_both_routes(label: str, path: str, seed: int, batches: int) -> dict:
     """One MulPIR cell served on both NTT routes, the butterfly kernels
     (SHE_TPU_NTT_MXU=0) and then the matrix NTT (=1), the same batches of
@@ -2283,7 +2535,8 @@ def serve_both_routes(label: str, path: str, seed: int, batches: int) -> dict:
                 responses.append(server.compute_response_batch(queries, ek))
                 torch.cuda.synchronize()
                 batch_s.append(time.perf_counter() - t0)
-            counts = read_counts(f"{label} {route}", server.use_dim0_int8, mxu=route == "mxu")
+            counts = read_counts(f"{label} {route}", server.use_dim0_int8, mxu=route == "mxu",
+                                 mac=not server.use_dim0_int8)
             steady = batch_s[1:] or batch_s
             routes[route] = dict(batch_s=batch_s, median_s_per_batch=statistics.median(steady),
                                  steady_batches=len(steady), responses=responses, counts=counts)
@@ -2591,7 +2844,7 @@ def cli_phase(seed: int) -> dict:
     from she_tpu_torch.cli import (mmap_tool, pir_generate_database, pir_process_database, pir_shard_database,
                                    pnns_generate_database, pnns_process_database, simple_pir_process_database,
                                    warm)
-    from she_tpu_torch.ops import dim0_cuda, ntt, ntt_cuda, simple_pir_cuda
+    from she_tpu_torch.ops import dim0_cuda, dim0_mac, dim0_mac_cuda, ntt, ntt_cuda, simple_pir_cuda
 
     label = "cli"
     reset_counts()
@@ -2649,13 +2902,15 @@ def cli_phase(seed: int) -> dict:
         if hint.shape != (CLI_SIMPLE_PIR_ROWS, CLI_SIMPLE_PIR_DEGREE) or hint.dtype != np.uint64:
             raise AssertionError(f"[{label}] the SimplePIR hint is {hint.dtype} {hint.shape}")
         files = sorted(f.name for f in d.iterdir())
-    launches = dict(ntt_cuda.launches) | dict(dim0_cuda.launches) | dict(simple_pir_cuda.launches)
+    launches = (dict(ntt_cuda.launches) | dict(dim0_cuda.launches) | dict(simple_pir_cuda.launches)
+                | dict(dim0_mac_cuda.launches))
     # N = 1024 is the SimplePIR tool's lattice dimension alone (22-bit q')
     simple_pir_shapes = {k: v for k, v in ntt_cuda.launch_shapes.items() if k.shape[-1] == CLI_SIMPLE_PIR_DEGREE}
-    if not (launches["ntt_forward"] and launches["ntt_inverse"] and launches["dim0_int8"]):
+    if not (launches["ntt_forward"] and launches["ntt_inverse"] and launches["dim0_int8"] and launches["dim0_mac"]):
         raise AssertionError(f"[{label}] the tools did not run the kernels on the card: {launches}")
-    if any(ntt.plain_calls_on_cuda.values()):
-        raise AssertionError(f"[{label}] the plain NTT ran on CUDA tensors: {dict(ntt.plain_calls_on_cuda)}")
+    if any(ntt.plain_calls_on_cuda.values()) or any(dim0_mac.plain_calls_on_cuda.values()):
+        raise AssertionError(f"[{label}] a plain NTT or MAC ran on CUDA tensors: {dict(ntt.plain_calls_on_cuda)}, "
+                             f"{dict(dim0_mac.plain_calls_on_cuda)}")
     log(f"[{label}] every tool exited 0 on the card in {sum(seconds.values()):.3f} s; files {files}; kernel "
         f"launches {launches}")
     return dict(seconds=seconds, launches=launches, files=files, simple_pir_launch_shapes=simple_pir_shapes)
@@ -2788,11 +3043,13 @@ def _rank_part(label: str, mesh, run, reps: int, kernels: tuple) -> dict:
     SimplePIR kernel and the plain NTT on CUDA tensors never, and the
     key-switch kernels as key_switch_counts says (the part switches keys
     where ks_digits is one of `kernels`, and expands queries in batches
-    where expand_combine is) and the BEHZ kernels as behz_counts says (the
-    part multiplies ciphertexts where behz_lift is one of `kernels`)."""
+    where expand_combine is), the BEHZ kernels as behz_counts says (the
+    part multiplies ciphertexts where behz_lift is one of `kernels`) and
+    the dim-0 MAC as mac_counts says (the part serves a MAC where dim0_mac
+    is one of `kernels`)."""
     import torch
 
-    from she_tpu_torch.ops import behz_cuda, dim0_cuda, key_switch_cuda, ntt, ntt_cuda, simple_pir_cuda
+    from she_tpu_torch.ops import behz_cuda, dim0_cuda, dim0_mac_cuda, key_switch_cuda, ntt, ntt_cuda, simple_pir_cuda
     from she_tpu_torch.parallel import collectives
 
     outs, seconds = [], []
@@ -2808,9 +3065,10 @@ def _rank_part(label: str, mesh, run, reps: int, kernels: tuple) -> dict:
         seconds.append(time.perf_counter() - t0)
         outs.append(out)
     launches = (dict(ntt_cuda.launches) | dict(dim0_cuda.launches) | dict(simple_pir_cuda.launches)
-                | dict(key_switch_cuda.launches) | dict(behz_cuda.launches))
+                | dict(key_switch_cuda.launches) | dict(behz_cuda.launches) | dict(dim0_mac_cuda.launches))
     key_switch_counts(f"{label} rank {rank}", launches, "ks_digits" in kernels, "expand_combine" in kernels)
     behz_counts(f"{label} rank {rank}", launches, "behz_lift" in kernels)
+    mac_counts(f"{label} rank {rank}", launches, "dim0_mac" in kernels)
     if (any(launches[k] == 0 for k in kernels) or (launches["dim0_int8"] and "dim0_int8" not in kernels)
             or launches["simple_pir_matmul"] or any(ntt.plain_calls_on_cuda.values())):
         raise AssertionError(f"[{label}] rank {rank}: launches {launches} (the part's kernels: {kernels}), plain "
@@ -2822,7 +3080,7 @@ def _rank_part(label: str, mesh, run, reps: int, kernels: tuple) -> dict:
                 staged_s=collectives.staged["seconds"], peak_bytes=torch.cuda.max_memory_allocated(),
                 launches=launches, launch_shapes=dict(ntt_cuda.launch_shapes),
                 dim0_shapes=dict(dim0_cuda.launch_shapes), ks_shapes=dict(key_switch_cuda.launch_shapes),
-                behz_shapes=dict(behz_cuda.launch_shapes), reps=reps,
+                behz_shapes=dict(behz_cuda.launch_shapes), mac_shapes=dict(dim0_mac_cuda.launch_shapes), reps=reps,
                 out=[t.cpu().numpy() for t in outs[0]])
 
 
@@ -2879,7 +3137,7 @@ def mesh_world2(mesh, specs: dict) -> dict:
         return [torch.stack([torch.stack([c.stacked() for c in r.ciphertext_matrices[0].ciphertexts])
                              for r in responses])]
 
-    out["d"] = _rank_part("mesh (d)", mesh, serve_d, MESH_REPS, NTT_KERNELS + KS_SWITCH)
+    out["d"] = _rank_part("mesh (d)", mesh, serve_d, MESH_REPS, NTT_KERNELS + KS_SWITCH + ("dim0_mac",))
     return out
 
 
@@ -2896,10 +3154,9 @@ def mesh_world4(mesh, specs: dict) -> dict:
     from she_tpu_torch import params as paramsmod
     from she_tpu_torch.bfv import bfv
     from she_tpu_torch.core.context import get_poly_context
-    from she_tpu_torch.ops import ntt
+    from she_tpu_torch.ops import dim0_mac, ntt
     from she_tpu_torch.parallel import mesh as meshmod
     from she_tpu_torch.parallel import sharded
-    from she_tpu_torch.pir import serving
     from she_tpu_torch.rng.ctr_drbg import nist_aes128_ctr
     from she_tpu_torch.utils import nt
 
@@ -2916,6 +3173,8 @@ def mesh_world4(mesh, specs: dict) -> dict:
     query_eval, _ = server.dim0_query(server.expand(stacked, ek))
     del stacked
     out["c"] = {}
+    # every part is held to the plain MAC, not to the dim0_mac kernel
+    want = dim0_mac.dim0_mac_plain(chunk, query_eval, ct_ctx).cpu().numpy()
     for S, m in ((2, mesh), (4, wide4)):
         # the server's digits of this rank's d0 slice: at S = 2, (b)'s own
         digits = server.slice_digits(0, 0, meshmod.shard(chunk.shape[1], m, "db", "d0"))
@@ -2923,18 +3182,17 @@ def mesh_world4(mesh, specs: dict) -> dict:
             f"mesh (c) S={S}", m,
             lambda m=m, digits=digits: [meshmod.dim0_partial_psum(chunk, query_eval, ct_ctx, m, "db", digits)],
             MESH_REPS, ("dim0_int8",))
-        out["c"][f"w32_S{S}"]["equal"] = bool(np.array_equal(
-            out["c"][f"w32_S{S}"]["out"][0], serving.dim0_inner_products(chunk, query_eval, ct_ctx).cpu().numpy()))
+        out["c"][f"w32_S{S}"]["equal"] = bool(np.array_equal(out["c"][f"w32_S{S}"]["out"][0], want))
     del query_eval, digits
     w64_moduli = paramsmod.from_predefined(PATHS["w64"][0], scalar_bits=64).coefficient_moduli[:2]
     C, d0, P, N = MESH_PSUM_W64
     ctx64 = get_poly_context(N, tuple(w64_moduli), 64, dev)
     db64, q64 = random_residues(w64_moduli, (C, d0), N, 70), random_residues(w64_moduli, (d0, P), N, 71)
+    want = dim0_mac.dim0_mac_plain(db64, q64, ctx64).cpu().numpy()
     for S, m in ((2, mesh), (4, wide4)):
         part = _rank_part(f"mesh (c) w64 S={S}", m, lambda m=m: [meshmod.dim0_partial_psum(db64, q64, ctx64, m)],
-                          MESH_REPS, ())
-        part["equal"] = bool(np.array_equal(part["out"][0],
-                                            serving.dim0_inner_products(db64, q64, ctx64).cpu().numpy()))
+                          MESH_REPS, ("dim0_mac",))
+        part["equal"] = bool(np.array_equal(part["out"][0], want))
         out["c"][f"w64_S{S}"] = part
     del db64, q64, server, queries, chunk
     torch.cuda.empty_cache()
@@ -2991,19 +3249,21 @@ def _merge_parts(label: str, parts: list) -> dict:
     peak memory."""
     from collections import Counter
 
-    launches, shapes, dim0, ks, bz = Counter(), Counter(), Counter(), Counter(), Counter()
+    launches, shapes, dim0, ks, bz, mac = Counter(), Counter(), Counter(), Counter(), Counter(), Counter()
     for p in parts:
         launches.update(p["launches"])
         shapes.update(p["launch_shapes"])
         dim0.update(p["dim0_shapes"])
         ks.update(p["ks_shapes"])
         bz.update(p["behz_shapes"])
+        mac.update(p["mac_shapes"])
     reps = parts[0]["reps"]
     per_rank = [dict(rank=p["rank"], s_per_call=p["s"], median_s=statistics.median(p["s"][1:] or p["s"]),
                      staged_bytes=p["staged_bytes"], staged_s=p["staged_s"], peak_bytes=p["peak_bytes"])
                 for p in parts]
     return dict(path=label, launches=dict(launches), launches_per_batch={k: v / reps for k, v in launches.items()},
-                launch_shapes=dict(shapes), dim0_shapes=dict(dim0), ks_shapes=dict(ks), behz_shapes=dict(bz), batches=reps,
+                launch_shapes=dict(shapes), dim0_shapes=dict(dim0), ks_shapes=dict(ks), behz_shapes=dict(bz),
+                mac_shapes=dict(mac), batches=reps,
                 ranks=per_rank)
 
 
@@ -3146,6 +3406,8 @@ def run(args) -> int:
         return key_switch_only(args, card)
     if args.only == "behz":
         return behz_only(args, card)
+    if args.only == "dim0_mac":
+        return dim0_mac_only(args, card)
 
     checked = kernel_phase(args.seed)
     paths = {}
@@ -3153,9 +3415,11 @@ def run(args) -> int:
         paths.update(drive())
         torch.cuda.empty_cache()
     cli = cli_phase(args.seed)
+    mac_rows = mac_kernel_timing(paths)  # before any plain dim-0 MAC
     behz_rows = behz_kernel_timing(paths)  # before any plain BEHZ version
     ks_rows = ks_shape_timing(paths)  # before the NTT's and dim-0's plain versions
     behz_checked = behz_plain_checks(paths, behz_rows)
+    mac_checked = mac_plain_checks(paths, mac_rows)
     shapes, dim0_rows = timed_launch_shapes(paths)
     for name, rows in shape_timing("cli:simple_pir_process_database", cli.pop("simple_pir_launch_shapes"), 1).items():
         if not rows:
@@ -3181,6 +3445,8 @@ def run(args) -> int:
     kernels += ks_entries
     behz_entries = behz_kernel_entries(behz_rows, behz_checked, paths)
     kernels += behz_entries
+    mac_entry = mac_kernel_entry(mac_rows, mac_checked, paths)
+    kernels.append(mac_entry)
     if sorted(k["name"] for k in kernels) != sorted(KERNEL_SOURCES):
         raise AssertionError(f"the kernels line names {[k['name'] for k in kernels]}, not {list(KERNEL_SOURCES)}")
     widest = max(dim0_rows, key=lambda r: r["bytes"])
@@ -3223,6 +3489,7 @@ def run(args) -> int:
     log(mesh_summary(paths, card))
     log(ks_summary(ks_entries, paths, card))
     log(behz_summary(behz_entries, paths, card))
+    log(mac_summary(mac_entry, next(e for e in ks_entries if e["name"] == "expand_leaves"), paths, card))
     log(f"cli: every tool exited 0 on the card, {sum(cli['seconds'].values()):.3f} s in all, on {card}")
     log(f"dim0_int8 at the widest served shape ({widest['path']}, digits {widest['digits_shape']}, query "
         f"{widest['query_shape']}): {widest['ms']:.4f} ms against a bound of {widest['bound_ms']:.4f} ms "
@@ -3253,10 +3520,11 @@ def timed_launch_shapes(paths: dict) -> tuple[dict, list]:
 
 def launch_rows(path: dict) -> None:
     """A path's launch counters, keyed by ntt_cuda.LaunchKey (and
-    ntt_mxu_cuda.DirectionKey, key_switch_cuda.KsKey, behz_cuda.BehzKey)
+    ntt_mxu_cuda.DirectionKey, key_switch_cuda.KsKey, behz_cuda.BehzKey,
+    dim0_mac_cuda.MacKey)
     and by the int8 dim-0 kernel's (digits shape, query shape, moduli), as
     JSON rows, in place."""
-    for key in ("launch_shapes", "setup_launch_shapes", "mxu_shapes", "ks_shapes", "behz_shapes"):
+    for key in ("launch_shapes", "setup_launch_shapes", "mxu_shapes", "ks_shapes", "behz_shapes", "mac_shapes"):
         if key in path:
             path[key] = [dict(k._asdict(), launches=v) for k, v in path[key].items()]
     path["dim0_shapes"] = [dict(digits_shape=k[0], query_shape=k[1], moduli=k[2], launches=v)
@@ -3349,14 +3617,17 @@ def mesh_summary(paths: dict, card: str) -> str:
 
 def mesh_only(args, card: str) -> int:
     """--only mesh: the mesh phase alone, every NTT, int8 dim-0,
-    key-switch and BEHZ launch shape of its ranks held to the plain
-    version and timed in this process after the ranks have exited; then
-    the kernels line (the NTT kernels, dim0_int8, the key-switch and the
-    BEHZ kernels, with the ranks' launches) and the last line."""
+    key-switch, BEHZ and dim-0 MAC launch shape of its ranks held to the
+    plain version and timed in this process after the ranks have exited;
+    then the kernels line (the NTT kernels, dim0_int8, the key-switch, the
+    BEHZ kernels and dim0_mac, with the ranks' launches) and the last
+    line."""
     paths = mesh_phase(args.seed)
+    mac_rows = mac_kernel_timing(paths)
     behz_rows = behz_kernel_timing(paths)
     ks_rows = ks_shape_timing(paths)
     behz_checked = behz_plain_checks(paths, behz_rows)
+    mac_checked = mac_plain_checks(paths, mac_rows)
     shapes, dim0_rows = timed_launch_shapes(paths)
     kernels = ntt_kernel_entries(shapes, paths, None)
     entry = dim0_kernel_entry(dim0_rows, dim0_w64_check(), sum(p["launches"]["dim0_int8"] for p in paths.values()))
@@ -3364,6 +3635,7 @@ def mesh_only(args, card: str) -> int:
     kernels.append(entry)
     kernels += ks_kernel_entries(ks_rows, paths)
     kernels += behz_kernel_entries(behz_rows, behz_checked, paths)
+    kernels.append(mac_kernel_entry(mac_rows, mac_checked, paths))
     log(mesh_summary(paths, card))
     return report(args, card, kernels, paths=paths)
 
@@ -3411,17 +3683,41 @@ def behz_only(args, card: str) -> int:
     return report(args, card, entries, paths=paths)
 
 
+def dim0_mac_only(args, card: str) -> int:
+    """--only dim0_mac: the w64, w32 and keyword cells and both PNNS
+    cells, then dim0_mac timed at the widest shape of each path that
+    launched it and held to its plain version at every shape, and
+    expand_combine and its leaf instance at every shape they launched with
+    (ks_shape_timing); then the kernels line (dim0_mac, expand_combine and
+    expand_leaves, with these cells' launches) and the last line."""
+    paths = {path: main_path(path, args.seed, args.batches) for path in ("w64", "w32")}
+    paths["keyword"] = keyword_path(args.seed, args.batches)[0]
+    for label in PNNS_PATHS:
+        paths[label] = pnns_path(label, args.seed, args.batches)
+    mac_rows = mac_kernel_timing(paths)
+    names = ("expand_combine", "expand_leaves")
+    ks_entries = ks_kernel_entries(ks_shape_timing(paths, names), paths, names)
+    entry = mac_kernel_entry(mac_rows, mac_plain_checks(paths, mac_rows), paths)
+    for path, p in paths.items():
+        log(f"{path}: median {p['median_s_per_batch']:.4f} s/batch, peak {p['peak_bytes']} bytes, device ms by stage "
+            f"{ {k: round(v, 3) for k, v in p['stages_ms'].items()} }, on {card}")
+    log(mac_summary(entry, ks_entries[1], paths, card))
+    return report(args, card, [entry] + ks_entries, paths=paths)
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batches", type=int, default=3, help="query batches to serve (>= 3)")
     parser.add_argument("--seed", type=int, default=0, help="seed of the database, keys and indices")
     parser.add_argument("--json-out", default=None, help="also write the full results to this file")
-    parser.add_argument("--only", choices=["dim0", "simple_pir", "mesh", "ntt_mxu", "key_switch", "behz"], default=None,
+    parser.add_argument("--only", choices=["dim0", "simple_pir", "mesh", "ntt_mxu", "key_switch", "behz", "dim0_mac"],
+                        default=None,
                         help="run one phase alone: dim0, the int8 dim-0 kernel at every served shape; "
                              "simple_pir, the SimplePIR cell; mesh, multi-device serving with gloo ranks; "
                              "ntt_mxu, the matrix NTT (SHE_TPU_NTT_MXU=1) on the MulPIR cells; key_switch, "
                              "the w32 and keyword cells and the key-switch kernels at their shapes; behz, the w32, "
-                             "w64 and keyword cells and the BEHZ kernels at their shapes")
+                             "w64 and keyword cells and the BEHZ kernels at their shapes; dim0_mac, the w64, w32, "
+                             "keyword and PNNS cells, dim0_mac and the expansion's leaf kernel at their shapes")
     args = parser.parse_args(argv)
     if args.batches < 3:
         parser.error("--batches must be at least 3")

@@ -29,7 +29,7 @@ from ..core import rns as rnsmod
 from ..core.context import PolyContext, get_poly_context
 from ..core.poly import COEFF, EVAL, PolyRq
 from ..device import resolve_device
-from ..ops import behz
+from ..ops import behz, dim0_mac
 from ..ops import galois as galoismod
 from ..ops import modarith as ma
 from ..ops import ntt as nttmod
@@ -598,21 +598,29 @@ def reset_behz_runs() -> None:
         behz_runs[k] = 0
 
 
-def stacked_view(ct: Ciphertext) -> torch.Tensor:
-    """ct.stacked() without its copy where the polys are equally spaced
-    views of one tensor (a Ciphertext made by from_stacked): a strided view
-    that the BEHZ kernels read in place. Otherwise the stacked copy."""
-    datas = [p.data for p in ct.polys]
+def stack_in_place(datas: list, dim: int) -> torch.Tensor:
+    """torch.stack(datas, dim) without its copy where the tensors are
+    equally spaced views of one tensor with a contiguous last axis (a
+    Ciphertext made by from_stacked, a processed database's plaintexts):
+    a strided view that the kernels read in place. Otherwise the stacked
+    copy."""
     first = datas[0]
-    if len(datas) > 1:
+    if len(datas) > 1 and first.dim() and first.stride(-1) == 1:
         step = datas[1].storage_offset() - first.storage_offset()
         ptr = first.untyped_storage().data_ptr()
-        if step > 0 and all(d.untyped_storage().data_ptr() == ptr and d.shape == first.shape
-                            and d.stride() == first.stride() and d.storage_offset() == first.storage_offset() + i * step
-                            for i, d in enumerate(datas)):
-            return first.as_strided(first.shape[:-2] + (len(datas),) + first.shape[-2:],
-                                    first.stride()[:-2] + (step,) + first.stride()[-2:])
-    return ct.stacked()
+        if step > 0 and all(d.untyped_storage().data_ptr() == ptr and d.dtype == first.dtype
+                            and d.shape == first.shape and d.stride() == first.stride()
+                            and d.storage_offset() == first.storage_offset() + i * step for i, d in enumerate(datas)):
+            at = dim % (first.dim() + 1)
+            return first.as_strided(first.shape[:at] + (len(datas),) + first.shape[at:],
+                                    first.stride()[:at] + (step,) + first.stride()[at:])
+    return torch.stack(datas, dim)
+
+
+def stacked_view(ct: Ciphertext) -> torch.Tensor:
+    """ct.stacked(), read in place where it can be (stack_in_place): the
+    BEHZ kernels' operand."""
+    return stack_in_place([p.data for p in ct.polys], -3)
 
 
 def _lifted_eval(ct: Ciphertext, tool) -> torch.Tensor:
@@ -702,19 +710,23 @@ def inner_product_ct_ct(lhs: list[Ciphertext], rhs: list[Ciphertext]) -> Ciphert
 
 
 def inner_product_ct_pt(cts: list[Ciphertext], pts: list) -> Ciphertext:
-    """sum_i ct_i * pt_i over Eval ciphertexts and Eval plaintexts, lazily
-    accumulated in int64 (reference Bfv.swift:236-651). pts entries may be
-    None (skipped zero plaintexts, as in PIR processed databases)."""
+    """sum_i ct_i * pt_i over Eval ciphertexts and Eval plaintexts
+    (reference Bfv.swift:236-651). pts entries may be None (skipped zero
+    plaintexts, as in PIR processed databases). The non-None pairs make
+    two operands, the plaintexts [1, K, L, N] and each component of the
+    ciphertexts [K, ..., L, N] (stack_in_place: no copy where they are
+    rows of one tensor), and each component is one ops/dim0_mac: on the card the
+    kernel of csrc/dim0_mac.cu, on the CPU the lazy multiply-add stream."""
     pairs = [(c, p) for c, p in zip(cts, pts) if p is not None]
     if not pairs:
         raise errors.InvalidCiphertext("empty inner product")
     first = pairs[0][0]
     ct_ctx = pairs[0][1].poly.context
-    cap = ct_ctx.max_signed_lazy_product_count()
+    plain = stack_in_place([p.poly.data for _, p in pairs], 0).unsqueeze(0)
     out = []
     for comp in range(len(first.polys)):
-        terms = ((c.polys[comp].data, p.poly.data) for c, p in pairs)
-        out.append(PolyRq(ma.sum_products_mod(terms, ct_ctx.q_col, cap), ct_ctx, EVAL))
+        comps = stack_in_place([c.polys[comp].data for c, _ in pairs], 0)
+        out.append(PolyRq(dim0_mac.dim0_mac(plain, comps, ct_ctx)[0], ct_ctx, EVAL))
     return Ciphertext(first.context, out, first.correction_factor)
 
 

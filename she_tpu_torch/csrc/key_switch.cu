@@ -16,7 +16,11 @@
 //                   she_tpu/pir/serving.py:160-167 (c' + parent and
 //                   (parent - c') x^-shift, the negacyclic shift of
 //                   core/poly.py:252), reading the parents from the slot
-//                   pool and writing both children into it.
+//                   pool and writing both children into it; its leaf
+//                   instance (expand_leaves) also writes a level's leaves
+//                   straight into the output in output order, doubled
+//                   where the plan says (she_tpu/pir/serving.py:168-171),
+//                   so no pass over the output follows the last level.
 // The plain versions are she_tpu_torch/ops/key_switch.py; every output is
 // fully reduced, so the kernels equal them bit for bit.
 //
@@ -60,7 +64,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kConstWords = 8;  // q, r_lo, r_hi, half mod q, q_ks^-1 mod q, its Shoup constant, 0, 0
 constexpr int kLazyProducts = 15;
 constexpr int kComps = 2;  // the components of every key-switching key
 
@@ -68,11 +71,6 @@ constexpr int kComps = 2;  // the components of every key-switching key
 // alone), g(c0) into component 0 (apply_galois), or c0 and c1 into
 // components 0 and 1 (relinearize).
 enum class Finish { kUpdate, kGalois, kRelinearize };
-
-__device__ __forceinline__ Mod load_mod(const u64* consts, int i) {
-  const u64* c = consts + kConstWords * i;
-  return Mod{__ldg(c), __ldg(c + 1), __ldg(c + 2)};
-}
 
 // Copy one row of n words into shared memory, 16 bytes a thread at a time.
 __device__ __forceinline__ void stage_row(u64* row, const u64* src, int n) {
@@ -223,16 +221,31 @@ __global__ void __launch_bounds__(kThreads) ks_finish_kernel(const u64* __restri
   }
 }
 
+// Where a child goes: code >= 0 is a slot of the pool, code < 0 the leaf at
+// output position -code - 1 (only where the level writes leaves).
+template <bool LEAVES>
+__device__ __forceinline__ u64* child_row(u64* pool, u64* out, i64 code, i64 slot, i64 row, int log2n) {
+  if (LEAVES && code < 0) return out + (-code - 1) * slot + (row << log2n);
+  return pool + code * slot + (row << log2n);
+}
+
 // Block (r, row): row `row` (of `inner` rows a slot; its modulus is row mod
-// L) of level node r: p0 = c' + parent into slot child0[r], and
-// p1 = (parent - c') x^-shift into slot child1[r]: the word at s goes to
-// s - shift, or negated to s - shift + N where s < shift.
-__global__ void __launch_bounds__(kThreads) expand_combine_kernel(u64* pool, const u64* __restrict__ upd,
+// L) of level node r: p0 = c' + parent into child0[r], and
+// p1 = (parent - c') x^-shift into child1[r]: the word at s goes to
+// s - shift, or negated to s - shift + N where s < shift. LEAVES: a child
+// may be a leaf, written into `out` at its position (she_tpu/pir/serving.py
+// :168-171, the leaves gathered in output order); DOUBLE: a leaf whose
+// `doubled` flag is set (first children's flags, then second children's)
+// is written as 2 p mod q. The doubling commutes with the shift's
+// negation, and every value is fully reduced, so the order is free.
+template <bool LEAVES, bool DOUBLE>
+__global__ void __launch_bounds__(kThreads) expand_combine_kernel(u64* pool, u64* out, const u64* __restrict__ upd,
                                                                    const i64* __restrict__ parents,
                                                                    const i64* __restrict__ child0,
-                                                                   const i64* __restrict__ child1, i64 inner, int l_count,
-                                                                   int log2n, int shift,
-                                                                   const u64* __restrict__ consts) {
+                                                                   const i64* __restrict__ child1,
+                                                                   const unsigned char* __restrict__ doubled,
+                                                                   i64 count, i64 inner, int l_count, int log2n,
+                                                                   int shift, const u64* __restrict__ consts) {
   const i64 rr = blockIdx.x;
   const i64 r = rr / inner, row = rr % inner;
   const int n = 1 << log2n;
@@ -240,13 +253,27 @@ __global__ void __launch_bounds__(kThreads) expand_combine_kernel(u64* pool, con
   const i64 slot = inner << log2n;
   const u64* par = pool + __ldg(parents + r) * slot + (row << log2n);
   const u64* c = upd + (rr << log2n);
-  u64* p0 = pool + __ldg(child0 + r) * slot + (row << log2n);
-  u64* p1 = pool + __ldg(child1 + r) * slot + (row << log2n);
+  u64* p0 = child_row<LEAVES>(pool, out, __ldg(child0 + r), slot, row, log2n);
+  u64* p1 = child_row<LEAVES>(pool, out, __ldg(child1 + r), slot, row, log2n);
+  bool twice0 = false, twice1 = false;
+  if constexpr (DOUBLE) {
+    twice0 = __ldg(doubled + r) != 0;
+    twice1 = __ldg(doubled + count + r) != 0;
+  }
   for (int k = 2 * threadIdx.x; k < n; k += 2 * blockDim.x) {
     const ulonglong2 cv = load2(c + k);
     const ulonglong2 pv = *reinterpret_cast<const ulonglong2*>(par + k);  // the pool is written too: no __ldg
-    store2(p0 + k, add_mod(cv.x, pv.x, q), add_mod(cv.y, pv.y, q));
-    const u64 d[2] = {sub_mod(pv.x, cv.x, q), sub_mod(pv.y, cv.y, q)};
+    u64 s0 = add_mod(cv.x, pv.x, q), s1 = add_mod(cv.y, pv.y, q);
+    u64 d[2] = {sub_mod(pv.x, cv.x, q), sub_mod(pv.y, cv.y, q)};
+    if (DOUBLE && twice0) {
+      s0 = add_mod(s0, s0, q);
+      s1 = add_mod(s1, s1, q);
+    }
+    if (DOUBLE && twice1) {
+      d[0] = add_mod(d[0], d[0], q);
+      d[1] = add_mod(d[1], d[1], q);
+    }
+    store2(p0 + k, s0, s1);
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int dst = k + e - shift;
@@ -327,15 +354,33 @@ extern "C" int she_ks_finish(const void* inv, const Operand* c0, const Operand* 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" int she_expand_combine(void* pool, const void* upd, const void* parents, const void* child0,
-                                  const void* child1, long long count, long long inner, int l_count, int log2n,
-                                  int shift, const void* consts, void* stream) {
+// out null: every child is a pool slot; else a negative child is a leaf's
+// output position, and doubled (null: no leaf doubled) flags 2n children.
+extern "C" int she_expand_combine(void* pool, void* out, const void* upd, const void* parents, const void* child0,
+                                  const void* child1, const void* doubled, long long count, long long inner,
+                                  int l_count, int log2n, int shift, const void* consts, void* stream) {
   if (count <= 0 || inner <= 0) return 0;
-  if (l_count < 1 || log2n < 1 || log2n > 13 || shift <= 0 || shift >= (1 << log2n))
+  if (l_count < 1 || log2n < 1 || log2n > 13 || shift <= 0 || shift >= (1 << log2n) ||
+      (out == nullptr && doubled != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  expand_combine_kernel<<<static_cast<unsigned>(count * inner), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<u64*>(pool), static_cast<const u64*>(upd), static_cast<const i64*>(parents),
-      static_cast<const i64*>(child0), static_cast<const i64*>(child1), inner, l_count, log2n, shift,
-      static_cast<const u64*>(consts));
+  const unsigned grid = static_cast<unsigned>(count * inner);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  u64* p = static_cast<u64*>(pool);
+  u64* o = static_cast<u64*>(out);
+  const u64* u = static_cast<const u64*>(upd);
+  const i64* par = static_cast<const i64*>(parents);
+  const i64* c0 = static_cast<const i64*>(child0);
+  const i64* c1 = static_cast<const i64*>(child1);
+  const unsigned char* dbl = static_cast<const unsigned char*>(doubled);
+  const u64* cs = static_cast<const u64*>(consts);
+  if (out == nullptr)
+    expand_combine_kernel<false, false><<<grid, kThreads, 0, st>>>(p, o, u, par, c0, c1, dbl, count, inner, l_count,
+                                                                   log2n, shift, cs);
+  else if (doubled == nullptr)
+    expand_combine_kernel<true, false><<<grid, kThreads, 0, st>>>(p, o, u, par, c0, c1, dbl, count, inner, l_count,
+                                                                  log2n, shift, cs);
+  else
+    expand_combine_kernel<true, true><<<grid, kThreads, 0, st>>>(p, o, u, par, c0, c1, dbl, count, inner, l_count,
+                                                                 log2n, shift, cs);
   return static_cast<int>(cudaGetLastError());
 }

@@ -48,6 +48,16 @@ struct Mod {
   u64 q, r_lo, r_hi;  // r = floor(2^128 / q)
 };
 
+// A modulus's row of ops/key_switch_cuda.constants: q, r_lo, r_hi, then
+// what ks_finish alone reads (half mod q, q_ks^-1 mod q, its Shoup
+// constant, 0, 0).
+constexpr int kConstWords = 8;
+
+__device__ __forceinline__ Mod load_mod(const u64* consts, int i) {
+  const u64* c = consts + kConstWords * i;
+  return Mod{__ldg(c), __ldg(c + 1), __ldg(c + 2)};
+}
+
 // x mod q for any 64-bit x: the quotient estimate floor(x * floor(2^64 / q) /
 // 2^64) is at most one below floor(x / q), so one subtraction finishes.
 __device__ __forceinline__ u64 reduce64(u64 x, const Mod& m) {

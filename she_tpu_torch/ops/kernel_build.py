@@ -22,7 +22,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = {"ntt": "ntt.cu", "dim0_int8": "dim0_int8.cu", "simple_pir_matmul": "simple_pir_matmul.cu",
-           "ntt_mxu": "ntt_mxu.cu", "key_switch": "key_switch.cu", "behz": "behz.cu"}
+           "ntt_mxu": "ntt_mxu.cu", "key_switch": "key_switch.cu", "behz": "behz.cu",
+           "dim0_mac": "dim0_mac.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

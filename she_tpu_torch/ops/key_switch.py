@@ -31,7 +31,11 @@ so the kernels equal the plain versions bit for bit.
   is given), out1 = c1 + u1 (c1 given) or u1.
 * expand_combine: per level node r, p0 = c'_r + parent_r and
   p1 = (parent_r - c'_r) * x^-shift, the parents read from the slot pool
-  and both children written into their slots.
+  and both children written: an inner node into its slot, a leaf (where
+  the level writes leaves: `out` given) into the output at its position,
+  doubled (2 p mod q, she_tpu/pir/serving.py:168-171) where the plan's
+  mask says. On the card a level that writes leaves launches the
+  kernel's leaf instance, counted as expand_leaves.
 
 `index`: where given, the operand's axis 0 is gathered by it (the slot
 pool of the expansion, read in place).
@@ -46,7 +50,7 @@ from . import galois as galoismod
 from . import key_switch_cuda
 from . import modarith as ma
 
-plain_calls_on_cuda = {"ks_digits": 0, "ks_mac": 0, "ks_finish": 0, "expand_combine": 0}
+plain_calls_on_cuda = {"ks_digits": 0, "ks_mac": 0, "ks_finish": 0, "expand_combine": 0, "expand_leaves": 0}
 
 
 def _count_plain(name: str, x: torch.Tensor) -> None:
@@ -110,7 +114,8 @@ def ks_finish_plain(inv: torch.Tensor, ks_ctx, c0=None, c1=None, element: int | 
 def check_level_slots(parents, child0, child1) -> None:
     """An expansion level's slots as expand_combine needs them: its kernel
     writes the children in place while other blocks still read parents,
-    so the child slots must be distinct and none may be a parent slot.
+    so the children must be distinct and none may be a parent slot (a
+    negative child, a leaf's output position, differs from every slot).
     Plain ints, checked on the host once per plan."""
     children = list(child0) + list(child1)
     if len(set(children)) != len(children) or not set(children).isdisjoint(parents):
@@ -119,15 +124,30 @@ def check_level_slots(parents, child0, child1) -> None:
 
 
 def expand_combine_plain(pool: torch.Tensor, update: torch.Tensor, parents: torch.Tensor, child0: torch.Tensor,
-                         child1: torch.Tensor, shift: int, ct_ctx) -> None:
+                         child1: torch.Tensor, shift: int, ct_ctx, out=None, doubled=None) -> None:
     """pool [slots, ..., L, N], update [n, ..., L, N]: writes
-    pool[child0] = update + pool[parents] and
-    pool[child1] = (pool[parents] - update) * x^-shift, in place."""
-    _count_plain("expand_combine", update)
+    p0 = update + pool[parents] to child0 and
+    p1 = (pool[parents] - update) * x^-shift to child1, in place. Without
+    `out` every child is a pool slot; with it (out [outputs, ..., L, N]) a
+    negative child c is the leaf at output position -c - 1, written there
+    as 2 p mod q where `doubled` (bool [2, n]: the first children, then
+    the second; None: no leaf doubled) says so."""
+    _count_plain("expand_leaves" if out is not None else "expand_combine", update)
     q = ct_ctx.q_col
     par = pool.index_select(0, parents)
-    pool[child0] = ma.add_mod(update, par, q)
-    pool[child1] = polymod.multiply_power_of_x_data(ma.sub_mod(par, update, q), -shift, ct_ctx)
+    p0 = ma.add_mod(update, par, q)
+    p1 = polymod.multiply_power_of_x_data(ma.sub_mod(par, update, q), -shift, ct_ctx)
+    if out is None:
+        pool[child0] = p0
+        pool[child1] = p1
+        return
+    for row, (children, p) in enumerate(((child0, p0), (child1, p1))):
+        if doubled is not None:
+            twice = doubled[row].view((-1,) + (1,) * (p.dim() - 1))
+            p = torch.where(twice, ma.add_mod(p, p, q), p)
+        leaf = children < 0
+        pool[children[~leaf]] = p[~leaf]
+        out[-children[leaf] - 1] = p[leaf]
 
 
 # -- dispatch -----------------------------------------------------------------
@@ -150,7 +170,8 @@ def ks_finish(inv: torch.Tensor, ks_ctx, c0=None, c1=None, element: int | None =
 
 
 def expand_combine(pool: torch.Tensor, update: torch.Tensor, parents: torch.Tensor, child0: torch.Tensor,
-                   child1: torch.Tensor, shift: int, ct_ctx) -> None:
+                   child1: torch.Tensor, shift: int, ct_ctx, out=None, doubled=None) -> None:
     _route("expand_combine", update,
-           lambda: key_switch_cuda.expand_combine(pool, update, parents, child0, child1, shift, ct_ctx.moduli),
-           lambda: expand_combine_plain(pool, update, parents, child0, child1, shift, ct_ctx))
+           lambda: key_switch_cuda.expand_combine(pool, update, parents, child0, child1, shift, ct_ctx.moduli, out,
+                                                  doubled),
+           lambda: expand_combine_plain(pool, update, parents, child0, child1, shift, ct_ctx, out, doubled))

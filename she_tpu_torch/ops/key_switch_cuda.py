@@ -2,7 +2,8 @@
 
 The kernels replace the passes that she_tpu leaves to XLA to fuse in a key
 switch (she_tpu/bfv/keys.py:270-363, ops/galois.py:61, core/poly.py:207,
-bfv/bfv.py:796-840) and in an expansion level (pir/serving.py:160-167);
+bfv/bfv.py:796-840) and in an expansion level (pir/serving.py:160-171:
+the combine, and the leaves written by its leaf instance);
 ops/key_switch.py holds their plain versions and the dispatch. Each
 wrapper checks its operands, allocates its output with torch.empty,
 launches on torch.cuda.current_stream() and raises if the launch reports a
@@ -46,8 +47,9 @@ class KsKey(NamedTuple):
     key-switching moduli (the ciphertext moduli for expand_combine) and
     the kernel's variant: (element, slots) for ks_digits, () for ks_mac,
     (element, c0 given, c1 given, slots) for ks_finish, (shift, slots) for
-    expand_combine; slots is the size of an indexed operand's axis 0, else
-    None."""
+    expand_combine, (shift, slots, outputs, a doubling mask given) for
+    its leaf instance, expand_leaves; slots is the size of an indexed
+    operand's axis 0, else None."""
 
     name: str
     shape: tuple
@@ -55,7 +57,7 @@ class KsKey(NamedTuple):
     variant: tuple
 
 
-launches = {"ks_digits": 0, "ks_mac": 0, "ks_finish": 0, "expand_combine": 0}
+launches = {"ks_digits": 0, "ks_mac": 0, "ks_finish": 0, "expand_combine": 0, "expand_leaves": 0}
 launch_shapes: Counter = Counter()
 
 
@@ -79,7 +81,7 @@ _ARGTYPES = {
     "she_ks_digits": [_OP, _VP, _LL, _INT, _INT, _INT, _VP, _U64, _INT, _VP],
     "she_ks_mac": [_VP, _VP, _VP, _LL, _INT, _INT, _INT, _VP, _VP],
     "she_ks_finish": [_VP, _OP, _OP, _VP, _LL, _INT, _INT, _VP, _U64, _INT, _VP],
-    "she_expand_combine": [_VP, _VP, _VP, _VP, _VP, _LL, _LL, _INT, _INT, _INT, _VP, _VP],
+    "she_expand_combine": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _INT, _INT, _INT, _VP, _VP],
 }
 
 
@@ -290,14 +292,20 @@ def ks_finish(inv: torch.Tensor, moduli: tuple, c0=None, c1=None, element: int |
 
 
 def expand_combine(pool: torch.Tensor, update: torch.Tensor, parents: torch.Tensor, child0: torch.Tensor,
-                   child1: torch.Tensor, shift: int, moduli: tuple) -> None:
+                   child1: torch.Tensor, shift: int, moduli: tuple, out=None, doubled=None) -> None:
     """pool [slots, ..., L, N], update [n, ..., L, N] (both contiguous),
     parents / child0 / child1 [n] int64 slot indices: writes
-    pool[child0] = update + pool[parents] and
-    pool[child1] = (pool[parents] - update) * x^-shift in place. The child
-    slots must be distinct and differ from the parent slots
-    (ops/key_switch.check_level_slots, which the expansion's plan passes):
-    the kernel writes children while other blocks still read parents."""
+    p0 = update + pool[parents] to child0 and
+    p1 = (pool[parents] - update) * x^-shift to child1 in place. With
+    `out` [outputs, ..., L, N] (contiguous) the level writes leaves: a
+    negative child c is the leaf at output position -c - 1, written as
+    2 p mod q where `doubled` (bool [2, n], contiguous: the first
+    children's flags, then the second's; None where no leaf is doubled)
+    says so; the kernel's leaf instance launches and counts as
+    expand_leaves. The children must be distinct and differ from the
+    parent slots (ops/key_switch.check_level_slots, which the expansion's
+    plan passes): the kernel writes children while other blocks still
+    read parents."""
     if not 0 < shift < update.shape[-1]:
         raise ValueError(f"expand_combine takes a shift in (0, N), got {shift}")
     _check_contiguous(pool, "pool")
@@ -314,11 +322,30 @@ def expand_combine(pool: torch.Tensor, update: torch.Tensor, parents: torch.Tens
             raise ValueError(f"{idx.numel()} slot indices for {n} updates")
     if update.device != pool.device:
         raise ValueError(f"update on {update.device}, pool on {pool.device}")
+    if out is not None:
+        _check_contiguous(out, "out")
+        if tuple(out.shape[1:]) != tuple(pool.shape[1:]) or out.device != pool.device:
+            raise ValueError(f"out [outputs, ...] must match the pool's slots and device, got {tuple(out.shape)} on "
+                             f"{out.device}")
+    if doubled is not None:
+        if out is None:
+            raise ValueError("a doubling mask needs out")
+        if doubled.dtype != torch.bool or tuple(doubled.shape) != (2, n) or not doubled.is_contiguous():
+            raise ValueError(f"doubled must be a contiguous bool [2, {n}] tensor")
+        if doubled.device != pool.device:
+            raise ValueError(f"doubled on {doubled.device}, pool on {pool.device}")
     inner = update[0].numel() // degree if n else 0  # rows of a slot
     if n and inner:
-        err = _library().she_expand_combine(pool.data_ptr(), update.data_ptr(), parents.data_ptr(),
-                                            child0.data_ptr(), child1.data_ptr(), n, inner, L, log2n, shift,
-                                            constants(moduli, pool.device).data_ptr(), _stream())
+        err = _library().she_expand_combine(pool.data_ptr(), None if out is None else out.data_ptr(),
+                                            update.data_ptr(), parents.data_ptr(), child0.data_ptr(),
+                                            child1.data_ptr(), None if doubled is None else doubled.data_ptr(), n,
+                                            inner, L, log2n, shift, constants(moduli, pool.device).data_ptr(),
+                                            _stream())
         _raise_on(err, "expand_combine")
-    launches["expand_combine"] += 1
-    launch_shapes[KsKey("expand_combine", tuple(update.shape), moduli, (shift, pool.shape[0]))] += 1
+    if out is None:
+        launches["expand_combine"] += 1
+        launch_shapes[KsKey("expand_combine", tuple(update.shape), moduli, (shift, pool.shape[0]))] += 1
+    else:
+        launches["expand_leaves"] += 1
+        launch_shapes[KsKey("expand_leaves", tuple(update.shape), moduli,
+                            (shift, pool.shape[0], out.shape[0], doubled is not None))] += 1

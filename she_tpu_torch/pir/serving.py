@@ -13,19 +13,23 @@ contract it keeps, bit-identical responses, is this module's.
 * Level-batched oblivious expansion: every node at one level of the
   expansion tree applies the same Galois element, so each level is ONE
   batched Galois + key switch over the level's [nodes, queries, 2, L, N]
-  parents, read in place from a slot pool [slots, queries, 2, L, N]
-  (bfv/keys.key_switch with the parents' slot indices), then ONE
-  expand_combine that writes both children into their slots
-  (ops/key_switch.py; on a CUDA card, kernels of csrc/key_switch.cu).
+  parents, read in place from a pool of the tree's inner nodes
+  [inner, queries, 2, L, N] (bfv/keys.key_switch with the parents' slot
+  indices), then ONE expand_combine that writes both children: an inner
+  node into its pool slot, a leaf (doubled where the plan says) straight
+  into the output at its position (ops/key_switch.py; on a CUDA card,
+  kernels of csrc/key_switch.cu), so no pass follows the last level.
 * Dim-0 ct-pt inner products for all columns at once against the database
   chunk packed on the device, in one of two forms. The int8 digit form
   (dim0_int8, the default on a CUDA card at 32-bit scalars, as she_tpu
   serves its MXU form on an accelerator at w32):
   base-2^7 digits, int8 x int8 -> int32 digit dots, recombined mod q; on
   the card it is the kernel of csrc/dim0_int8.cu. The MAC form
-  (dim0_inner_products, the default otherwise): a lazy MAC streamed over
-  d0 (the [C, d0, 2B, L, N] product is never materialized), int64 at w32,
-  (hi, lo) pairs at w64 (she_tpu's _dim0_inner_products_w64).
+  (dim0_inner_products, the default otherwise): ops/dim0_mac, on the card
+  the kernel of csrc/dim0_mac.cu (128-bit accumulators, both operands
+  read in place), on the CPU a lazy MAC streamed over d0 (the
+  [C, d0, 2B, L, N] product is never materialized), int64 at w32, (hi, lo)
+  pairs at w64 (she_tpu's _dim0_inner_products_w64).
 * Higher dimensions: BEHZ ct-ct inner products and relinearization over
   [queries, d, ...] tensors, then the mod switch down to one modulus.
 
@@ -37,6 +41,7 @@ sequence of batches.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from functools import lru_cache
 
@@ -48,9 +53,8 @@ from ..bfv import keys as keysmod
 from ..core.poly import COEFF, EVAL
 from ..io import coeffs as coeffio
 from ..ops import digits as dg
-from ..ops import dim0_cuda
+from ..ops import dim0_cuda, dim0_mac
 from ..ops import key_switch as ks
-from ..ops import modarith as ma
 from . import index_pir as ip
 from . import keyword_pir as kp
 
@@ -103,33 +107,48 @@ def build_expansion_plan(output_count: int) -> ExpansionPlan:
 
 @lru_cache(maxsize=None)
 def _plan_on_device(output_count: int, device: torch.device):
-    """The plan's slot indices as device tensors, made once: per non-empty
-    level (log_step, parents, first children, second children), then the
-    leaf slots in output order and their doubling mask. Each level's slots
-    are checked here, on the host, as expand_combine needs them."""
+    """The plan as the level kernels take it, made once: the count of
+    inner nodes (the slot pool holds only those, the root in slot 0), and
+    per non-empty level (log_step, parents, first children, second
+    children, whether it writes leaves, the leaves' doubling mask). A
+    parent is a pool slot; a child is its pool slot, or -(position + 1)
+    for a leaf, which the level writes straight into the output at its
+    position. The mask is a bool [2, n] tensor (a level's first children,
+    then its second), None where the level doubles no leaf. Each level's
+    destinations are checked here, on the host, as expand_combine needs
+    them."""
     plan = build_expansion_plan(output_count)
+    inner = sorted({0} | {node[0] for lv in plan.levels for node in lv})
+    pool_slot = {slot: i for i, slot in enumerate(inner)}
+    leaf = {slot: (-(pos + 1), doubled) for pos, (slot, doubled) in enumerate(plan.leaves)}
 
     def idx(values):
         return torch.tensor(values, dtype=torch.int64, device=device)
 
     levels = []
     for i, lv in enumerate(plan.levels):
-        if lv:
-            parents, child0, child1 = ([node[k] for node in lv] for k in range(3))
-            ks.check_level_slots(parents, child0, child1)
-            levels.append((i + 1, idx(parents), idx(child0), idx(child1)))
-    leaves = idx([s for s, _ in plan.leaves])
-    doubled = torch.tensor([d for _, d in plan.leaves], device=device).view(-1, 1, 1, 1, 1)
-    return plan.slot_count, levels, leaves, doubled
+        if not lv:
+            continue
+        parents = [pool_slot[node[0]] for node in lv]
+        child0, child1 = ([pool_slot[node[k]] if node[k] in pool_slot else leaf[node[k]][0] for node in lv]
+                          for k in (1, 2))
+        ks.check_level_slots(parents, child0, child1)
+        mask = [[node[k] in leaf and leaf[node[k]][1] for node in lv] for k in (1, 2)]
+        doubled = torch.tensor(mask, device=device) if any(map(any, mask)) else None
+        writes_leaves = min(child0 + child1) < 0
+        levels.append((i + 1, idx(parents), idx(child0), idx(child1), writes_leaves, doubled))
+    return len(inner), levels
 
 
-# expansion levels combined since the last reset: on a CUDA card each
-# launches expand_combine once
-levels_run = {"expansion_level": 0}
+# expansion levels combined since the last reset, and of them those that
+# wrote leaves: on a CUDA card each launches expand_combine's kernel once,
+# its leaf instance (expand_leaves) where the level writes leaves
+levels_run = {"expansion_level": 0, "leaf_level": 0}
 
 
 def reset_levels_run() -> None:
-    levels_run["expansion_level"] = 0
+    for k in levels_run:
+        levels_run[k] = 0
 
 
 def _mark(on_stage, stage: str) -> None:
@@ -141,55 +160,69 @@ def _ct(context, data: torch.Tensor, poly_ctx, fmt=COEFF) -> bfv.Ciphertext:
     return bfv.Ciphertext.from_stacked(context, data, poly_ctx, fmt)
 
 
-def expand_stacked(stacked: torch.Tensor, output_count: int, evaluation_key, context) -> torch.Tensor:
+def expand_stacked(stacked: torch.Tensor, output_count: int, evaluation_key, context,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
     """Level-batched expansion of one query ciphertext per batch entry.
 
     stacked: [B, 2, L, N] Coeff -> [output_count, B, 2, L, N] in final
-    output order; the same tree and math as ip.expand_ciphertext."""
+    output order (written into `out` where given); the same tree and math
+    as ip.expand_ciphertext. Each level's key switch reads its parents
+    from the pool of inner nodes in place, and its expand_combine writes
+    the children: inner nodes into the pool, leaves (doubled where the
+    plan says, she_tpu serving.py:168-171) straight into the output, so
+    nothing passes over the output after the last level."""
     ct_ctx = context.ciphertext_context.get_context(stacked.shape[-2])
     if output_count == 1:
         # height 0: a single output, no doubling (logStep 1 > height 0)
-        return stacked.unsqueeze(0)
-    slot_count, levels, leaves, doubled = _plan_on_device(output_count, stacked.device)
-    pool = torch.empty((slot_count,) + tuple(stacked.shape), dtype=stacked.dtype, device=stacked.device)
+        if out is None:
+            return stacked.unsqueeze(0)
+        out[0] = stacked
+        return out
+    inner_count, levels = _plan_on_device(output_count, stacked.device)
+    shape = tuple(stacked.shape)
+    if out is None:
+        out = torch.empty((output_count,) + shape, dtype=stacked.dtype, device=stacked.device)
+    pool = torch.empty((inner_count,) + shape, dtype=stacked.dtype, device=stacked.device)
     pool[0] = stacked
-    for log_step, parent_idx, child0_idx, child1_idx in levels:
+    for log_step, parent_idx, child0_idx, child1_idx, writes_leaves, doubled in levels:
         element, apply_count = ip.expansion_step_element(evaluation_key, context.degree, log_step)
         key = evaluation_key.galois_key.keys[element]
         # the parents' Galois image, key-switched, read from the pool in place: [n, B, 2, L, N]
         image = keysmod.key_switch(context, pool[:, :, 1], key, element, parent_idx, c0=pool[:, :, 0])
         for _ in range(apply_count - 1):
             image = keysmod.key_switch(context, image[:, :, 1], key, element, c0=image[:, :, 0])
-        ks.expand_combine(pool, image, parent_idx, child0_idx, child1_idx, 1 << (log_step - 1), ct_ctx)
+        ks.expand_combine(pool, image, parent_idx, child0_idx, child1_idx, 1 << (log_step - 1), ct_ctx,
+                          out=out if writes_leaves else None, doubled=doubled)
         levels_run["expansion_level"] += 1
-    out = pool.index_select(0, leaves)
-    twice = ma.add_mod(out, out, ct_ctx.q_col)
-    return torch.where(doubled, twice, out)
+        levels_run["leaf_level"] += int(writes_leaves)
+    return out
 
 
 def expand_batched(stacked_cts: list, output_count: int, evaluation_key, context) -> torch.Tensor:
     """stacked_cts: per query ciphertext, [B, 2, L, N] -> expanded
-    [output_count, B, 2, L, N], bit-identical to ip.expand per query."""
+    [output_count, B, 2, L, N], bit-identical to ip.expand per query;
+    each ciphertext's outputs are written into their block of one output
+    tensor."""
     degree = context.degree
-    outs = []
-    remaining = output_count
+    if len(stacked_cts) == 1:
+        return expand_stacked(stacked_cts[0], min(output_count, degree), evaluation_key, context)
+    first = stacked_cts[0]
+    out = torch.empty((output_count,) + tuple(first.shape), dtype=first.dtype, device=first.device)
+    start = 0
     for stacked in stacked_cts:
-        n = min(remaining, degree)
-        outs.append(expand_stacked(stacked, n, evaluation_key, context))
-        remaining -= n
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+        n = min(output_count - start, degree)
+        expand_stacked(stacked, n, evaluation_key, context, out=out[start:start + n])
+        start += n
+    return out
 
 
 def dim0_inner_products(db_chunk: torch.Tensor, query_eval: torch.Tensor, ct_ctx) -> torch.Tensor:
     """db_chunk [C, d0, L, N]; query_eval [d0, P, L, N] (P = 2 polys per
-    query) -> [C, P, L, N] fully reduced out[c, p] = sum_j db[c, j] * q[j, p].
-
-    Streams a lazy MAC over d0, reducing every
-    max_signed_lazy_product_count products of the context's route
-    (she_tpu serving.py:318-370)."""
-    d0 = db_chunk.shape[1]
-    terms = ((db_chunk[:, j, None], query_eval[j]) for j in range(d0))
-    return ma.sum_products_mod(terms, ct_ctx.q_col, ct_ctx.max_signed_lazy_product_count())
+    query) -> [C, P, L, N] fully reduced out[c, p] = sum_j db[c, j] * q[j, p]
+    (she_tpu serving.py:318-370): ops/dim0_mac, the kernel of
+    csrc/dim0_mac.cu on the card (both operands read in place), the lazy
+    MAC streamed over d0 on the CPU."""
+    return dim0_mac.dim0_mac(db_chunk, query_eval, ct_ctx)
 
 
 def pack_database_chunk_digits(chunk: torch.Tensor, ct_ctx) -> torch.Tensor:
@@ -259,10 +292,11 @@ class BatchedMulPirServer:
     [C, d0, L, N] view per chunk of each database (no copy), and, with the
     int8 form of dim-0, as the chunk's digits (pack_database_chunk_digits).
     `use_dim0_int8` picks the form of dim-0: None takes she_tpu's choice
-    (serving.py:773-779), the int8 form when the context's device is a
-    CUDA card and its scalars are 32-bit (the w32 route, every modulus
-    below 2^30), the MAC form otherwise; True or False forces one, for
-    tests and kernel checks. A batch runs
+    (serving.py:766-779): the environment's SHE_TPU_DIM0_MXU where it is
+    set ("1" the int8 form, anything else the MAC form), else the int8
+    form when the context's device is a CUDA card and its scalars are
+    32-bit (the w32 route, every modulus below 2^30), the MAC form
+    otherwise; True or False forces one, for tests and kernel checks. A batch runs
     four stages: `expand`, then per query index and chunk `dim0` (after
     `dim0_query`), `fold_dimensions` and `mod_switch`. A caller may pass
     `on_stage`, called with each stage's name once its work is issued
@@ -276,7 +310,11 @@ class BatchedMulPirServer:
         d0 = parameter.dimensions[0]
         n_chunks = ip.chunk_count(parameter, context)
         if use_dim0_int8 is None:
-            use_dim0_int8 = context.device.type == "cuda" and self.ct_ctx.scalar_bits == 32
+            flag = os.environ.get("SHE_TPU_DIM0_MXU")
+            if flag is None:
+                use_dim0_int8 = context.device.type == "cuda" and self.ct_ctx.scalar_bits == 32
+            else:
+                use_dim0_int8 = flag == "1"
         self.use_dim0_int8 = use_dim0_int8
         self.chunks = []  # per database, per chunk: [C, d0, L, N] on the device
         for db in databases:

@@ -11,10 +11,12 @@ tensors with a leading batch axis, as she_tpu vmaps it (serving.py:374-397):
 * baby steps: J - 1 rotations by -1 of the [B, 2, L, N] query batch, in
   she_tpu's order (state <- rotate(state, -1)), each one batched Galois
   gather and key switch; the J states go to Eval in one forward NTT;
-* the BSGS MAC: out[g, r, b] = sum_j db[g, j, r] * rotated[j, b], one lazy
-  multiply-add streamed over j on the route ops/modarith picks (int64 when
-  every modulus is below 2^31, the exact wide route otherwise: she_tpu's
-  bsgs_inner_products and _bsgs_inner_products_w64 in one function);
+* the BSGS MAC: out[g, r, b] = sum_j db[g, j, r] * rotated[j, b], one
+  ops/dim0_mac (she_tpu's bsgs_inner_products and _bsgs_inner_products_w64
+  in one function): on the card the kernel of csrc/dim0_mac.cu, on the
+  CPU a lazy multiply-add streamed over j on the route ops/modarith picks
+  (int64 when every modulus is below 2^31, the exact wide route
+  otherwise);
 * one inverse NTT of all [G, R, B, 2, L, N] products, then the giant-step
   rotate-and-sum by -J over [R, B, 2, L, N] and the mod switch down to one
   modulus.
@@ -35,7 +37,7 @@ from .. import errors
 from ..bfv import bfv
 from ..core import poly as polymod
 from ..core.poly import COEFF, EVAL, PolyRq
-from ..ops import modarith as ma
+from ..ops import dim0_mac
 from . import pnns
 
 
@@ -66,11 +68,12 @@ def bsgs_inner_products(db: torch.Tensor, rotated_eval: torch.Tensor, ct_ctx) ->
     rotations of B queries, P = 2 polys) -> [G, R, B, P, L, N] fully reduced
     sum over j of db[g, j, r] * rotated_eval[j, b, p].
 
-    A lazy multiply-add streamed over J, reduced every
-    max_signed_lazy_product_count products of the context's route (she_tpu
-    serving.py:52-97, both scalar widths)."""
-    terms = ((db[:, j, :, None, None], rotated_eval[j]) for j in range(db.shape[1]))
-    return ma.sum_products_mod(terms, ct_ctx.q_col, ct_ctx.max_signed_lazy_product_count())
+    ops/dim0_mac over the diagonals as a [G, R, J, L, N] view (she_tpu
+    serving.py:52-97, both scalar widths): on the card the kernel of
+    csrc/dim0_mac.cu, on the CPU a lazy multiply-add streamed over J,
+    reduced every max_signed_lazy_product_count products of the context's
+    route."""
+    return dim0_mac.dim0_mac(db.permute(0, 2, 1, 3, 4), rotated_eval, ct_ctx)
 
 
 class BatchedPnnsServer:

@@ -58,6 +58,32 @@ def test_only_behz_selects_the_behz_cells():
     assert chip_smoke.parse_args(["--only", "behz"]).only == "behz"
 
 
+def test_only_dim0_mac_selects_the_mac_and_leaf_cells():
+    assert chip_smoke.parse_args(["--only", "dim0_mac"]).only == "dim0_mac"
+
+
+def test_dim0_mac_byte_bounds():
+    """At the w64 cell A [4, 11, 3, 8192], B [11, 256, 3, 8192] and the
+    output [4, 256, 3, 8192] are 8.7, 553.6 and 201.3 MB: 0.228 ms at 3.35
+    TB/s; a broadcast axis of an operand is read once, and PNNS's
+    permuted diagonals count as many words as the packed ones; the leaves'
+    level moves what expand_combine moves."""
+    from she_tpu_torch.ops.dim0_mac_cuda import MacKey
+    from she_tpu_torch.ops.key_switch_cuda import KsKey
+
+    n, L = 8192, 3
+    w64 = MacKey((4, 11, L, n), (11 * L * n, L * n, n, 1), (11, 256, L, n), (256 * L * n, L * n, n, 1), (1, 2, 3))
+    assert chip_smoke.mac_bytes(w64) == 8 * L * n * (44 + 11 * 256 + 4 * 256)
+    assert 1e3 * chip_smoke.mac_bytes(w64) / chip_smoke.HBM_BYTES_PER_S == pytest.approx(0.228, abs=5e-4)
+    pnns = MacKey((11, 1, 12, 2, 4096), (12 * 8192, 8192, 8192, 4096, 1), (12, 16, 2, 2, 4096),
+                  (16 * 2 * 8192, 2 * 8192, 8192, 4096, 1), (1, 2))
+    assert chip_smoke.mac_bytes(pnns) == 8 * 2 * 4096 * (11 * 12 + 12 * 32 + 11 * 32)
+    broadcast = MacKey((5, 7, 2, 8), (0, 16, 8, 1), (7, 6, 2, 8), (16, 0, 8, 1), (1, 2))
+    assert chip_smoke.mac_bytes(broadcast) == 8 * 16 * (7 + 7 + 30)
+    unit = 128 * 128 * 4096 * 8
+    assert chip_smoke.ks_bytes(KsKey("expand_leaves", (128, 128, 2, 2, 4096), (1, 2), (64, 255, 256, False))) == 16 * unit
+
+
 def test_ntt_mxu_cells():
     """The matrix NTT serves the w32 cell for --batches batches and one
     batch of the w64 cell (8 digits), and checks its kernel at 60-bit
@@ -74,17 +100,20 @@ def test_ntt_mxu_cells():
 
 def test_kernels_line_names_every_kernel():
     """The kernels line (run() checks its names against KERNEL_SOURCES)
-    covers all six sources the package builds: the NTT's two kernels,
-    dim0_int8, simple_pir_matmul, ntt_mxu, the key switch's four and the
-    BEHZ product's three."""
+    covers all seven sources the package builds: the NTT's two kernels,
+    dim0_int8, simple_pir_matmul, ntt_mxu, the key switch's four and
+    expand_combine's leaf instance, the BEHZ product's three and
+    dim0_mac."""
     from she_tpu_torch.ops import kernel_build
 
     assert set(chip_smoke.KERNEL_SOURCES) == {"ntt_forward", "ntt_inverse", "dim0_int8", "simple_pir_matmul",
                                               "ntt_mxu", "ks_digits", "ks_mac", "ks_finish", "expand_combine",
-                                              "behz_lift", "behz_tensor_mac", "behz_floor"}
+                                              "expand_leaves", "behz_lift", "behz_tensor_mac", "behz_floor",
+                                              "dim0_mac"}
     assert set(chip_smoke.KERNEL_SOURCES.values()) == {
         f"she_tpu_torch/csrc/{source}" for source in kernel_build.SOURCES.values()}
-    assert len(kernel_build.SOURCES) == 6
+    assert len(kernel_build.SOURCES) == 7
+    assert set(chip_smoke.PTXAS_LABELS) == set(chip_smoke.KS_KERNELS) | {"dim0_mac"}
     assert set(chip_smoke.KS_REPLACES) == set(chip_smoke.KS_KERNELS) == set(chip_smoke.KS_LIBRARY)
     assert set(chip_smoke.BEHZ_REPLACES) == set(chip_smoke.BEHZ_KERNELS)
 

@@ -90,3 +90,20 @@ def test_entry_points_need_a_card_unless_told_otherwise():
         with pytest.raises(RuntimeError):
             resolve_device(None)
     assert bfv.get_bfv_context(ep, device="cpu").device == torch.device("cpu")
+
+
+def test_kernel_modules_build_nothing_when_imported():
+    """Importing the dim-0 MAC's modules (and the serving modules that
+    dispatch to it) builds and loads no kernel: nvcc runs only inside a
+    launch on the card. Every CUDA source is registered for the build."""
+    import importlib
+
+    from she_tpu_torch.ops import kernel_build
+
+    loaded = set(kernel_build._loaded)
+    for name in ("she_tpu_torch.ops.dim0_mac", "she_tpu_torch.ops.dim0_mac_cuda", "she_tpu_torch.pir.serving",
+                 "she_tpu_torch.pnns.serving", "she_tpu_torch.bfv.bfv"):
+        importlib.import_module(name)
+    assert set(kernel_build._loaded) == loaded
+    assert set(kernel_build.SOURCES.values()) == {p.name for p in (ROOT / "she_tpu_torch" / "csrc").glob("*.cu")}
+

@@ -228,7 +228,7 @@ def test_expand_stacked_matches_she_tpu(keyed):
     tserving.reset_levels_run()
     got = tserving.expand_stacked(stacked, N, keyed["tek"], tctx)
     assert tkeys.switches == {"key_switch": 1 + 2 + 1}  # a call a level, two at level 1
-    assert tserving.levels_run == {"expansion_level": 3}
+    assert tserving.levels_run == {"expansion_level": 3, "leaf_level": 1}  # the last level writes the 8 leaves
     for b, (jct, _) in enumerate(keyed["cts"]):
         want = jip.expand([jct], N, keyed["jek"])
         assert len(want) == got.shape[0]
@@ -432,11 +432,17 @@ def test_level_slots_must_be_disjoint(slots):
 @pytest.mark.parametrize("output_count", [2, 3, 8, 100, 511])
 def test_expansion_plans_pass_the_slot_check(output_count):
     """Every level of the served plans passes check_level_slots (which
-    _plan_on_device runs), and the plan's children fill new slots."""
+    _plan_on_device runs), and the plan's children fill new slots: every
+    inner node but the root once, every output position once (a leaf
+    -position - 1), and a level says it writes leaves exactly where it
+    does."""
     tserving._plan_on_device.cache_clear()
-    slot_count, levels, _, _ = tserving._plan_on_device(output_count, CPU)
-    written = [int(s) for _, _, c0, c1 in levels for s in torch.cat([c0, c1])]
-    assert len(set(written)) == len(written) == slot_count - 1
+    inner_count, levels = tserving._plan_on_device(output_count, CPU)
+    written = [int(s) for _, _, c0, c1, _, _ in levels for s in torch.cat([c0, c1])]
+    assert len(set(written)) == len(written) == inner_count - 1 + output_count
+    assert sorted(written) == list(range(-output_count, 0)) + list(range(1, inner_count))
+    assert [leaves for *_, leaves, _ in levels] == [bool((torch.cat([c0, c1]) < 0).any())
+                                                    for _, _, c0, c1, _, _ in levels]
 
 
 def test_dispatch_refuses_other_devices():

@@ -182,7 +182,8 @@ def test_widest_served_level(cell):
 @pytest.mark.gpu
 def test_dispatch_takes_the_kernels_on_cuda():
     """On CUDA tensors the four functions of ops/key_switch.py launch the
-    kernels and run no plain pass."""
+    kernels (expand_combine's leaf instance where a level writes leaves)
+    and run no plain pass."""
     _card()
     moduli = _ks_moduli("w32", 2)
     ctx = _ctx(moduli, 64)
@@ -194,5 +195,7 @@ def test_dispatch_takes_the_kernels_on_cuda():
     pool = torch.cat([c, out])
     idx = torch.tensor([0, 2, 3], device="cuda")
     ks.expand_combine(pool, out[:1], idx[:1], idx[1:2], idx[2:], 4, _ctx(moduli[:-1], 64))
+    leaves = torch.zeros((1,) + tuple(pool.shape[1:]), dtype=torch.int64, device="cuda")
+    ks.expand_combine(pool, out[:1], idx[:1], idx[1:2], -idx[:1] - 1, 4, _ctx(moduli[:-1], 64), leaves)
     assert {k: kc.launches[k] - before[k] for k in kc.launches} == dict.fromkeys(kc.launches, 1)
     assert ks.plain_calls_on_cuda == plain

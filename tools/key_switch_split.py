@@ -1,26 +1,36 @@
 #!/usr/bin/env python3
-"""Split the device time of the port's key switches and BEHZ products by part, on one NVIDIA card.
+"""Split the device time of the port's key switches, expansion, dim-0 and BEHZ products by part, on one NVIDIA card.
 
 For each cell asked for (keyword, w32, w64, pnns_w32, pnns_w64: the cells
 of chip_smoke.py, built the same way from the same seeds) it serves
-`--batches` batches and reports the median seconds a batch, the device ms
+`--batches` batches and reports the median seconds a batch (and the
+host CPU seconds the process spent in it) and the peak device memory
+while serving, the device ms
 by stage of one batch (chip_smoke.stage_split, CUDA events), and one more
 batch under torch.profiler with each part inside a record_function range:
 its device ms (the kernels the profiler links to the range) and its kernel
-launches, apart for the expansion, the BEHZ stage (the higher dimensions'
-ct x ct inner products and their relinearizations, serving's
-fold_dimensions) and the other Galois rotations (PNNS). A CUDA-event span
-of every part is kept beside it.
+launches, apart for the expansion, the dim-0 stage, the BEHZ stage (the
+higher dimensions' ct x ct inner products and their relinearizations,
+serving's fold_dimensions), PNNS's BSGS MAC and the other Galois
+rotations (PNNS). A CUDA-event span of every part is kept beside it.
 
 The key switch's parts: the Galois gather, the digits (each digit reduced
 mod every key-switching modulus), the forward NTT, the MAC against the
 key, the inverse NTT, the divide-and-round by q_ks, the add into c0 (and
 c1) and the expansion's combine (c' + parent, (parent - c') x^-k into the
-slot pool). The BEHZ stage's parts: the lift to [q, B_sk], the forward
-NTT, the tensor product, its sum over the K pairs, the scale by t, the
-inverse NTT, the floor back to q and the relinearization (one part,
-its key switch inside). `other` is the rest of a stage (the pool's
-index_select and scatters, stacking copies, the leaves' doubling).
+slot pool). The expansion's tail after its last level: in a tree whose
+levels write the leaves into the output (`leaves`: each level that writes
+leaves, apart from the other levels' `combine`) there is none; in an
+older tree it is the leaves' gather from the pool (`leaf_gather`), the
+doubling's add (`leaf_add`) and the choice of the doubled leaves
+(`leaf_where`). The dim-0 stage's parts: the query's forward NTT
+(`dim0_query`), the MAC or the int8 form (`mac`) and the columns' inverse
+NTT (`dim0_columns`); PNNS's BSGS MAC is stage `bsgs`. The BEHZ stage's
+parts: the lift to [q, B_sk], the forward NTT, the tensor product, its sum
+over the K pairs, the scale by t, the inverse NTT, the floor back to q and
+the relinearization (one part, its key switch inside). `other` is the
+rest of a stage (scatters, stacking copies, the root's copy into the
+pool).
 
 The port and chip_smoke.py are imported from `--root`, so the same script
 measures a checkout of an older commit and this tree: where the tree has
@@ -78,12 +88,15 @@ class Labels:
         wrapped.__wrapped__ = fn
         return wrapped
 
-    def part_wrapper(self, part, fn):
+    def part_wrapper(self, part, fn, only_in=None):
+        """fn labelled as `part` where it runs inside a stage (only inside
+        stage `only_in`, where given) and outside another part."""
+
         def wrapped(*args, **kwargs):
             import torch
             from torch.profiler import record_function
 
-            if self.stage is None or self.part is not None:
+            if self.stage is None or self.part is not None or only_in not in (None, self.stage):
                 return fn(*args, **kwargs)
             self.part = part
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -148,6 +161,46 @@ def instrument(labels: Labels) -> str:
                         ct_sub=labels.part_wrapper("combine", bfv.ct_sub),
                         multiply_power_of_x=labels.part_wrapper("combine", bfv.multiply_power_of_x))
     return "plain"
+
+
+def instrument_dim0_and_leaves(labels: Labels) -> str:
+    """Wrap the dim-0 stage's parts and the expansion's tail after its
+    last level; returns which kind of tail the tree has.
+
+    The dim-0 stage (serving's dim0_query and dim0, one range a call):
+    `dim0_query` (the expanded ciphertexts' forward NTT and reshape),
+    `mac` (dim0_partial: the MAC or the int8 form) and `dim0_columns`
+    (the inverse NTT and the columns' transpose). PNNS's BSGS MAC is a
+    stage of its own, `bsgs`, one part `mac`. The expansion: in a tree
+    whose levels write their leaves (serving.levels_run has leaf_level),
+    a level that writes leaves is part `leaves` and any other level's
+    combine `combine`; in an older tree the tail after the last level is
+    `leaf_gather` (the pool's index_select), `leaf_add` (the doubling's
+    add_mod) and `leaf_where` (the choice of doubled leaves)."""
+    import torch
+
+    from she_tpu_torch.ops import modarith
+    from she_tpu_torch.pir import serving
+    from she_tpu_torch.pnns import serving as pnns_serving
+
+    server = serving.BatchedMulPirServer
+    server.dim0_query = labels.stage_wrapper("dim0", labels.part_wrapper("dim0_query", server.dim0_query))
+    server.dim0 = labels.stage_wrapper("dim0", server.dim0)
+    server.dim0_partial = labels.part_wrapper("mac", server.dim0_partial)
+    server.dim0_columns = labels.part_wrapper("dim0_columns", server.dim0_columns)
+    pnns_serving.bsgs_inner_products = labels.stage_wrapper(
+        "bsgs", labels.part_wrapper("mac", pnns_serving.bsgs_inner_products))
+    if "leaf_level" in serving.levels_run:
+        ks = importlib.import_module("she_tpu_torch.ops.key_switch")
+        combine = labels.part_wrapper("combine", ks.expand_combine)
+        leaves = labels.part_wrapper("leaves", ks.expand_combine)
+        ks.expand_combine = lambda *args, **kwargs: (leaves if kwargs.get("out") is not None else combine)(
+            *args, **kwargs)
+        return "leaves written by the levels"
+    torch.Tensor.index_select = labels.part_wrapper("leaf_gather", torch.Tensor.index_select, only_in="expansion")
+    serving.ma = proxy(modarith, add_mod=labels.part_wrapper("leaf_add", modarith.add_mod, only_in="expansion"))
+    serving.torch = proxy(torch, where=labels.part_wrapper("leaf_where", torch.where, only_in="expansion"))
+    return "a gather, add and where after the last level"
 
 
 def instrument_behz(labels: Labels) -> str:
@@ -324,21 +377,27 @@ def run_cell(cs, labels: Labels, cell: str, seed: int, batches: int) -> dict:
         label = {"pnns_w32": "pnns_4096x128_w32_b16", "pnns_w64": "pnns_4096x128_w64_b16"}[cell]
         server, queries, ek, stage_names, dig = pnns_cell(cs, label, seed)
     setup_s = time.perf_counter() - t0
-    batch_s, responses = [], None
+    batch_s, cpu_s, responses = [], [], None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(batches + 1):  # the first batch warms up
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0, c0 = time.perf_counter(), time.process_time()
         responses = server.compute_response_batch(queries, ek)
         torch.cuda.synchronize()
         batch_s.append(time.perf_counter() - t0)
+        cpu_s.append(time.process_time() - c0)
     steady = batch_s[1:]
+    peak = torch.cuda.max_memory_allocated()
     same = cs.assert_same_pnns_responses if cell.startswith("pnns") else cs.assert_same_responses
     stages = cs.stage_split(server, queries, ek, responses, stage_names, same)
     split = profiled_parts(labels, server, queries, ek)
     out = dict(cell=cell, setup_s=setup_s, batch_s=batch_s, median_s_per_batch=statistics.median(steady),
-               stages_ms=stages, digest=dig(responses), **split)
+               cpu_s=cpu_s, median_cpu_s_per_batch=statistics.median(cpu_s[1:]),
+               stages_ms=stages, peak_bytes=peak, digest=dig(responses), **split)
     print(f"[{cell}] median {out['median_s_per_batch']:.4f} s/batch over {len(steady)} batches "
-          f"(first {batch_s[0]:.4f}); device ms by stage {({k: round(v, 3) for k, v in stages.items()})}; "
+          f"(first {batch_s[0]:.4f}), host CPU {out['median_cpu_s_per_batch']:.4f} s a batch, peak {peak} bytes "
+          f"while serving; device ms by stage {({k: round(v, 3) for k, v in stages.items()})}; "
           f"responses digest {out['digest']}", flush=True)
     for key, row in sorted(split["stages"].items()):
         print(f"[{cell}]   stage {key}: kernels {row['ms']:.3f} ms, {row['launches']} launches, {row['calls']} calls",
@@ -378,14 +437,18 @@ def main() -> int:
     labels = Labels()
     kind = instrument(labels)
     behz_kind = instrument_behz(labels)
+    tail_kind = instrument_dim0_and_leaves(labels)
     seed_urandom(args.seed)
     card = cs.card_line()
-    print(f"key_switch_split: tree {root} ({kind} key switch, {behz_kind} BEHZ product), card {card}", flush=True)
+    print(f"key_switch_split: tree {root} ({kind} key switch, {behz_kind} BEHZ product, expansion leaves: "
+          f"{tail_kind}), card {card}", flush=True)
     results = {cell: run_cell(cs, labels, cell, args.seed, args.batches) for cell in cells}
     if args.json_out:
         with open(args.json_out, "w") as f:
-            json.dump(dict(root=str(root), kind=kind, behz_kind=behz_kind, card=card, cells=results), f, indent=1)
-    print(json.dumps({cell: dict(digest=r["digest"], median_s_per_batch=r["median_s_per_batch"])
+            json.dump(dict(root=str(root), kind=kind, behz_kind=behz_kind, tail_kind=tail_kind, card=card,
+                           cells=results), f, indent=1)
+    print(json.dumps({cell: dict(digest=r["digest"], median_s_per_batch=r["median_s_per_batch"],
+                                 median_cpu_s_per_batch=r["median_cpu_s_per_batch"], peak_bytes=r["peak_bytes"])
                       for cell, r in results.items()}))
     return 0
 
