@@ -33,8 +33,9 @@ then PNNS (BatchedPnnsServer), 16 cosine-similarity queries a batch over a
    budget, split one batch's device time by stage with CUDA events, and
    profile one more; then serve 32 keywords whose 3,000-byte values take
    two plaintexts a bucket (large_value_path);
-6. at every shape a serving run launched a kernel with: hold the kernel
-   bit-equal to its plain version, and time both with CUDA events; the
+6. at every shape a serving run launched a kernel with: time the NTT
+   kernels with CUDA events first, at every shape of every path, then
+   hold each bit-equal to its plain version and time that; the
    int8 dim-0 kernel (served by default on the w32 index and keyword
    paths; the w64 path keeps the wide MAC, as she_tpu does) also against
    the int64 MAC and a torch.bmm yardstick of its digit products, and once
@@ -146,6 +147,9 @@ step 11. `--only key_switch` serves the w32 and keyword cells and runs
 step 13 on their shapes. `--only behz` serves the w32, w64 and keyword
 cells and runs step 14 on their shapes. `--only dim0_mac` serves the w64,
 w32, keyword and both PNNS cells and runs step 15 on their shapes.
+`--only ntt` serves the w32 and w64 cells, times both NTT kernels at
+every shape they launched (and at the keyword cell's widest) before any
+plain version, then holds each bit-equal to the plain version.
 """
 
 from __future__ import annotations
@@ -329,8 +333,8 @@ def random_rows(moduli, shape, degree, seed):
 
 
 def ptxas_lines(name: str) -> list[str]:
-    """ptxas -v's registers, spills and shared memory of the N=4096
-    instantiations of the NTT kernels on both routes, of the dim-0
+    """ptxas -v's registers, spills and shared memory of the N=4096 and
+    N=8192 instantiations of the NTT kernels on both routes, of the dim-0
     kernel's instances at 4 and 8 digits (the served and checked ones),
     and of the SimplePIR kernel's instances that serve the cell (two D
     planes against four query planes, 32 and 8 request rows), with the
@@ -347,10 +351,11 @@ def ptxas_lines(name: str) -> list[str]:
     lines = path.read_text(errors="replace").splitlines() if path.exists() else []
     out, label = [], None
     for line in lines:
-        m = re.search(r"(ntt_(?:forward|inverse)_kernel)I([jy])Li(\d+)E", line)
+        m = re.search(r"(ntt_(?:forward|inverse)_kernel)I([jy])Li(\d+)E(Lb1E)?", line)
         if m:
             word = "u32" if m.group(2) == "j" else "u64"
-            label = f"{m.group(1)}<{word}, log2n={m.group(3)}>" if m.group(3) == "12" else None
+            label = (f"{m.group(1)}<{word}, log2n={m.group(3)}{', lazy' if m.group(4) else ''}>"
+                     if m.group(3) in ("12", "13") else None)
         elif "Compiling entry function" in line and "dim0_int8_kernel" in line:
             m = re.search(r"dim0_int8_kernelILi(\d)ELi(\d)E", line)
             label = f"dim0_int8_kernel<D={m.group(1)}, MT={m.group(2)}>" if m and m.group(1) in "48" else None
@@ -522,23 +527,50 @@ def kernel_bound_ms(shape, moduli, degree) -> float:
     return 1e3 * (2 * prod(shape) * 8 + 2 * len(moduli) * degree * 8) / HBM_BYTES_PER_S
 
 
-def ntt_sass(name: str, shape, word_bits: int) -> dict | None:
+def ntt_coefficients_per_thread(word_bits: int, log2n: int) -> int:
+    """Coefficients one thread of the built NTT kernel holds at
+    (word_bits, log2n), as the library reports it
+    (she_ntt_coefficients_per_thread); a build of csrc/ntt.cu without that
+    query holds 16 at every N >= 16, so that older trees measure too."""
+    from she_tpu_torch.ops import kernel_build
+
+    query = getattr(kernel_build.load("ntt"), "she_ntt_coefficients_per_thread", None)
+    return query(word_bits, log2n) if query is not None else min(16, 1 << log2n)
+
+
+def ntt_instance(word_bits: int, log2n: int, modulus_bits: int) -> str:
+    """The mangled-name pattern of the NTT kernel instance a launch takes:
+    a build whose kernels carry the lazy flag (she_ntt_lazy) has two
+    instances at the 64-bit route's N = 8192; older builds one."""
+    from she_tpu_torch.ops import kernel_build
+
+    w = "j" if word_bits == 32 else "y"
+    query = getattr(kernel_build.load("ntt"), "she_ntt_lazy", None)
+    if query is None:
+        return rf"I{w}Li{log2n}EE"
+    return rf"I{w}Li{log2n}ELb{int(query(word_bits, log2n, modulus_bits))}E"
+
+
+def ntt_sass(name: str, shape, word_bits: int, modulus_bits: int) -> dict | None:
     """The butterfly NTT's build at `shape`, as a diagnostic: the integer
-    SASS instructions of the kernel's instantiation by pipe (sass_count),
-    over its 8 log2 N butterflies a thread (16 coefficients a thread), and
-    the time the CUDA cores take to issue them for the shape's threads
+    SASS instructions of the instance the launch takes (ntt_instance) by
+    pipe (sass_count), over a thread's P / 2 * log2 N butterflies (P
+    coefficients a thread, ntt_coefficients_per_thread; a kernel that walks
+    rows counts its loop body once, one row), and the time the CUDA cores
+    take to issue them for the shape's rows x N / P threads
     (sass_issue_ms). None where the kernel holds a row in fewer than 16
     threads or cuobjdump is missing."""
     n = shape[-1]
     log2n = n.bit_length() - 1
-    if n < 256:
+    per_thread = ntt_coefficients_per_thread(word_bits, log2n)
+    if n < 16 * per_thread:
         return None
-    count = sass_count("ntt", rf"{name}_kernelI{'j' if word_bits == 32 else 'y'}Li{log2n}E")
+    count = sass_count("ntt", rf"{name}_kernel{ntt_instance(word_bits, log2n, modulus_bits)}")
     if count is None:
         return None
-    threads = prod(shape[:-1]) * n // 16
-    return dict(per_butterfly={k: v / (8 * log2n) for k, v in count.items()},
-                issue_ms=sass_issue_ms(count, threads))
+    threads = prod(shape[:-1]) * n // per_thread
+    return dict(per_butterfly={k: v / (per_thread // 2 * log2n) for k, v in count.items()},
+                issue_ms=sass_issue_ms(count, threads), per_thread=per_thread)
 
 
 def kernel_phase(seed: int) -> dict:
@@ -591,6 +623,9 @@ def kernel_phase(seed: int) -> dict:
     if tables.word_bits != 64:
         raise AssertionError(f"moduli {w64_route} did not take the 64-bit route")
     x = random_rows(w64_route, (nodes, 2), n, seed + 40)
+    # timed before the plain version runs at this shape
+    times = {name: cuda_ms(lambda kern=kern: kern(x, tables), 20)
+             for name, kern in (("ntt_forward", ntt_cuda.forward), ("ntt_inverse", ntt_cuda.inverse))}
     k = ntt_cuda.forward(x, tables)
     ki = ntt_cuda.inverse(x, tables)
     route64 = {}
@@ -598,8 +633,7 @@ def kernel_phase(seed: int) -> dict:
                              ("ntt_inverse", ki, ntt.inverse_ntt_plain)):
         err = int((got - plain(x, tables)).abs().max())
         max_err[name] = max(max_err[name], err)
-        kern = ntt_cuda.forward if name == "ntt_forward" else ntt_cuda.inverse
-        ms = cuda_ms(lambda: kern(x, tables), 20)
+        ms = times[name]
         bound = kernel_bound_ms(x.shape, w64_route, n)
         route64[name] = dict(shape=list(x.shape), moduli=list(w64_route), ms=ms, bound_ms=bound,
                              share_of_bound=bound / ms, max_abs_err=err)
@@ -614,58 +648,99 @@ def kernel_phase(seed: int) -> dict:
     return dict(max_abs_err=max_err, route64=route64)
 
 
-def shape_timing(path: str, launch_shapes, batches: int) -> dict:
-    """Each kernel at every shape one path's serving run launched it with:
-    held bit-equal to its plain version on random residues, then timed:
-    ms (mean of 20 launches after a warm-up; plain: of 3 on the int64
-    route, of 1 on the wide route, whose plain NTT is far slower), ns per
-    row, byte bound and its share, launches per batch; and, as a yardstick
-    of the memory rate, one copy_ of the same tensor."""
+def ntt_tables_of(moduli, n, block):
+    import torch
+
+    from she_tpu_torch.ops import ntt
+
+    if block is None:
+        return ntt.build_ntt_tables(moduli, n, torch.device("cuda"))
+    return ntt.build_block_tables(moduli, *block, torch.device("cuda"))  # a sharded NTT's block tables
+
+
+def ntt_kernel_timing(path: str, launch_shapes, batches: int) -> dict:
+    """Each NTT kernel at every shape one path's run launched it with,
+    timed before any plain version runs on it (a launch just after the wide
+    route's plain NTT, whose gigabytes of temporaries were just freed, reads
+    slow): ms (mean of 20 launches after a warm-up), ns per row, byte bound
+    and its share, launches per batch, the build's integer SASS (ntt_sass)
+    and, as a yardstick of the memory rate, one copy_ of the same tensor.
+    Each row keeps the seed of its input for ntt_plain_checks."""
+    import torch
+
+    from she_tpu_torch.ops import ntt_cuda
+
+    kernels = {"ntt_forward": ntt_cuda.forward, "ntt_inverse": ntt_cuda.inverse}
+    out = {name: [] for name in kernels}
+    for (name, shape, moduli, block), count in sorted(launch_shapes.items(),
+                                                      key=lambda kv: (kv[0][0], -prod(kv[0][1]), str(kv[0][3]))):
+        kern = kernels[name]
+        n = shape[-1]
+        tables = ntt_tables_of(moduli, n, block)
+        seed = 50 + len(out[name])
+        x = random_rows(moduli, shape[:-2], n, seed)
+        y = torch.empty_like(x)
+        rows = x.numel() // n
+        ms = cuda_ms(lambda: kern(x, tables), 20)
+        copy_ms = cuda_ms(lambda: y.copy_(x), 20)
+        bound = kernel_bound_ms(shape, moduli, n)
+        sass = ntt_sass(name, shape, tables.word_bits, max(moduli).bit_length())
+        row = dict(path=path, shape=list(shape), moduli=list(moduli), block=block, rows=rows, word_bits=tables.word_bits,
+                   launches_per_batch=count / batches, seed=seed, ms=ms, ns_per_row=1e6 * ms / rows,
+                   copy_ms=copy_ms, bound_ms=bound, share_of_bound=bound / ms,
+                   sass_int_per_butterfly=sass and sass["per_butterfly"], sass_issue_ms=sass and sass["issue_ms"],
+                   coefficients_per_thread=sass and sass["per_thread"])
+        out[name].append(row)
+        log(f"{path} {name} {tuple(shape)}{'' if block is None else f' block tables {block}'} ({rows} rows, "
+            f"{count / batches:g} per batch, {tables.word_bits}-bit words): kernel {ms:.4f} ms "
+            f"({row['ns_per_row']:.2f} ns/row), copy_ {copy_ms:.4f} ms, byte bound {bound:.4f} ms "
+            f"({100 * bound / ms:.1f}% of bound)"
+            + ("" if sass is None else f"; the build's integer SASS, {sass['per_butterfly']['alu']:.2f} ALU + "
+               f"{sass['per_butterfly']['fma']:.2f} FMA a butterfly at {sass['per_thread']} coefficients a thread, "
+               f"issues in {sass['issue_ms']:.4f} ms (a diagnostic)"))
+        del x, y
+    torch.cuda.empty_cache()
+    for name, rows in out.items():
+        per_batch = sum(r["launches_per_batch"] * r["ms"] for r in rows)
+        log(f"{path} {name}: launches x ms summed over the shapes of one batch = {per_batch:.4f} ms")
+    return out
+
+
+def ntt_plain_checks(shapes: dict) -> None:
+    """Every row of ntt_kernel_timing (rows by kernel) held bit-equal to the
+    plain version on the same input, and the plain version timed (of 3
+    launches on the int64 route, of 1 on the wide route, whose plain NTT is
+    far slower); in place. Fails on any difference."""
     import torch
 
     from she_tpu_torch.ops import modarith, ntt, ntt_cuda
 
     kernels = {"ntt_forward": (ntt_cuda.forward, ntt.forward_ntt_plain),
                "ntt_inverse": (ntt_cuda.inverse, ntt.inverse_ntt_plain)}
-    out = {name: [] for name in kernels}
-    for (name, shape, moduli, block), count in sorted(launch_shapes.items(),
-                                                      key=lambda kv: (kv[0][0], -prod(kv[0][1]), str(kv[0][3]))):
+    for name, rows in shapes.items():
         kern, plain = kernels[name]
-        n = shape[-1]
-        if block is None:
-            tables = ntt.build_ntt_tables(moduli, n, torch.device("cuda"))
-        else:  # a sharded NTT's block tables (ntt.build_block_tables)
-            tables = ntt.build_block_tables(moduli, *block, torch.device("cuda"))
-        x = random_rows(moduli, shape[:-2], n, 50 + len(out[name]))
-        err = int((kern(x, tables) - plain(x, tables)).abs().max())
-        if err:
-            raise AssertionError(f"{name} at {tuple(shape)}, moduli {moduli}: max |kernel - plain| = {err}")
-        y = torch.empty_like(x)
-        rows = x.numel() // n
-        plain_iters = 1 if modarith.is_wide(max(moduli)) else 3
-        ms = cuda_ms(lambda: kern(x, tables), 20)
-        plain_ms = cuda_ms(lambda: plain(x, tables), plain_iters)
-        copy_ms = cuda_ms(lambda: y.copy_(x), 20)
-        bound = kernel_bound_ms(shape, moduli, n)
-        sass = ntt_sass(name, shape, tables.word_bits)
-        row = dict(path=path, shape=list(shape), moduli=list(moduli), block=block, rows=rows, word_bits=tables.word_bits,
-                   launches_per_batch=count / batches, max_abs_err=err, ms=ms, ns_per_row=1e6 * ms / rows,
-                   plain_ms=plain_ms, plain_iters=plain_iters, copy_ms=copy_ms, bound_ms=bound,
-                   share_of_bound=bound / ms, sass_int_per_butterfly=sass and sass["per_butterfly"],
-                   sass_issue_ms=sass and sass["issue_ms"])
-        out[name].append(row)
-        log(f"{path} {name} {tuple(shape)}{'' if block is None else f' block tables {block}'} ({rows} rows, "
-            f"{count / batches:g} per batch, {tables.word_bits}-bit words): bit-equal to plain; kernel {ms:.4f} ms ({row['ns_per_row']:.2f} ns/row), plain "
-            f"{plain_ms:.4f} ms (x{plain_iters}), copy_ {copy_ms:.4f} ms, byte bound {bound:.4f} ms "
-            f"({100 * bound / ms:.1f}% of bound)"
-            + ("" if sass is None else f"; the build's integer SASS, {sass['per_butterfly']['alu']:.2f} ALU + "
-               f"{sass['per_butterfly']['fma']:.2f} FMA a butterfly, issues in {sass['issue_ms']:.4f} ms "
-               "(a diagnostic)"))
-        del x, y
+        for row in rows:
+            n = row["shape"][-1]
+            moduli = tuple(row["moduli"])
+            tables = ntt_tables_of(moduli, n, row["block"])
+            x = random_rows(moduli, row["shape"][:-2], n, row["seed"])
+            err = int((kern(x, tables) - plain(x, tables)).abs().max())
+            if err:
+                raise AssertionError(f"{name} at {tuple(row['shape'])}, moduli {moduli}: max |kernel - plain| = {err}")
+            plain_iters = 1 if modarith.is_wide(max(moduli)) else 3
+            row.update(max_abs_err=err, plain_ms=cuda_ms(lambda: plain(x, tables), plain_iters),
+                       plain_iters=plain_iters)
+            log(f"{row['path']} {name} {tuple(row['shape'])}: bit-equal to plain; plain {row['plain_ms']:.4f} ms "
+                f"(x{plain_iters}) against the kernel's {row['ms']:.4f} ms")
+            del x
     torch.cuda.empty_cache()
-    for name, rows in out.items():
-        per_batch = sum(r["launches_per_batch"] * r["ms"] for r in rows)
-        log(f"{path} {name}: launches x ms summed over the shapes of one batch = {per_batch:.4f} ms")
+
+
+def shape_timing(path: str, launch_shapes, batches: int) -> dict:
+    """One path's NTT launch shapes alone: ntt_kernel_timing, then
+    ntt_plain_checks."""
+    out = ntt_kernel_timing(path, launch_shapes, batches)
+    ntt_plain_checks(out)
     return out
 
 
@@ -3408,6 +3483,8 @@ def run(args) -> int:
         return behz_only(args, card)
     if args.only == "dim0_mac":
         return dim0_mac_only(args, card)
+    if args.only == "ntt":
+        return ntt_only(args, card)
 
     checked = kernel_phase(args.seed)
     paths = {}
@@ -3415,16 +3492,18 @@ def run(args) -> int:
         paths.update(drive())
         torch.cuda.empty_cache()
     cli = cli_phase(args.seed)
+    shapes = ntt_launch_timing(paths)  # every kernel's timing before any plain version
+    for name, rows in ntt_kernel_timing("cli:simple_pir_process_database", cli.pop("simple_pir_launch_shapes"),
+                                        1).items():
+        if not rows:
+            raise AssertionError(f"the SimplePIR tool did not launch {name} at N = {CLI_SIMPLE_PIR_DEGREE}")
+        shapes[name].extend(rows)
     mac_rows = mac_kernel_timing(paths)  # before any plain dim-0 MAC
     behz_rows = behz_kernel_timing(paths)  # before any plain BEHZ version
     ks_rows = ks_shape_timing(paths)  # before the NTT's and dim-0's plain versions
     behz_checked = behz_plain_checks(paths, behz_rows)
     mac_checked = mac_plain_checks(paths, mac_rows)
-    shapes, dim0_rows = timed_launch_shapes(paths)
-    for name, rows in shape_timing("cli:simple_pir_process_database", cli.pop("simple_pir_launch_shapes"), 1).items():
-        if not rows:
-            raise AssertionError(f"the SimplePIR tool did not launch {name} at N = {CLI_SIMPLE_PIR_DEGREE}")
-        shapes[name].extend(rows)
+    dim0_rows = timed_launch_shapes(paths, shapes)
     w64_check = dim0_w64_check()
 
     kernels = ntt_kernel_entries(shapes, paths, checked)
@@ -3498,24 +3577,34 @@ def run(args) -> int:
     return report(args, card, kernels, paths=paths, kernel_build_s=built, cli=cli)
 
 
-def timed_launch_shapes(paths: dict) -> tuple[dict, list]:
-    """Every NTT and int8 dim-0 launch shape of the paths' runs (and of their
-    set-ups), held to the plain versions and timed: shape_timing's rows by
-    kernel and dim0_shape_timing's rows. Fails on an int8 dim-0 shape that
-    DIM0_SERVED_SHAPES does not list."""
-    shapes, dim0_rows = {"ntt_forward": [], "ntt_inverse": []}, []
+def ntt_launch_timing(paths: dict) -> dict:
+    """ntt_kernel_timing at every NTT launch shape of the paths' runs (and
+    of their set-ups), before any plain version: its rows by kernel."""
+    shapes = {"ntt_forward": [], "ntt_inverse": []}
     for path, result in paths.items():
-        for name, rows in shape_timing(path, result["launch_shapes"], result["batches"]).items():
+        for name, rows in ntt_kernel_timing(path, result["launch_shapes"], result["batches"]).items():
             shapes[name].extend(rows)
         if "setup_launch_shapes" in result:  # the set-up's NTTs (PNNS: SIMD encoding at t, to Eval)
-            for name, rows in shape_timing(f"{path}:setup", result["setup_launch_shapes"], 1).items():
+            for name, rows in ntt_kernel_timing(f"{path}:setup", result["setup_launch_shapes"], 1).items():
                 shapes[name].extend(rows)
+    return shapes
+
+
+def timed_launch_shapes(paths: dict, shapes: dict) -> list:
+    """The NTT rows of ntt_launch_timing (`shapes`, by kernel) held to the
+    plain version (ntt_plain_checks), then every int8 dim-0 launch shape of
+    the paths' runs held to the plain version and timed: dim0_shape_timing's
+    rows. Fails on an int8 dim-0 shape that DIM0_SERVED_SHAPES does not
+    list."""
+    ntt_plain_checks(shapes)
+    dim0_rows = []
+    for path, result in paths.items():
         dim0_rows += dim0_shape_timing(path, result["dim0_shapes"], result["batches"])
     served = {(r["C"], r["d0"], r["P"], r["digits_shape"][1]) for r in dim0_rows}
     if not served <= set(DIM0_SERVED_SHAPES.values()):
         raise AssertionError(f"served int8 dim-0 shapes {sorted(served - set(DIM0_SERVED_SHAPES.values()))} "
                              f"are missing from DIM0_SERVED_SHAPES")
-    return shapes, dim0_rows
+    return dim0_rows
 
 
 def launch_rows(path: dict) -> None:
@@ -3623,12 +3712,13 @@ def mesh_only(args, card: str) -> int:
     BEHZ kernels and dim0_mac, with the ranks' launches) and the last
     line."""
     paths = mesh_phase(args.seed)
+    shapes = ntt_launch_timing(paths)
     mac_rows = mac_kernel_timing(paths)
     behz_rows = behz_kernel_timing(paths)
     ks_rows = ks_shape_timing(paths)
     behz_checked = behz_plain_checks(paths, behz_rows)
     mac_checked = mac_plain_checks(paths, mac_rows)
-    shapes, dim0_rows = timed_launch_shapes(paths)
+    dim0_rows = timed_launch_shapes(paths, shapes)
     kernels = ntt_kernel_entries(shapes, paths, None)
     entry = dim0_kernel_entry(dim0_rows, dim0_w64_check(), sum(p["launches"]["dim0_int8"] for p in paths.values()))
     entry["launches_by_path"] = {p: v["launches"]["dim0_int8"] for p, v in paths.items()}
@@ -3705,19 +3795,63 @@ def dim0_mac_only(args, card: str) -> int:
     return report(args, card, [entry] + ks_entries, paths=paths)
 
 
+def keyword_widest_ntt_keys() -> dict:
+    """Both NTT directions at the keyword cell's widest launch shape (its
+    widest expansion level: [128, 128, 2, 3, 4096] on the key-switching
+    moduli, the 32-bit route), as launch keys with no launches: what
+    --only ntt times of the 32-bit route without serving that cell."""
+    from she_tpu_torch import params as paramsmod
+    from she_tpu_torch.ops import ntt_cuda
+
+    ep = paramsmod.from_predefined(PARAMS, scalar_bits=32)
+    moduli, n = tuple(ep.coefficient_moduli), ep.poly_degree
+    return {ntt_cuda.LaunchKey(name, (BATCH, BATCH, 2, len(moduli), n), moduli, None): 0 for name in NTT_KERNELS}
+
+
+def ntt_only(args, card: str) -> int:
+    """--only ntt: the w32 and w64 cells, then each NTT kernel timed at
+    every shape they launched it with, and at the keyword cell's widest
+    shape (keyword_widest_ntt_keys), before any plain version, then held
+    bit-equal to the plain version at each; then the kernels line (the
+    NTT kernels, with these cells' launches) and the last line."""
+    paths = {path: main_path(path, args.seed, args.batches) for path in PATHS}
+    shapes = ntt_launch_timing(paths)
+    keyword_widest = ntt_kernel_timing("keyword widest (timed, not served here)", keyword_widest_ntt_keys(), 1)
+    ntt_plain_checks(shapes)
+    ntt_plain_checks(keyword_widest)
+    kernels = ntt_kernel_entries(shapes, paths, None)
+    for path, p in paths.items():
+        kernel_ms = p["profile"]["kernel_ms"]
+        log(f"{path}: median {p['median_s_per_batch']:.4f} s/batch, NTT kernels {kernel_ms['ntt_forward']:.3f} + "
+            f"{kernel_ms['ntt_inverse']:.3f} ms of the profiled batch's {p['profile']['busy_ms']:.3f} busy ms, idle "
+            f"share {p['profile']['idle_share_of_steady_batch']:.3f}, device ms by stage "
+            f"{ {k: round(v, 3) for k, v in p['stages_ms'].items()} }, on {card}")
+    for name, rows in shapes.items():
+        for r in rows:
+            log(f"{name} {r['path']} {tuple(r['shape'])}: {r['ms']:.4f} ms ({100 * r['share_of_bound']:.1f}% of the "
+                f"{r['bound_ms']:.4f} ms byte bound), {r['launches_per_batch']:g} a batch, copy_ {r['copy_ms']:.4f} ms, "
+                f"on {card}")
+    for name, rows in keyword_widest.items():
+        log(f"{name} at the keyword cell's widest shape {tuple(rows[0]['shape'])}: {rows[0]['ms']:.4f} ms "
+            f"({100 * rows[0]['share_of_bound']:.1f}% of bound), on {card}")
+    return report(args, card, kernels, paths=paths, keyword_widest=keyword_widest)
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batches", type=int, default=3, help="query batches to serve (>= 3)")
     parser.add_argument("--seed", type=int, default=0, help="seed of the database, keys and indices")
     parser.add_argument("--json-out", default=None, help="also write the full results to this file")
-    parser.add_argument("--only", choices=["dim0", "simple_pir", "mesh", "ntt_mxu", "key_switch", "behz", "dim0_mac"],
+    parser.add_argument("--only", choices=["dim0", "simple_pir", "mesh", "ntt_mxu", "key_switch", "behz", "dim0_mac",
+                                           "ntt"],
                         default=None,
                         help="run one phase alone: dim0, the int8 dim-0 kernel at every served shape; "
                              "simple_pir, the SimplePIR cell; mesh, multi-device serving with gloo ranks; "
                              "ntt_mxu, the matrix NTT (SHE_TPU_NTT_MXU=1) on the MulPIR cells; key_switch, "
                              "the w32 and keyword cells and the key-switch kernels at their shapes; behz, the w32, "
                              "w64 and keyword cells and the BEHZ kernels at their shapes; dim0_mac, the w64, w32, "
-                             "keyword and PNNS cells, dim0_mac and the expansion's leaf kernel at their shapes")
+                             "keyword and PNNS cells, dim0_mac and the expansion's leaf kernel at their shapes; ntt, the "
+                             "w32 and w64 cells and the NTT kernels at their shapes")
     args = parser.parse_args(argv)
     if args.batches < 3:
         parser.error("--batches must be at least 3")

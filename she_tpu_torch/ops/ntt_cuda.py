@@ -6,7 +6,9 @@ launches on torch.cuda.current_stream() and raises if the launch reports a
 CUDA error. There is no fallback: a tensor the kernel does not take raises.
 The kernel's word is `tables.word_bits` (ops/ntt.ntt_word_bits): 32-bit
 words with the tables of `tables.w32` when every modulus is below 2^30,
-64-bit words with the int64 tables otherwise; both are kernels.
+64-bit words with the int64 tables otherwise; both are kernels. The
+largest modulus' bit length goes along: on 64-bit words at N = 8192 the
+kernel runs lazily below 2^58 (csrc/ntt.cu, kLazyBits).
 `launches` counts each launch per direction, so a run can show that its
 NTTs went through the kernels; `launch_shapes` counts the same launches by
 LaunchKey (direction, input shape, moduli, tables.block), so a run can time
@@ -42,8 +44,8 @@ MAX_MODULUS = 1 << 62  # Harvey lazy range [0, 4q) must fit 64 bits
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
-_FWD_ARGS = [_VP, _VP, ctypes.c_longlong, _INT, _INT, _INT] + [_VP] * 4
-_INV_ARGS = [_VP, _VP, ctypes.c_longlong, _INT, _INT, _INT] + [_VP] * 8
+_FWD_ARGS = [_VP, _VP, ctypes.c_longlong, _INT, _INT, _INT, _INT] + [_VP] * 4
+_INV_ARGS = [_VP, _VP, ctypes.c_longlong, _INT, _INT, _INT, _INT] + [_VP] * 8
 
 
 def reset_launches() -> None:
@@ -88,6 +90,13 @@ def _words(tables):
     return tables.w32 if tables.word_bits == 32 else tables
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x, or a copy of it where its data is not 16-byte aligned: the 64-bit
+    kernel at N = 8192 reads each row with one bulk copy, which takes
+    16-byte aligned addresses (a contiguous view at an odd offset is not)."""
+    return x.clone() if x.data_ptr() % 16 else x
+
+
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
@@ -99,10 +108,11 @@ def forward(x: torch.Tensor, tables) -> torch.Tensor:
     rows = x.numel() >> log2n
     if rows == 0:
         return y
+    x = _aligned(x)
     w = _words(tables)
     err = _library().she_ntt_forward(
         x.data_ptr(), y.data_ptr(), rows, len(tables.moduli), log2n, tables.word_bits,
-        w.roots.data_ptr(), w.roots_shoup.data_ptr(), w.q.data_ptr(), _stream(),
+        max(tables.moduli).bit_length(), w.roots.data_ptr(), w.roots_shoup.data_ptr(), w.q.data_ptr(), _stream(),
     )
     if err != 0:
         raise RuntimeError(f"she_ntt_forward launch failed with CUDA error {err}")
@@ -118,10 +128,11 @@ def inverse(x: torch.Tensor, tables) -> torch.Tensor:
     rows = x.numel() >> log2n
     if rows == 0:
         return y
+    x = _aligned(x)
     w = _words(tables)
     err = _library().she_ntt_inverse(
         x.data_ptr(), y.data_ptr(), rows, len(tables.moduli), log2n, tables.word_bits,
-        w.inv_roots.data_ptr(), w.inv_roots_shoup.data_ptr(), w.q.data_ptr(),
+        max(tables.moduli).bit_length(), w.inv_roots.data_ptr(), w.inv_roots_shoup.data_ptr(), w.q.data_ptr(),
         w.n_inv.data_ptr(), w.n_inv_shoup.data_ptr(), w.n_inv_w.data_ptr(),
         w.n_inv_w_shoup.data_ptr(), _stream(),
     )

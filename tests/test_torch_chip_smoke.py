@@ -62,6 +62,19 @@ def test_only_dim0_mac_selects_the_mac_and_leaf_cells():
     assert chip_smoke.parse_args(["--only", "dim0_mac"]).only == "dim0_mac"
 
 
+def test_only_ntt_selects_the_ntt_cells():
+    """--only ntt serves the w32 and w64 cells (PATHS) and times the
+    32-bit route at the keyword cell's widest shape, [128, 128, 2, 3,
+    4096] on its three key-switching moduli, without serving that cell."""
+    assert chip_smoke.parse_args(["--only", "ntt"]).only == "ntt"
+    assert set(chip_smoke.PATHS) == {"w32", "w64"}
+    keys = chip_smoke.keyword_widest_ntt_keys()
+    assert sorted(k.name for k in keys) == sorted(chip_smoke.NTT_KERNELS)
+    for key, launches in keys.items():
+        assert key.shape == (128, 128, 2, 3, 4096) and key.block is None and launches == 0
+        assert len(key.moduli) == 3 and max(key.moduli) < 1 << 30
+
+
 def test_dim0_mac_byte_bounds():
     """At the w64 cell A [4, 11, 3, 8192], B [11, 256, 3, 8192] and the
     output [4, 256, 3, 8192] are 8.7, 553.6 and 201.3 MB: 0.228 ms at 3.35

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from she_tpu_torch.core import rns
 from she_tpu_torch.ops import modarith as ma
 from she_tpu_torch.ops import ntt as tntt
 from she_tpu_torch.ops import ntt_cuda, wide
@@ -30,6 +31,12 @@ ROUTE_MODULI = {
 W32_MODULI = ((1 << 27) - 40959, (1 << 28) - 65535, (1 << 28) - 73727)
 W64_MODULI = ((1 << 55) - 311295, (1 << 55) - 1392639, (1 << 55) - 1507327)
 SERVED_MODULI = (36028797018652673, 36028797017571329, 36028797017456641)  # 3x55, N=8192
+BSK_MODULI = tuple(rns.bsk_prime_pool(8192, 3, 64))  # the 61-bit B_sk primes of the w64 cell's BEHZ products
+# the row walk's moduli by L: the w64 cell's q, and 55-bit q beside 61-bit B_sk rows
+WALK_MODULI = {2: (SERVED_MODULI[0], BSK_MODULI[0]), 3: SERVED_MODULI, 5: SERVED_MODULI[1:] + BSK_MODULI[:3]}
+# the largest NTT primes of 57, 58 and 59 bits at N = 8192: the row walk runs
+# lazily (sums unreduced) below 2^58 and reduces every stage above
+EDGE_MODULI = {b: nt.generate_primes([b], preferring_small=False, ntt_degree=8192)[0] for b in (57, 58, 59)}
 WIDE_MODULI = ((1 << 31) + 11, 36028797018652673, 1152921504606830593, 2305843009213554689,
                (1 << 62) - 40797, 1 << 32)
 
@@ -115,6 +122,66 @@ def test_kernel_matches_plain_at_served_55_bit_moduli(fill, batch, nmod):
     inv = ntt_cuda.inverse(fwd, tables)
     assert torch.equal(inv, tntt.inverse_ntt_plain(fwd, tables))
     assert torch.equal(inv, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fill", ["zero", "max", "random"])
+@pytest.mark.parametrize("batch", [1, 131, 132, 133, 265, 5377])
+@pytest.mark.parametrize("L", [2, 3, 5])
+def test_row_walk_matches_plain_at_served_moduli(L, batch, fill):
+    """The 64-bit route at N = 8192, where a persistent block of one
+    modulus walks the rows l, l + L, ... with the next row's bulk copy in
+    flight: bit-equal to the plain version at the w64 cell's 55-bit q and
+    the 61-bit B_sk primes, at batches of rows around the grid (132 SMs,
+    132 / L blocks a modulus), each block walking a ragged number of rows."""
+    dev = _card()
+    moduli = WALK_MODULI[L]
+    assert len(moduli) == L and all(55 <= q.bit_length() <= 61 for q in moduli)
+    tables = tntt.build_ntt_tables(moduli, 8192, dev)
+    assert tables.word_bits == 64
+    x = _rows(moduli, 8192, batch, seed=batch + L, fill=fill).to(dev)
+    before = dict(ntt_cuda.launches)
+    fwd = ntt_cuda.forward(x, tables)
+    assert torch.equal(fwd, tntt.forward_ntt_plain(x, tables))
+    inv = ntt_cuda.inverse(fwd, tables)
+    assert torch.equal(inv, tntt.inverse_ntt_plain(fwd, tables))
+    assert torch.equal(inv, x)
+    assert ntt_cuda.launches["ntt_forward"] == before["ntt_forward"] + 1
+    assert ntt_cuda.launches["ntt_inverse"] == before["ntt_inverse"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fill", ["max", "random"])
+@pytest.mark.parametrize("moduli", [(57,), (58,), (59,), (58, 59), (57, 58, 58)],
+                         ids=["57", "58", "59", "58+59", "57+58+58"])
+def test_row_walk_at_the_lazy_edge(moduli, fill):
+    """Both directions at N = 8192 on their own inputs (the inverse too, so
+    its lazy bounds start from the largest words) for moduli on each side
+    of the lazy edge and a launch mixing both sides."""
+    dev = _card()
+    qs = tuple(EDGE_MODULI[b] for b in moduli)
+    assert [q.bit_length() for q in qs] == list(moduli)
+    tables = tntt.build_ntt_tables(qs, 8192, dev)
+    x = _rows(qs, 8192, 133, seed=sum(moduli), fill=fill).to(dev)
+    assert torch.equal(ntt_cuda.forward(x, tables), tntt.forward_ntt_plain(x, tables))
+    assert torch.equal(ntt_cuda.inverse(x, tables), tntt.inverse_ntt_plain(x, tables))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("degree", [4096, 8192])
+def test_kernel_takes_a_view_at_an_odd_offset(degree):
+    """A contiguous view whose data is 8 bytes past a 16-byte boundary (the
+    row walk reads rows with 16-byte bulk copies) gives the same bits."""
+    dev = _card()
+    moduli = SERVED_MODULI
+    tables = tntt.build_ntt_tables(moduli, degree, dev)
+    x = _rows(moduli, degree, 3, seed=degree).to(dev)
+    buf = torch.empty(x.numel() + 1, dtype=torch.int64, device=dev)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 8
+    assert torch.equal(ntt_cuda.forward(view, tables), ntt_cuda.forward(x, tables))
+    assert torch.equal(ntt_cuda.inverse(view, tables), ntt_cuda.inverse(x, tables))
 
 
 @pytest.mark.gpu

@@ -12,7 +12,9 @@ its device ms (the kernels the profiler links to the range) and its kernel
 launches, apart for the expansion, the dim-0 stage, the BEHZ stage (the
 higher dimensions' ct x ct inner products and their relinearizations,
 serving's fold_dimensions), PNNS's BSGS MAC and the other Galois
-rotations (PNNS). A CUDA-event span of every part is kept beside it.
+rotations (PNNS). A CUDA-event span of every part is kept beside it, and
+the profiled batch's device ms of the NTT kernels by name (every launch,
+whichever part made it) beside its busy ms.
 
 The key switch's parts: the Galois gather, the digits (each digit reduced
 mod every key-switching modulus), the forward NTT, the MAC against the
@@ -362,7 +364,18 @@ def profiled_parts(labels: Labels, server, queries, ek) -> dict:
         inside = [r for k, r in parts.items() if k.split("|")[0] == key]
         parts[f"{key}|other"] = dict(ms=row["ms"] - sum(r["ms"] for r in inside),
                                      launches=row["launches"] - sum(r["launches"] for r in inside), calls=row["calls"])
-    return dict(parts=parts, stages=stages)
+    ntt_ms = {name: 0.0 for name in ("ntt_forward", "ntt_inverse")}
+    busy_us = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        us = evt.self_cuda_time_total if us is None else us
+        busy_us += us
+        for name in ntt_ms:
+            if f"{name}_kernel" in evt.key:
+                ntt_ms[name] += us / 1e3
+    return dict(parts=parts, stages=stages, ntt_kernel_ms=ntt_ms, busy_ms=busy_us / 1e3)
 
 
 def run_cell(cs, labels: Labels, cell: str, seed: int, batches: int) -> dict:
@@ -399,6 +412,8 @@ def run_cell(cs, labels: Labels, cell: str, seed: int, batches: int) -> dict:
           f"(first {batch_s[0]:.4f}), host CPU {out['median_cpu_s_per_batch']:.4f} s a batch, peak {peak} bytes "
           f"while serving; device ms by stage {({k: round(v, 3) for k, v in stages.items()})}; "
           f"responses digest {out['digest']}", flush=True)
+    print(f"[{cell}]   NTT kernels of the profiled batch: forward {split['ntt_kernel_ms']['ntt_forward']:.3f} ms, "
+          f"inverse {split['ntt_kernel_ms']['ntt_inverse']:.3f} ms, of {split['busy_ms']:.3f} busy ms", flush=True)
     for key, row in sorted(split["stages"].items()):
         print(f"[{cell}]   stage {key}: kernels {row['ms']:.3f} ms, {row['launches']} launches, {row['calls']} calls",
               flush=True)
@@ -448,6 +463,7 @@ def main() -> int:
             json.dump(dict(root=str(root), kind=kind, behz_kind=behz_kind, tail_kind=tail_kind, card=card,
                            cells=results), f, indent=1)
     print(json.dumps({cell: dict(digest=r["digest"], median_s_per_batch=r["median_s_per_batch"],
+                                 ntt_kernel_ms=sum(r["ntt_kernel_ms"].values()), busy_ms=r["busy_ms"],
                                  median_cpu_s_per_batch=r["median_cpu_s_per_batch"], peak_bytes=r["peak_bytes"])
                       for cell, r in results.items()}))
     return 0
