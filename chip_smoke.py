@@ -341,8 +341,9 @@ def ptxas_lines(name: str) -> list[str]:
     dynamic shared memory and stages of their rings; and of the matrix
     NTT's fused kernel at 4, 8 and 9 digits, both directions; of every
     key-switch kernel instance (each one is served, expand_combine's leaf
-    instances as expand_leaves); of the BEHZ kernels (the lift and the
-    floor at every L); and of every tile of the dim-0 MAC."""
+    instances as expand_leaves); of the BEHZ kernels (the lift at every L,
+    the floor at every L in both words); and of every instance of the
+    dim-0 MAC (word, accumulators, depth of its ring of B)."""
     import re
 
     from she_tpu_torch.ops import kernel_build
@@ -383,11 +384,12 @@ def ptxas_lines(name: str) -> list[str]:
                        else {"0": "no gather", "1": "gather"}.get(m.group(3)))
             label = m.group(1) + (f"<{variant}>" if variant else "")
         elif "Compiling entry function" in line and "dim0_mac_kernel" in line:
-            m = re.search(r"dim0_mac_kernelILi(\d+)ELi(\d+)E", line)
-            label = f"dim0_mac_kernel<MT={m.group(1)}, M2T={m.group(2)}>" if m else None
+            m = re.search(r"dim0_mac_kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
+            label = f"dim0_mac_kernel<W={m.group(1)}, MG={m.group(2)}, D={m.group(3)}>" if m else None
         elif "Compiling entry function" in line and "behz_" in line:
-            m = re.search(r"(behz_(?:lift|floor|tensor_mac)_kernel)(?:ILi(\d)E)?", line)
-            label = m.group(1) + (f"<L={m.group(2)}>" if m.group(2) else "")
+            m = re.search(r"(behz_(?:lift|floor|tensor_mac)_kernel)(?:I([jy])?Li(\d)E)?", line)
+            word = {"j": "u32, ", "y": "u64, "}.get(m.group(2) or "", "")
+            label = m.group(1) + (f"<{word}L={m.group(3)}>" if m.group(3) else "")
         elif label and ("Used" in line or "spill" in line):
             out.append(f"{label}: {line.strip()}")
     return out
@@ -2356,14 +2358,35 @@ def behz_kernel_timing(paths: dict) -> list:
         case = behz_case(key, 200 + 7 * i)
         ms = cuda_ms(case["kernel"], 20)
         bound = 1e3 * behz_bytes(key) / HBM_BYTES_PER_S
+        sass = floor_sass(key) if name == "behz_floor" else None
         rows.append(dict(name=name, path=path, key=key, shape=list(key.shape), moduli=key.moduli,
                          variant=key.variant, ms=ms, bytes=behz_bytes(key), bound_ms=bound, share_of_bound=bound / ms,
-                         launches_per_batch=keys[key]))
+                         launches_per_batch=keys[key], sass=sass))
         log(f"{name} at {path}'s widest {tuple(key.shape)}: {ms:.4f} ms against a byte bound of {bound:.4f} ms "
-            f"({100 * bound / ms:.1f}%)")
+            f"({100 * bound / ms:.1f}%)" + (f"; {sass['word_bits']}-bit instance, integer SASS {sass['counts']} a "
+                                             f"thread, issued in {sass['issue_ms']:.4f} ms (diagnostic)" if sass else ""))
         del case
         torch.cuda.empty_cache()
     return rows
+
+
+def floor_sass(key) -> dict | None:
+    """behz_floor's build at launch `key`, as a diagnostic: the integer
+    SASS instructions of the instance the launch takes (its word,
+    behz_cuda.floor_word_bits, and L) by pipe (sass_count; the kernel has
+    no loop, so this is what a thread runs for its two columns, both sides
+    of every branch counted), and the time the CUDA cores take to issue
+    them for the launch's threads (sass_issue_ms). None where cuobjdump is
+    missing."""
+    from she_tpu_torch.ops import behz_cuda
+
+    q_moduli, bsk_moduli = key.moduli
+    bits = behz_cuda.floor_word_bits(q_moduli, bsk_moduli)
+    count = sass_count("behz", rf"behz_floor_kernelI{'j' if bits == 32 else 'y'}Li{len(q_moduli)}E")
+    if count is None:
+        return None
+    threads = prod(key.shape[:-2]) * key.shape[-1] // 2
+    return dict(word_bits=bits, counts=count, issue_ms=sass_issue_ms(count, threads))
 
 
 def behz_plain_checks(paths: dict, rows: list) -> list:
@@ -2474,6 +2497,35 @@ def mac_case(key, seed: int, device="cuda") -> dict:
     return dict(kernel=lambda: dc.dim0_mac(a, b, moduli), plain=lambda: dim0_mac.dim0_mac_plain(a, b, ctx))
 
 
+def mac_plan(key):
+    """The launch plan dim0_mac_cuda.plan gives launch `key`."""
+    from she_tpu_torch.ops import dim0_mac_cuda
+
+    m1, m2 = prod(key.a_shape[:-3]), prod(key.b_shape[1:-2])
+    return dim0_mac_cuda.plan(m1, m2, key.a_shape[-3], key.moduli)
+
+
+def mac_sass(key) -> dict | None:
+    """dim0_mac's build at launch `key`, as a diagnostic: the integer SASS
+    instructions of the instance its plan takes (word, accumulators, ring
+    depth) by pipe (sass_count), and the time the CUDA cores take to issue
+    that listing once for each of the launch's threads (sass_issue_ms): the
+    listing holds the copies, the offsets and the epilogue, and its j loop's
+    body once where a thread runs it for every j of each of its m2. None
+    where cuobjdump is missing."""
+    from she_tpu_torch.ops import dim0_mac_cuda
+
+    p = mac_plan(key)
+    instance = next(g for g in dim0_mac_cuda.GROUPS if g >= p.group)
+    count = sass_count("dim0_mac", rf"dim0_mac_kernelILi{p.word_bits}ELi{instance}ELi{p.depth}E")
+    if count is None:
+        return None
+    m1, m2, n = prod(key.a_shape[:-3]), prod(key.b_shape[1:-2]), key.a_shape[-1]
+    columns = dim0_mac_cuda.COLUMNS
+    threads = len(key.moduli) * -(-n // columns) * columns * p.lanes * -(-m1 // p.group) * -(-m2 // p.run)
+    return dict(counts=count, issue_ms=sass_issue_ms(count, threads))
+
+
 def mac_kernel_timing(paths: dict) -> list:
     """dim0_mac at the widest shape (by bytes) each path launched it with,
     timed before any plain dim-0 MAC runs in the process: the mean of 20
@@ -2492,11 +2544,14 @@ def mac_kernel_timing(paths: dict) -> list:
         case = mac_case(key, 400 + 7 * i)
         ms = cuda_ms(case["kernel"], 20)
         bound = 1e3 * mac_bytes(key) / HBM_BYTES_PER_S
+        sass = mac_sass(key)
         rows.append(dict(name="dim0_mac", path=path, key=key, a_shape=list(key.a_shape), b_shape=list(key.b_shape),
                          moduli=list(key.moduli), ms=ms, bytes=mac_bytes(key), bound_ms=bound,
-                         share_of_bound=bound / ms, launches_per_batch=keys[key][path]))
+                         share_of_bound=bound / ms, launches_per_batch=keys[key][path], plan=mac_plan(key)._asdict(),
+                         sass=sass))
         log(f"dim0_mac at {path}'s widest a {key.a_shape} x b {key.b_shape}: {ms:.4f} ms against a byte bound of "
-            f"{bound:.4f} ms ({100 * bound / ms:.1f}%)")
+            f"{bound:.4f} ms ({100 * bound / ms:.1f}%), plan {tuple(mac_plan(key))}"
+            + (f", integer SASS {sass['counts']}, issued in {sass['issue_ms']:.4f} ms (diagnostic)" if sass else ""))
         del case
         torch.cuda.empty_cache()
     return rows

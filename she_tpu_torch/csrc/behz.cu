@@ -19,12 +19,17 @@
 // Data: int64 words holding residues in [0, q), moduli in [2, 2^62), L <= 8
 // ciphertext moduli (the predefined sets have at most 5), L_bsk = L + 1
 // (B, then m_sk), m~ = 2^16 or 2^32; any even count n of columns (N, or a
-// block of N / S columns on a mesh). Products take the exact 64 x 64 ->
-// 128-bit route of csrc/modarith64.cuh, so one code serves the w32 and the
-// w64 parameter sets. The per-launch constants travel in a struct passed by
-// value (kernel parameters, read through the constant cache); the lift and
-// the floor are templates on L, so every loop over the moduli unrolls and
-// every constant has a fixed place.
+// block of N / S columns on a mesh). The lift and the MAC take the exact
+// 64 x 64 -> 128-bit route of csrc/modarith64.cuh, so one code serves the
+// w32 and the w64 parameter sets. The floor has two instances by word, which
+// the host picks from the moduli: 32-bit words (residues, constants and
+// Shoup words; a product is one 32 x 32 -> 64-bit multiply and one
+// __umulhi) where every modulus of q and B_sk is below 2^32, as in every
+// w32 set (q of 27-28 bits, B_sk of 29), else 64-bit words. The per-launch
+// constants travel in a struct passed by value (kernel parameters, read
+// through the constant cache); the lift and the floor are templates on L,
+// so every loop over the moduli unrolls and every constant has a fixed
+// place.
 //
 // Bound: bytes. Each kernel reads each input once and writes each output
 // once, a few dozen 64-bit multiplies a word. At the keyword cell (128
@@ -40,6 +45,15 @@
 // thread loads the L (or L + L_bsk, or 4 a pair) words of its columns and
 // writes each output row once.
 //
+// The floor was bound by its integer issue, not its bytes (36-39% of the
+// byte bound with about 100 64-bit multiplies a column at L = 2: a 128-bit
+// multiply-add per term and a 128-bit Barrett reduction per sum). It now
+// makes each output one sum of Shoup products by host constants, kept lazily
+// in [0, 2m) and corrected once: the scale, Q^-1, (B/b_j)^-1 and B^-1 are
+// folded on the host into the constants of the terms they multiply, so a
+// column takes 2L^2 + 5L + 1 products (19 at L = 2, 57 64-bit multiplies at
+// 64 bits, 3 32-bit ones each at 32) and no Barrett reduction.
+//
 // Traps the kernels keep, each pinned by tests/test_torch_behz.py:
 //  * the conversion is the approximate one, (x + a_x Q) mod m_j with a_x in
 //    [0, L - 1]: exactly sum_i [x_i m~ (Q/q_i)^-1]_{q_i} (Q/q_i) mod m_j
@@ -51,10 +65,12 @@
 //    r_m~ >= m~ / 2;
 //  * in the floor, alpha and m_sk - alpha lie below m_sk, which exceeds q_i
 //    at both widths: they are reduced inside their product (a Shoup
-//    multiply takes any 64-bit operand);
+//    multiply takes any operand of its word); z_i, zb_j and alpha feed
+//    other moduli, so each is fully reduced first (the folds are exact only
+//    modulo the sum's own modulus);
 //  * 16 products of residues below 2^62 can pass 2^128: the MAC reduces
-//    every 7 pairs (p1 takes two products a pair); the conversions sum at
-//    most 8 products;
+//    every 7 pairs (p1 takes two products a pair); the lift's conversions
+//    sum at most 8 products; the floor's sums stay below 4m < 2^64;
 //  * t may exceed 2^31: the scale is t mod m_j, a Shoup constant a row.
 
 #include "modarith64.cuh"
@@ -84,22 +100,27 @@ struct LiftParams {
   u64 m_tilde;
 };
 
-struct FloorParams {
-  Mod q[kMaxL];
-  Mod b[kMaxBsk];  // B (b_0 .. b_{L-1}), then m_sk
-  u64 sq[kMaxL], sq_s[kMaxL];  // the scale mod q_i
-  u64 sb[kMaxBsk], sb_s[kMaxBsk];  // the scale mod b_j
-  u64 inv_punct_q[kMaxL], inv_punct_q_s[kMaxL];  // (Q/q_i)^-1 mod q_i
-  u64 punct_q_b[kMaxBsk][kMaxL];                 // (Q/q_i) mod b_j
-  u64 inv_q_b[kMaxBsk], inv_q_b_s[kMaxBsk];      // Q^-1 mod b_j
-  u64 inv_punct_b[kMaxL], inv_punct_b_s[kMaxL];  // (B/b_j)^-1 mod b_j
-  u64 punct_b_msk[kMaxL];                        // (B/b_j) mod m_sk
-  u64 punct_b_q[kMaxL][kMaxL];                   // [i][j]: (B/b_j) mod q_i
-  u64 inv_b_msk, inv_b_msk_s;                    // B^-1 mod m_sk
-  u64 b_mod_q[kMaxL], b_mod_q_s[kMaxL];          // B mod q_i
-  u64 neg_b_mod_q[kMaxL], neg_b_mod_q_s[kMaxL];  // -B mod q_i
-  u64 scaled;                                    // 0: the scale is 1
+// The floor's constants in words of its instance (u32 where every modulus of
+// q and B_sk is below 2^32, else u64), each with its Shoup word floor(w 2^W
+// / m); the scale s (1 where none) and the inverses that follow a sum are
+// folded into the constants that feed it, so each output is one lazy sum of
+// Shoup products. With Q^-1 and (B/b_j)^-1 taken mod b_j (m_sk), B^-1 mod
+// m_sk:
+template <typename T>
+struct FloorParamsT {
+  T q[kMaxL];
+  T b[kMaxBsk];                                // B (b_0 .. b_{L-1}), then m_sk
+  T zq[kMaxL], zq_s[kMaxL];                    // s (Q/q_i)^-1 mod q_i: z_i = x_i zq_i
+  T xc[kMaxBsk], xc_s[kMaxBsk];                // s Q^-1 (B/b_j)^-1 mod b_j; at m_sk: -s Q^-1 B^-1
+  T zc[kMaxBsk][kMaxL], zc_s[kMaxBsk][kMaxL];  // [j][i]: -(Q/q_i) Q^-1 (B/b_j)^-1 mod b_j; at m_sk: (Q/q_i) Q^-1 B^-1
+  T bc[kMaxL], bc_s[kMaxL];                    // (B/b_j) B^-1 mod m_sk
+  T bq[kMaxL][kMaxL], bq_s[kMaxL][kMaxL];      // [i][j]: (B/b_j) mod q_i
+  T b_mod_q[kMaxL], b_mod_q_s[kMaxL];          // B mod q_i
+  T neg_b_mod_q[kMaxL], neg_b_mod_q_s[kMaxL];  // -B mod q_i
 };
+
+typedef FloorParamsT<u64> FloorParams64;
+typedef FloorParamsT<unsigned> FloorParams32;
 
 struct MacParams {
   Mod m[kMaxExt];
@@ -169,63 +190,92 @@ __global__ void __launch_bounds__(kThreads) behz_lift_kernel(Operand x, u64* __r
   }
 }
 
+// w x mod m in [0, 2m) for any word x and w < m (Shoup, ws = floor(w 2^W /
+// m)): 64-bit words for m < 2^62, or 32-bit words and one 32 x 32 -> 64-bit
+// product each for m < 2^32.
+__device__ __forceinline__ u64 shoup_lazy(u64 x, u64 w, u64 ws, u64 m) { return w * x - __umul64hi(x, ws) * m; }
+
+__device__ __forceinline__ u64 shoup_lazy(unsigned x, unsigned w, unsigned ws, unsigned m) {
+  return static_cast<u64>(w) * x - static_cast<u64>(__umulhi(x, ws)) * m;
+}
+
+// A sum of terms in [0, 2m) kept in [0, 2m) (below 2^64 for m < 2^62),
+// corrected once into [0, m).
+struct LazySum {
+  u64 acc, m;
+  __device__ __forceinline__ explicit LazySum(u64 modulus) : acc(0), m(modulus) {}
+  __device__ __forceinline__ void add(u64 t) {
+    acc += t;
+    acc = acc >= 2 * m ? acc - 2 * m : acc;
+  }
+  __device__ __forceinline__ u64 done() const { return acc >= m ? acc - m : acc; }
+};
+
 // Entry m, columns k and k + 1 of y over [q, B_sk] (each row times the
-// scale first, where there is one) -> floor(x / q) over q.
-template <int L>
+// scale first, where there is one) -> floor(x / q) over q, in words T.
+// Per column: z_i = [s x_i (Q/q_i)^-1]_{q_i}; the approximate floor times
+// (B/b_j)^-1 over B, zb_j = [(s x_b_j - sum_i z_i (Q/q_i)) Q^-1
+// (B/b_j)^-1]_{b_j}; alpha = [(sum_j zb_j (B/b_j) - (s x_msk - sum_i z_i
+// (Q/q_i)) Q^-1) B^-1]_{m_sk}, as one sum over m_sk; then Shenoy-Kumaresan,
+// sum_j zb_j (B/b_j) corrected by alpha B mod q_i. z, zb and alpha are
+// fully reduced where they feed another modulus; 2L^2 + 5L + 1 products.
+template <typename T, int L>
 __global__ void __launch_bounds__(kThreads) behz_floor_kernel(Operand y, u64* __restrict__ out, int n, i64 chunks,
-                                                              const __grid_constant__ FloorParams p) {
+                                                              const __grid_constant__ FloorParamsT<T> p) {
   constexpr int LB = L + 1;
   i64 m;
   int k;
   block_place(chunks, m, k);
   if (k >= n) return;
   const u64* src = y.base + batch_offset(y, m);
-  u64 xq[2][L], xb[2][LB];
+  T xq[2][L], xb[2][LB];
 #pragma unroll
   for (int i = 0; i < L; ++i) {
     const ulonglong2 v = load2(src + i * y.lstride + k);
-    xq[0][i] = v.x;
-    xq[1][i] = v.y;
+    xq[0][i] = static_cast<T>(v.x);
+    xq[1][i] = static_cast<T>(v.y);
   }
 #pragma unroll
   for (int j = 0; j < LB; ++j) {
     const ulonglong2 v = load2(src + (L + j) * y.lstride + k);
-    xb[0][j] = v.x;
-    xb[1][j] = v.y;
+    xb[0][j] = static_cast<T>(v.x);
+    xb[1][j] = static_cast<T>(v.y);
   }
   u64 res[2][L];
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
-    if (p.scaled) {
-#pragma unroll
-      for (int i = 0; i < L; ++i) xq[e][i] = mul_shoup(xq[e][i], p.sq[i], p.sq_s[i], p.q[i].q);
-#pragma unroll
-      for (int j = 0; j < LB; ++j) xb[e][j] = mul_shoup(xb[e][j], p.sb[j], p.sb_s[j], p.b[j].q);
-    }
-    // approximate floor: (x_bsk - conv(x_q)) Q^-1 mod b_j = floor(x / q) + a_x over B_sk
-    u64 z[L];
-#pragma unroll
-    for (int i = 0; i < L; ++i) z[i] = mul_shoup(xq[e][i], p.inv_punct_q[i], p.inv_punct_q_s[i], p.q[i].q);
-    u64 fl[LB];
-#pragma unroll
-    for (int j = 0; j < LB; ++j) {
-      const u64 conv = dot_mod<L>(z, p.punct_q_b[j], p.b[j]);
-      fl[j] = mul_shoup(sub_mod(xb[e][j], conv, p.b[j].q), p.inv_q_b[j], p.inv_q_b_s[j], p.b[j].q);
-    }
-    // Shenoy-Kumaresan: B -> q, corrected by alpha from the m_sk row
-    u64 zb[L];
-#pragma unroll
-    for (int j = 0; j < L; ++j) zb[j] = mul_shoup(fl[j], p.inv_punct_b[j], p.inv_punct_b_s[j], p.b[j].q);
-    const Mod& msk = p.b[L];
-    const u64 conv_msk = dot_mod<L>(zb, p.punct_b_msk, msk);
-    const u64 alpha = mul_shoup(sub_mod(conv_msk, fl[L], msk.q), p.inv_b_msk, p.inv_b_msk_s, msk.q);
-    const bool exceeds = alpha > (msk.q >> 1);
+    T z[L], zb[L];
 #pragma unroll
     for (int i = 0; i < L; ++i) {
-      const u64 conv = dot_mod<L>(zb, p.punct_b_q[i], p.q[i]);
-      const u64 adj = exceeds ? mul_shoup(msk.q - alpha, p.b_mod_q[i], p.b_mod_q_s[i], p.q[i].q)
-                              : mul_shoup(alpha, p.neg_b_mod_q[i], p.neg_b_mod_q_s[i], p.q[i].q);
-      res[e][i] = add_mod(conv, adj, p.q[i].q);
+      const u64 t = shoup_lazy(xq[e][i], p.zq[i], p.zq_s[i], p.q[i]);
+      z[i] = static_cast<T>(t >= p.q[i] ? t - p.q[i] : t);
+    }
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      LazySum s(p.b[j]);
+      s.add(shoup_lazy(xb[e][j], p.xc[j], p.xc_s[j], p.b[j]));
+#pragma unroll
+      for (int i = 0; i < L; ++i) s.add(shoup_lazy(z[i], p.zc[j][i], p.zc_s[j][i], p.b[j]));
+      zb[j] = static_cast<T>(s.done());
+    }
+    const T msk = p.b[L];
+    LazySum sa(msk);
+    sa.add(shoup_lazy(xb[e][L], p.xc[L], p.xc_s[L], msk));
+#pragma unroll
+    for (int i = 0; i < L; ++i) sa.add(shoup_lazy(z[i], p.zc[L][i], p.zc_s[L][i], msk));
+#pragma unroll
+    for (int j = 0; j < L; ++j) sa.add(shoup_lazy(zb[j], p.bc[j], p.bc_s[j], msk));
+    const T alpha = static_cast<T>(sa.done());
+    const bool exceeds = alpha > (msk >> 1);
+    const T corr = exceeds ? static_cast<T>(msk - alpha) : alpha;
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      LazySum s(p.q[i]);
+#pragma unroll
+      for (int j = 0; j < L; ++j) s.add(shoup_lazy(zb[j], p.bq[i][j], p.bq_s[i][j], p.q[i]));
+      const T w = exceeds ? p.b_mod_q[i] : p.neg_b_mod_q[i], ws = exceeds ? p.b_mod_q_s[i] : p.neg_b_mod_q_s[i];
+      s.add(shoup_lazy(corr, w, ws, p.q[i]));
+      res[e][i] = s.done();
     }
   }
   u64* dst = out + m * L * n + k;
@@ -292,11 +342,27 @@ cudaError_t lift(const Operand& x, void* out, i64 m, int n, const LiftParams& p,
   return cudaGetLastError();
 }
 
-template <int L>
-cudaError_t floor_q(const Operand& y, void* out, i64 m, int n, const FloorParams& p, cudaStream_t st) {
+template <typename T, int L>
+cudaError_t floor_q(const Operand& y, void* out, i64 m, int n, const void* p, cudaStream_t st) {
   const i64 chunks = chunks_of(n);
-  behz_floor_kernel<L><<<static_cast<unsigned>(m * chunks), kThreads, 0, st>>>(y, static_cast<u64*>(out), n, chunks, p);
+  behz_floor_kernel<T, L><<<static_cast<unsigned>(m * chunks), kThreads, 0, st>>>(
+      y, static_cast<u64*>(out), n, chunks, *static_cast<const FloorParamsT<T>*>(p));
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t floor_word(const Operand& y, void* out, i64 m, int l_count, int n, const void* p, cudaStream_t st) {
+  switch (l_count) {
+    case 1: return floor_q<T, 1>(y, out, m, n, p, st);
+    case 2: return floor_q<T, 2>(y, out, m, n, p, st);
+    case 3: return floor_q<T, 3>(y, out, m, n, p, st);
+    case 4: return floor_q<T, 4>(y, out, m, n, p, st);
+    case 5: return floor_q<T, 5>(y, out, m, n, p, st);
+    case 6: return floor_q<T, 6>(y, out, m, n, p, st);
+    case 7: return floor_q<T, 7>(y, out, m, n, p, st);
+    case 8: return floor_q<T, 8>(y, out, m, n, p, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -305,9 +371,10 @@ cudaError_t floor_q(const Operand& y, void* out, i64 m, int n, const FloorParams
 extern "C" long long she_behz_param_bytes(int which) {
   switch (which) {
     case 0: return sizeof(LiftParams);
-    case 1: return sizeof(FloorParams);
+    case 1: return sizeof(FloorParams64);
     case 2: return sizeof(MacParams);
     case 3: return sizeof(Operand);
+    case 4: return sizeof(FloorParams32);
     default: return -1;
   }
 }
@@ -330,22 +397,16 @@ extern "C" int she_behz_lift(const Operand* x, void* out, long long m, int l_cou
   }
 }
 
-extern "C" int she_behz_floor(const Operand* y, void* out, long long m, int l_count, int n, const FloorParams* p,
-                              void* stream) {
+// word_bits: the floor's instance (ops/behz_cuda.floor_word_bits), 32 where
+// every modulus of q and B_sk is below 2^32 (p a FloorParams32), else 64.
+extern "C" int she_behz_floor(const Operand* y, void* out, long long m, int l_count, int n, int word_bits,
+                              const void* p, void* stream) {
   if (m <= 0) return 0;
   if (y == nullptr || p == nullptr || bad_columns(n)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (l_count) {
-    case 1: return static_cast<int>(floor_q<1>(*y, out, m, n, *p, st));
-    case 2: return static_cast<int>(floor_q<2>(*y, out, m, n, *p, st));
-    case 3: return static_cast<int>(floor_q<3>(*y, out, m, n, *p, st));
-    case 4: return static_cast<int>(floor_q<4>(*y, out, m, n, *p, st));
-    case 5: return static_cast<int>(floor_q<5>(*y, out, m, n, *p, st));
-    case 6: return static_cast<int>(floor_q<6>(*y, out, m, n, *p, st));
-    case 7: return static_cast<int>(floor_q<7>(*y, out, m, n, *p, st));
-    case 8: return static_cast<int>(floor_q<8>(*y, out, m, n, *p, st));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (word_bits == 32) return static_cast<int>(floor_word<unsigned>(*y, out, m, l_count, n, p, st));
+  if (word_bits == 64) return static_cast<int>(floor_word<u64>(*y, out, m, l_count, n, p, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int she_behz_tensor_mac(const void* la, const void* lb, void* out, long long m, int k_count, int moduli,

@@ -27,6 +27,7 @@ from __future__ import annotations
 import ctypes
 from collections import Counter
 from functools import lru_cache
+from math import prod
 from typing import NamedTuple
 
 import torch
@@ -55,18 +56,22 @@ class LiftParams(ctypes.Structure):
     ]
 
 
-class FloorParams(ctypes.Structure):
-    _fields_ = [
-        ("q", Mod * MAX_L), ("b", Mod * (MAX_L + 1)),
-        ("sq", _U64 * MAX_L), ("sq_s", _U64 * MAX_L), ("sb", _U64 * (MAX_L + 1)), ("sb_s", _U64 * (MAX_L + 1)),
-        ("inv_punct_q", _U64 * MAX_L), ("inv_punct_q_s", _U64 * MAX_L),
-        ("punct_q_b", (_U64 * MAX_L) * (MAX_L + 1)),
-        ("inv_q_b", _U64 * (MAX_L + 1)), ("inv_q_b_s", _U64 * (MAX_L + 1)),
-        ("inv_punct_b", _U64 * MAX_L), ("inv_punct_b_s", _U64 * MAX_L), ("punct_b_msk", _U64 * MAX_L),
-        ("punct_b_q", (_U64 * MAX_L) * MAX_L), ("inv_b_msk", _U64), ("inv_b_msk_s", _U64),
-        ("b_mod_q", _U64 * MAX_L), ("b_mod_q_s", _U64 * MAX_L),
-        ("neg_b_mod_q", _U64 * MAX_L), ("neg_b_mod_q_s", _U64 * MAX_L), ("scaled", _U64),
+def _floor_fields(word) -> list:
+    L, B = MAX_L, MAX_L + 1
+    return [
+        ("q", word * L), ("b", word * B), ("zq", word * L), ("zq_s", word * L), ("xc", word * B), ("xc_s", word * B),
+        ("zc", (word * L) * B), ("zc_s", (word * L) * B), ("bc", word * L), ("bc_s", word * L),
+        ("bq", (word * L) * L), ("bq_s", (word * L) * L), ("b_mod_q", word * L), ("b_mod_q_s", word * L),
+        ("neg_b_mod_q", word * L), ("neg_b_mod_q_s", word * L),
     ]
+
+
+class FloorParams64(ctypes.Structure):
+    _fields_ = _floor_fields(_U64)
+
+
+class FloorParams32(ctypes.Structure):
+    _fields_ = _floor_fields(ctypes.c_uint32)
 
 
 class MacParams(ctypes.Structure):
@@ -95,7 +100,7 @@ _LL = ctypes.c_longlong
 _OP = ctypes.POINTER(Operand)
 _ARGTYPES = {
     "she_behz_lift": [_OP, _VP, _LL, _INT, _INT, ctypes.POINTER(LiftParams), _VP],
-    "she_behz_floor": [_OP, _VP, _LL, _INT, _INT, ctypes.POINTER(FloorParams), _VP],
+    "she_behz_floor": [_OP, _VP, _LL, _INT, _INT, _INT, _VP, _VP],
     "she_behz_tensor_mac": [_VP, _VP, _VP, _LL, _INT, _INT, _INT, ctypes.POINTER(MacParams), _VP],
 }
 
@@ -110,7 +115,7 @@ def _library():
     lib = kernel_build.load("behz")
     if lib.she_behz_param_bytes.restype is not _LL:
         lib.she_behz_param_bytes.argtypes, lib.she_behz_param_bytes.restype = [_INT], _LL
-        for which, struct in enumerate((LiftParams, FloorParams, MacParams, Operand)):
+        for which, struct in enumerate((LiftParams, FloorParams64, MacParams, Operand, FloorParams32)):
             if lib.she_behz_param_bytes(which) != ctypes.sizeof(struct):
                 raise RuntimeError(f"{struct.__name__} is {ctypes.sizeof(struct)} bytes here, "
                                    f"{lib.she_behz_param_bytes(which)} in csrc/behz.cu")
@@ -164,35 +169,52 @@ def lift_params(q_moduli: tuple, bsk_moduli: tuple, m_tilde: int) -> LiftParams:
     return p
 
 
+def floor_word_bits(q_moduli: tuple, bsk_moduli: tuple) -> int:
+    """The floor kernel's instance: 32-bit words where every modulus of q
+    and B_sk is below 2^32 (every w32 set), else 64."""
+    return 32 if max(q_moduli + bsk_moduli) < 1 << 32 else 64
+
+
 @lru_cache(maxsize=None)
-def floor_params(q_moduli: tuple, bsk_moduli: tuple, scale: int) -> FloorParams:
+def floor_params(q_moduli: tuple, bsk_moduli: tuple, scale: int) -> ctypes.Structure:
+    """The floor's constants for its instance (floor_word_bits): a
+    FloorParams32 or FloorParams64, each constant reduced mod its modulus
+    with its Shoup word floor(w 2^bits / m). The scale s, Q^-1 mod b_j,
+    (B/b_j)^-1 mod b_j and B^-1 mod m_sk are folded into the constants of
+    the terms they multiply (csrc/behz.cu, behz_floor_kernel)."""
     _check_moduli(q_moduli, bsk_moduli)
-    p = FloorParams()
+    bits = floor_word_bits(q_moduli, bsk_moduli)
+    p = (FloorParams32 if bits == 32 else FloorParams64)()
+    L = len(q_moduli)
     b_moduli, m_sk = bsk_moduli[:-1], bsk_moduli[-1]
     Q, B = 1, 1
     for q in q_moduli:
         Q *= q
     for b in b_moduli:
         B *= b
+
+    def shoup(w: int, m: int) -> tuple[int, int]:
+        w %= m
+        return w, (w << bits) // m
+
+    inv_b_msk = nt.inverse_mod(B % m_sk, m_sk)
     for i, q in enumerate(q_moduli):
-        p.q[i] = _mod(q)
-        p.sq[i], p.sq_s[i] = _shoup(scale, q)
-        p.inv_punct_q[i], p.inv_punct_q_s[i] = _shoup(nt.inverse_mod((Q // q) % q, q), q)
+        p.q[i] = q
+        p.zq[i], p.zq_s[i] = shoup(scale * nt.inverse_mod((Q // q) % q, q), q)
         for j, b in enumerate(b_moduli):
-            p.punct_b_q[i][j] = (B // b) % q
-        p.b_mod_q[i], p.b_mod_q_s[i] = _shoup(B, q)
-        p.neg_b_mod_q[i], p.neg_b_mod_q_s[i] = _shoup(-B, q)
+            p.bq[i][j], p.bq_s[i][j] = shoup(B // b, q)
+        p.b_mod_q[i], p.b_mod_q_s[i] = shoup(B, q)
+        p.neg_b_mod_q[i], p.neg_b_mod_q_s[i] = shoup(-B, q)
     for j, b in enumerate(bsk_moduli):
-        p.b[j] = _mod(b)
-        p.sb[j], p.sb_s[j] = _shoup(scale, b)
+        p.b[j] = b
+        inv_q = nt.inverse_mod(Q % b, b)
+        # what follows the row's sum: (B/b_j)^-1 over B, -B^-1 at m_sk (alpha's sign)
+        after = nt.inverse_mod((B // b) % b, b) if j < L else -inv_b_msk
+        p.xc[j], p.xc_s[j] = shoup(scale * inv_q * after, b)
         for i, q in enumerate(q_moduli):
-            p.punct_q_b[j][i] = (Q // q) % b
-        p.inv_q_b[j], p.inv_q_b_s[j] = _shoup(nt.inverse_mod(Q % b, b), b)
+            p.zc[j][i], p.zc_s[j][i] = shoup(-(Q // q) * inv_q * after, b)
     for j, b in enumerate(b_moduli):
-        p.inv_punct_b[j], p.inv_punct_b_s[j] = _shoup(nt.inverse_mod((B // b) % b, b), b)
-        p.punct_b_msk[j] = (B // b) % m_sk
-    p.inv_b_msk, p.inv_b_msk_s = _shoup(nt.inverse_mod(B % m_sk, m_sk), m_sk)
-    p.scaled = int(any(scale % m != 1 for m in q_moduli + bsk_moduli))
+        p.bc[j], p.bc_s[j] = shoup((B // b) * inv_b_msk, m_sk)
     return p
 
 
@@ -230,21 +252,49 @@ def behz_lift(x: torch.Tensor, q_moduli: tuple, bsk_moduli: tuple, m_tilde: int)
     return out
 
 
+class _FloorLaunch(NamedTuple):
+    """What a floor's launch shape needs beside its input's and output's
+    pointers, made once per shape: its key, the output's shape, the
+    Operand (its base filled in at each call) and the C call's arguments."""
+
+    key: BehzKey
+    out_shape: tuple
+    op: Operand
+    args: list
+
+
+@lru_cache(maxsize=1024)
+def _floor_launch(shape: tuple, strides: tuple, q_moduli: tuple, bsk_moduli: tuple, scale: int) -> _FloorLaunch:
+    params = floor_params(q_moduli, bsk_moduli, scale)
+    L, n = len(q_moduli), shape[-1]
+    _check_columns(n)
+    op, batch = key_switch_cuda.layout(shape, strides, 2 * L + 1, n, what="y")
+    m = prod(batch)
+    args = [ctypes.byref(op), None, m, L, n, floor_word_bits(q_moduli, bsk_moduli), ctypes.addressof(params), None]
+    key = BehzKey("behz_floor", shape, (q_moduli, bsk_moduli), (scale, strides))
+    return _FloorLaunch(key, batch + (L, n), op, args)
+
+
 def behz_floor(y: torch.Tensor, q_moduli: tuple, bsk_moduli: tuple, scale: int = 1) -> torch.Tensor:
     """y [..., L + L_bsk, n] over [q, B_sk] (read in place; each row times
-    `scale` first) -> floor(x / q) [..., L, n] over q."""
-    params = floor_params(tuple(q_moduli), tuple(bsk_moduli), scale)
-    L, n = len(q_moduli), y.shape[-1]
-    _check_columns(n)
-    op, batch = operand(y, 2 * L + 1, n, what="y")
-    out = torch.empty(batch + (L, n), dtype=torch.int64, device=y.device)
-    m = out.numel() // (L * n)
-    if m:
-        err = _library().she_behz_floor(ctypes.byref(op), out.data_ptr(), m, L, n, ctypes.byref(params), key_switch_cuda._stream())
-        key_switch_cuda._raise_on(err, "behz_floor")
+    `scale` first) -> floor(x / q) [..., L, n] over q. The launch is made
+    once per shape (_floor_launch): a floor takes about as long as the
+    host's work for a call."""
+    q_moduli, bsk_moduli = tuple(q_moduli), tuple(bsk_moduli)
+    floor_params(q_moduli, bsk_moduli, scale)  # the moduli's checks first
+    _check_columns(y.shape[-1])
+    key_switch_cuda._check_tensor(y, "y")
+    launch = _floor_launch(tuple(y.shape), y.stride(), q_moduli, bsk_moduli, scale)
+    if y.data_ptr() % 16:
+        raise ValueError("y needs even strides and a 16-byte aligned base")
+    out = torch.empty(launch.out_shape, dtype=torch.int64, device=y.device)
+    if out.numel():
+        launch.op.base = y.data_ptr()
+        args = launch.args
+        args[1], args[-1] = out.data_ptr(), key_switch_cuda._stream()
+        key_switch_cuda._raise_on(_library().she_behz_floor(*args), "behz_floor")
         launches["behz_floor"] += 1
-        launch_shapes[BehzKey("behz_floor", tuple(y.shape), (tuple(q_moduli), tuple(bsk_moduli)),
-                              (scale, tuple(y.stride())))] += 1
+        launch_shapes[launch.key] += 1
     return out
 
 

@@ -159,33 +159,46 @@ def _check_index(index, slots: int, device) -> None:
         raise ValueError(f"index on {index.device}, data on {device}")
 
 
+def layout(shape: tuple, strides: tuple, L: int, degree: int, what: str = "operand", index_len: int | None = None):
+    """The Operand of a [batch..., L, N] tensor of this shape and these
+    strides, its base and index left to the caller, and the shape of the
+    batch as the kernel sees it (axis 0 replaced by index_len where an
+    index is given)."""
+    if len(shape) < 2 or tuple(shape[-2:]) != (L, degree):
+        raise ValueError(f"{what} must be [..., {L}, {degree}], got {tuple(shape)}")
+    batch, batch_strides = list(shape[:-2]), list(strides[:-2])
+    if strides[-1] != 1:
+        raise ValueError(f"{what} needs a contiguous last axis")
+    if any(s % 2 for n, s in zip(batch, batch_strides) if n != 1) or strides[-2] % 2:
+        raise ValueError(f"{what} needs even strides and a 16-byte aligned base")
+    if index_len is not None:
+        if not batch:
+            raise ValueError(f"an indexed {what} needs a batch axis")
+        batch[0] = index_len
+    if len(batch) > MAX_BATCH_AXES:
+        raise ValueError(f"{what} has {len(batch)} batch axes, the kernels take {MAX_BATCH_AXES}")
+    op = Operand()
+    op.nd = len(batch)
+    for d, (n, s) in enumerate(zip(batch, batch_strides)):
+        op.size[d], op.stride[d] = n, s
+    op.index = None
+    op.lstride = strides[-2]
+    return op, tuple(batch)
+
+
 def operand(x: torch.Tensor, L: int, degree: int, index=None, what: str = "operand") -> tuple:
     """The Operand of x [batch..., L, N] read in place, and the shape of
     the batch as the kernel sees it (axis 0 replaced by the index's
     length where an index is given)."""
     _check_tensor(x, what)
-    if x.dim() < 2 or tuple(x.shape[-2:]) != (L, degree):
-        raise ValueError(f"{what} must be [..., {L}, {degree}], got {tuple(x.shape)}")
-    batch, strides = list(x.shape[:-2]), list(x.stride()[:-2])
-    if x.stride(-1) != 1:
-        raise ValueError(f"{what} needs a contiguous last axis")
-    if any(s % 2 for n, s in zip(batch, strides) if n != 1) or x.stride(-2) % 2 or x.data_ptr() % 16:
+    op, batch = layout(tuple(x.shape), x.stride(), L, degree, what, None if index is None else index.numel())
+    if x.data_ptr() % 16:
         raise ValueError(f"{what} needs even strides and a 16-byte aligned base")
     if index is not None:
-        if not batch:
-            raise ValueError(f"an indexed {what} needs a batch axis")
-        _check_index(index, batch[0], x.device)
-        batch[0] = index.numel()
-    if len(batch) > MAX_BATCH_AXES:
-        raise ValueError(f"{what} has {len(batch)} batch axes, the kernels take {MAX_BATCH_AXES}")
-    op = Operand()
+        _check_index(index, x.shape[0], x.device)
     op.base = x.data_ptr()
-    op.nd = len(batch)
-    for d, (n, s) in enumerate(zip(batch, strides)):
-        op.size[d], op.stride[d] = n, s
     op.index = None if index is None else index.data_ptr()
-    op.lstride = x.stride(-2)
-    return op, tuple(batch)
+    return op, batch
 
 
 def _pinv(element: int | None, degree: int) -> int:

@@ -299,14 +299,16 @@ def test_cuda_wrappers_refuse():
 
 
 def test_parameter_structs():
-    """The launch constants as csrc/behz.cu lays them out (all u64 words:
-    no padding), Barrett words floor(2^128 / q) and Shoup words
-    floor(w 2^64 / q); the floor's scale flag is off at scale 1."""
+    """The launch constants as csrc/behz.cu lays them out (words of one
+    size: no padding), Barrett words floor(2^128 / q) and Shoup words
+    floor(w 2^64 / q); the floor's constants in 32- or 64-bit words by its
+    instance, the scale folded in (behz_floor_constants checks each)."""
     words = ctypes.sizeof(ctypes.c_uint64)
     L, B, E = bc.MAX_L, bc.MAX_L + 1, bc.MAX_EXT
     assert ctypes.sizeof(bc.LiftParams) == words * (3 * L + 2 * L + 3 * B + B * L + L + 4 * B + 2)
-    assert ctypes.sizeof(bc.FloorParams) == words * (3 * L + 3 * B + 2 * L + 2 * B + 2 * L + B * L + 2 * B + 3 * L
-                                                      + L * L + 2 + 4 * L + 1)
+    floor_words = L + B + 2 * L + 2 * B + 2 * B * L + 2 * L + 2 * L * L + 4 * L
+    assert ctypes.sizeof(bc.FloorParams64) == words * floor_words
+    assert ctypes.sizeof(bc.FloorParams32) == 4 * floor_words
     assert ctypes.sizeof(bc.MacParams) == words * 5 * E
     q = (1 << 61) - 1
     p = bc.mac_params((q, 97), WIDE_T)
@@ -314,7 +316,91 @@ def test_parameter_structs():
     assert p.s[0] == WIDE_T % q and p.ss[0] == ((WIDE_T % q) << 64) // q and p.s[1] == WIDE_T % 97
     tctx = tbfv.get_bfv_context(tparams.from_predefined(SETS["n8_w32"][0], 32), device="cpu")
     tool = tctx.get_rns_tool(4)
-    assert bc.floor_params(tool.input_context.moduli, tool.bsk_context.moduli, 1).scaled == 0
-    assert bc.floor_params(tool.input_context.moduli, tool.bsk_context.moduli, 17).scaled == 1
+    q_moduli, bsk_moduli = tool.input_context.moduli, tool.bsk_context.moduli
+    one, scaled = bc.floor_params(q_moduli, bsk_moduli, 1), bc.floor_params(q_moduli, bsk_moduli, 17)
+    assert isinstance(one, bc.FloorParams32)
+    assert [scaled.zq[i] for i in range(4)] == [17 * one.zq[i] % q for i, q in enumerate(q_moduli)]
     lift = bc.lift_params(tool.input_context.moduli, tool.bsk_context.moduli, tool.m_tilde)
     assert lift.neg_inv_q_mt == tool.neg_inverse_q_mod_m_tilde and lift.m_tilde == 1 << 16
+
+
+# every moduli set the served cells floor over: (parameters, scalar bits) -> the floor's instance
+SERVED_FLOORS = {("n_4096_logq_27_28_28_logt_5", 32): 32, ("n_4096_logq_27_28_28_logt_17", 32): 32,
+                 ("n_8192_logq_3x55_logt_24", 64): 64, ("insecure_n_8_logq_5x18_logt_5", 32): 32,
+                 ("insecure_n_8_logq_5x18_logt_5", 64): 64, ("insecure_n_512_logq_4x60_logt_20", 64): 64}
+
+
+@pytest.mark.parametrize("name,bits", list(SERVED_FLOORS))
+def test_floor_instance_by_moduli(name, bits):
+    """The floor takes 32-bit words where every modulus of q and B_sk is
+    below 2^32 (the w32 sets: q of 27-28 bits, B_sk of 29), else 64; at
+    every L a product's tool takes."""
+    ctx = tbfv.get_bfv_context(tparams.from_predefined(name, bits), device="cpu")
+    for L in range(1, len(ctx.ciphertext_context.moduli) + 1):
+        tool = ctx.get_rns_tool(L)
+        q_moduli, bsk_moduli = tool.input_context.moduli, tool.bsk_context.moduli
+        assert bc.floor_word_bits(q_moduli, bsk_moduli) == SERVED_FLOORS[name, bits]
+        assert (max(q_moduli + bsk_moduli) < 1 << 32) == (SERVED_FLOORS[name, bits] == 32)
+        p = bc.floor_params(q_moduli, bsk_moduli, 1)
+        assert isinstance(p, bc.FloorParams32 if SERVED_FLOORS[name, bits] == 32 else bc.FloorParams64)
+
+
+def _floor_by_constants(p, y, L):
+    """floor(x / q) of one column y (L + L + 1 residues over [q, B_sk]) as
+    csrc/behz.cu computes it from the folded constants, in Python
+    integers: each output one sum of products by constants, reduced, with
+    z_i, zb_j and alpha fully reduced before they feed another modulus."""
+    q = [p.q[i] for i in range(L)]
+    b = [p.b[j] for j in range(L + 1)]
+    msk = b[L]
+    z = [y[i] * p.zq[i] % q[i] for i in range(L)]
+    zb = [(y[L + j] * p.xc[j] + sum(z[i] * p.zc[j][i] for i in range(L))) % b[j] for j in range(L)]
+    alpha = (y[2 * L] * p.xc[L] + sum(z[i] * p.zc[L][i] for i in range(L))
+             + sum(zb[j] * p.bc[j] for j in range(L))) % msk
+    out = []
+    for i in range(L):
+        corr = (msk - alpha) * p.b_mod_q[i] if alpha > msk >> 1 else alpha * p.neg_b_mod_q[i]
+        out.append((sum(zb[j] * p.bq[i][j] for j in range(L)) + corr) % q[i])
+    return out
+
+
+@pytest.mark.parametrize("scale", [1, 17, WIDE_T])
+@pytest.mark.parametrize("label", list(SETS))
+def test_behz_floor_constants(label, scale):
+    """floor_params' constants: each reduced below its modulus with its
+    Shoup word floor(w 2^bits / m) at the instance's word size; and the
+    kernel's sums over them (scale, Q^-1, (B/b_j)^-1 and B^-1 folded in)
+    equal the plain floor on residues of every kind (zero, q - 1, random:
+    alpha on both sides of m_sk / 2)."""
+    name, scalar_bits = SETS[label]
+    tctx = tbfv.get_bfv_context(tparams.from_predefined(name, scalar_bits), device="cpu")
+    tool = tctx.get_rns_tool(len(tctx.ciphertext_context.moduli))
+    q_moduli, bsk_moduli = tool.input_context.moduli, tool.bsk_context.moduli
+    L, bits = len(q_moduli), bc.floor_word_bits(q_moduli, bsk_moduli)
+    p = bc.floor_params(q_moduli, bsk_moduli, scale)
+
+    def shoup_ok(w, ws, m):
+        return 0 <= w < m and ws == (w << bits) // m
+
+    for i, q in enumerate(q_moduli):
+        assert shoup_ok(p.zq[i], p.zq_s[i], q) and shoup_ok(p.b_mod_q[i], p.b_mod_q_s[i], q)
+        assert shoup_ok(p.neg_b_mod_q[i], p.neg_b_mod_q_s[i], q)
+        assert all(shoup_ok(p.bq[i][j], p.bq_s[i][j], q) for j in range(L))
+    for j, m in enumerate(bsk_moduli):
+        assert shoup_ok(p.xc[j], p.xc_s[j], m) and all(shoup_ok(p.zc[j][i], p.zc_s[j][i], m) for i in range(L))
+    assert all(shoup_ok(p.bc[j], p.bc_s[j], bsk_moduli[-1]) for j in range(L))
+    y = np.concatenate([_rand(q_moduli + bsk_moduli, (), 16, seed=3, fill=f) for f in FILLS], axis=-1)
+    want = behz.behz_floor_plain(torch.from_numpy(y), tool, scale).numpy()
+    msk, alphas = bsk_moduli[-1], set()
+    for k in range(y.shape[-1]):
+        column = [int(v) for v in y[:, k]]
+        assert _floor_by_constants(p, column, L) == [int(v) for v in want[:, k]]
+    # both sides of m_sk / 2 are taken among the random columns
+    for k in range(32, 48):
+        column = [int(v) for v in y[:, k]]
+        z = [column[i] * p.zq[i] % q_moduli[i] for i in range(L)]
+        zb = [(column[L + j] * p.xc[j] + sum(z[i] * p.zc[j][i] for i in range(L))) % bsk_moduli[j] for j in range(L)]
+        alpha = (column[2 * L] * p.xc[L] + sum(z[i] * p.zc[L][i] for i in range(L))
+                 + sum(zb[j] * p.bc[j] for j in range(L))) % msk
+        alphas.add(alpha > msk >> 1)
+    assert alphas == {True, False}

@@ -8,8 +8,11 @@ she_tpu), so it also runs on a machine without jax:
     python -m pytest --noconftest -p no:cacheprovider -q -m gpu tests/test_torch_behz_kernels.py
 
 Moduli of three kinds: 27-28-bit (the w32 sets, m~ = 2^16, B_sk of 29
-bits), 55-bit (the w64 set, m~ = 2^32, B_sk of 61 bits) and 60-62-bit ones,
-where every q_i is at or above m_sk; N from 8 to 8192, L from 1 to 4, K
+bits: the floor's 32-bit instance), 55-bit (the w64 set, m~ = 2^32, B_sk of
+61 bits) and 60-62-bit ones, where every q_i is at or above m_sk; the
+floor's instances also at the edges of their words (q and B_sk just below
+2^32 at 32 bits, B_sk of 61-62 bits at 64), alpha on both sides of
+m_sk / 2; N from 8 to 8192, L from 1 to 4, K
 from 1 to 31 pairs (a MAC reduces every 7, so K = 8 and above cross a
 reduction, and at 60-62 bits an unreduced sum would pass 2^128), zero,
 q - 1 and random fills, the scale 1, t and a t above 2^31, the lift's and
@@ -28,6 +31,7 @@ from she_tpu_torch.core import rns
 from she_tpu_torch.core.context import get_poly_context
 from she_tpu_torch.ops import behz
 from she_tpu_torch.ops import behz_cuda as bc
+from she_tpu_torch.ops import modarith as ma
 from she_tpu_torch.utils import nt
 
 MODULI = {
@@ -112,6 +116,38 @@ def test_behz_tensor_mac(route, degree, l_count, fill):
         for scale in SCALES:
             got = bc.behz_tensor_mac(la, lb, ext.moduli, scale)
             assert torch.equal(got, behz.behz_tensor_mac_plain(la, lb, ext, scale, -4)), (K, scale)
+
+
+# the floor's instances at the edges of their words: (bits of q, bits of B_sk)
+FLOOR_SETS = {"q28_b29": (28, 29), "q31_b32": (31, 32), "q32_b32": (32, 32), "q55_b61": (55, 61),
+              "q61_b62": (61, 62)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [1, 65537])
+@pytest.mark.parametrize("l_count", [1, 2, 3, 4])
+@pytest.mark.parametrize("label", list(FLOOR_SETS))
+def test_floor_instances(label, l_count, scale):
+    """Both instances of the floor (32-bit words up to moduli just below
+    2^32, 64-bit past them) at L = 1-4, scaled and not, on zero, q - 1 and
+    random residues whose alpha falls on both sides of m_sk / 2."""
+    _card()
+    q_bits, b_bits = FLOOR_SETS[label]
+    degree = 512
+    q = tuple(nt.generate_primes([q_bits] * l_count, preferring_small=False, ntt_degree=degree))
+    bsk = tuple(p for p in nt.generate_primes([b_bits] * (2 * l_count + 1), preferring_small=False,
+                                              ntt_degree=degree) if p not in q)[:l_count + 1]
+    assert bc.floor_word_bits(q, bsk) == (32 if b_bits <= 32 else 64)
+    y = torch.stack([_rows(q + bsk, (2,), degree, seed=l_count + i, fill=f) for i, f in enumerate(FILLS)])
+    tool = rns.RnsTool(get_poly_context(degree, q, 64, torch.device("cuda")), 2, bsk)
+    got = bc.behz_floor(y, q, bsk, scale)
+    assert torch.equal(got, behz.behz_floor_plain(y, tool, scale))
+    cpu = rns.RnsTool(get_poly_context(degree, q, 64, torch.device("cpu")), 2, bsk)
+    fl = cpu.approximate_floor(behz._scale_rows(y.cpu(), cpu.q_bsk_context, scale))
+    m_sk = cpu.m_sk
+    conv = cpu.convert_b_to_m_sk.convert_approximate(fl[..., :l_count, :])
+    alpha = ma.mul_mod(ma.sub_mod(conv, fl[..., l_count:, :], m_sk), cpu.inverse_b_mod_m_sk, m_sk)
+    assert set((alpha > m_sk >> 1).flatten().tolist()) == {True, False}
 
 
 # the widest served launches: (batch, K pairs, route of the cell's moduli, degree)

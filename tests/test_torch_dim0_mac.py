@@ -127,15 +127,20 @@ def test_dim0_inner_products_match_she_tpu(name, d0, fill):
 
 def test_d0_crosses_every_lazy_limit():
     """At 60-62-bit moduli the port's wide accumulator takes one product
-    between reductions, she_tpu's 8 and the kernel's 16: d0 = 20 crosses
-    all three."""
+    between reductions, she_tpu's 8 and the kernel's four-product limb sums
+    one: d0 = 20 crosses all three. The 32-bit instance's cap at
+    insecure_n_8's moduli is the largest its u64 sum allows."""
     moduli = MODULI["w62"][0]
     tctx = tctxmod.get_poly_context(8, moduli, 64, CPU)
     assert tctx.max_signed_lazy_product_count() < 20
     assert jctxmod.get_poly_context(8, moduli, 64).max_lazy_product_accumulation_count() // 2 < 20
-    cap, q = dim0_mac_cuda.lazy_cap(moduli), max(moduli)
-    assert 15 <= cap < 20 and (q - 1) + cap * (q - 1) ** 2 < 1 << 128 <= (q - 1) + (cap + 1) * (q - 1) ** 2
-    assert dim0_mac_cuda.lazy_cap(MODULI["n8_w32"][0]) == dim0_mac_cuda.MAX_CAP
+    bits, s = dim0_mac_cuda.word_bits(moduli), dim0_mac_cuda.limb_shift(moduli)
+    cap = dim0_mac_cuda.lazy_cap(moduli, bits)
+    assert bits == 64 and s == 31 and cap == 1 < 20
+    assert (1 << (2 * s)) + 2 * cap * ((1 << s) - 1) ** 2 < 1 << 64 <= (1 << (2 * s)) + 2 * (cap + 1) * ((1 << s) - 1) ** 2
+    w32 = MODULI["n8_w32"][0]
+    cap = dim0_mac_cuda.lazy_cap(w32, dim0_mac_cuda.word_bits(w32))
+    assert cap == min(((1 << 64) - q) // (q - 1) ** 2 for q in w32) > 20
 
 
 @pytest.mark.parametrize("name", ["n8_w32", "n8_w64", "w55"])
@@ -224,9 +229,9 @@ def test_dim0_mac_plain_reads_strided_and_broadcast_operands(fill):
 
 def test_dispatch_and_wrapper_refuse_what_the_kernel_does_not_take():
     """A CPU tensor takes the plain version through the dispatch and is
-    refused by the kernel's wrapper; other dtypes and devices raise, and
-    so does a tile the kernel is not built for; the wrapper only picks
-    built tiles."""
+    refused by the kernel's wrapper; other dtypes and devices raise; the
+    wrapper's plans are ones the kernel takes: a built word, at most 16
+    accumulators, 32 to 256 coefficients a block in whole warps."""
     moduli = MODULI["n8_w32"][0]
     ctx = tctxmod.get_poly_context(8, moduli, 32, CPU)
     a = torch.zeros((2, 3, len(moduli), 8), dtype=torch.int64)
@@ -235,14 +240,95 @@ def test_dispatch_and_wrapper_refuse_what_the_kernel_does_not_take():
         dim0_mac_cuda.dim0_mac(a, b, moduli)
     with pytest.raises(TypeError, match="must be int64"):
         dim0_mac_cuda.dim0_mac(a.int(), b, moduli)
-    with pytest.raises(ValueError, match="is not built"):
-        dim0_mac_cuda.dim0_mac(a, b, moduli, (4, 4))
+    plan = dim0_mac_cuda.plan(2, 4, 3, moduli)
+    for bad in (plan._replace(group=17), plan._replace(lanes=9), plan._replace(run=0), plan._replace(depth=3),
+                plan._replace(lanes=0), plan._replace(word_bits=16)):
+        with pytest.raises(ValueError, match="is not one the kernel takes|does not take moduli"):
+            dim0_mac_cuda._check_plan(bad, moduli, 3)
     with pytest.raises(ValueError, match="no dim0_mac for device meta"):
         dim0_mac.dim0_mac(a.to("meta"), b.to("meta"), ctx)
     assert torch.equal(dim0_mac.dim0_mac(a, b, ctx), torch.zeros((2, 4, len(moduli), 8), dtype=torch.int64))
-    for m1, m2 in ((1, 1), (1, 300), (4, 256), (11, 32), (1000, 1)):
-        mt, m2t = dim0_mac_cuda.tile(m1, m2)
-        assert (mt, m2t) in dim0_mac_cuda.TILES and mt <= max(m1, 1) * 2 and m2t <= max(m2, 1) * 2
+    for m1, m2, j in ((1, 1, 11), (1, 300, 11), (4, 256, 11), (11, 32, 12), (1000, 1, 11), (16, 2, 64), (1, 1, 800),
+                      (17, 40, 320), (3, 18, 570)):
+        p = dim0_mac_cuda.plan(m1, m2, j, moduli)
+        dim0_mac_cuda._check_plan(p, moduli, j)
+        assert p.group <= max(m1, 1) and p.lanes <= p.run <= max(m2, 1)
+        # the direct instance only where even one lane's staging would not fit
+        assert (p.depth == 0) == (dim0_mac_cuda._shared_bytes(p._replace(lanes=1, depth=1), j)
+                                  > dim0_mac_cuda.MAX_SHARED_BYTES)
+
+
+# the widest served launches (M1, M2, J, L, N, parameters, scalar bits): the
+# w64 dim-0, PNNS's BSGS MAC at both cells, ct x pt of the service (keyword's
+# d0 of 97, w32's 55) and mesh (c)'s d0 slices at 64 bits
+SERVED_PLANS = {
+    "w64": (4, 256, 11, 2, 8192, "n_8192_logq_3x55_logt_24", 64),
+    "pnns_w32": (11, 32, 12, 2, 4096, "n_4096_logq_27_28_28_logt_17", 32),
+    "pnns_w64": (11, 32, 12, 2, 4096, "n_4096_logq_27_28_28_logt_17", 64),
+    "service_keyword": (1, 1, 97, 2, 4096, "n_4096_logq_27_28_28_logt_5", 32),
+    "service_w32": (1, 1, 55, 2, 4096, "n_4096_logq_27_28_28_logt_5", 32),
+    "mesh_psum_S2": (4, 32, 16, 2, 8192, "n_8192_logq_3x55_logt_24", 64),
+    "mesh_psum_S4": (4, 32, 8, 2, 8192, "n_8192_logq_3x55_logt_24", 64),
+}
+
+
+@pytest.mark.parametrize("cell", list(SERVED_PLANS))
+def test_served_plans(cell):
+    """Each served launch's plan: the 32-bit instance exactly where every
+    ciphertext modulus is below 2^32 (PNNS at both cells, the w32
+    service), the Karatsuba limbs at the 55-bit w64 sets; all of M1 in one
+    group, up to MAX_LANES m2 at once sharing the block's words of A, each
+    lane walking up to STEPS m2 through a ring of two steps (one where it
+    walks one), within a block's shared memory."""
+    m1, m2, j, L, degree, params, bits = SERVED_PLANS[cell]
+    moduli = tuple(tparams.from_predefined(params, bits).coefficient_moduli[:L])
+    p = dim0_mac_cuda.plan(m1, m2, j, moduli)
+    assert p.word_bits == (60 if cell in ("w64", "mesh_psum_S2", "mesh_psum_S4") else 32)
+    assert p.group == m1 and p.lanes == min(m2, dim0_mac_cuda.MAX_LANES)
+    assert p.run == min(m2, p.lanes * dim0_mac_cuda.STEPS)
+    assert p.depth == (2 if p.run > p.lanes else 1)
+    dim0_mac_cuda._check_plan(p, moduli, j)
+
+
+@pytest.mark.parametrize("m1,groups,group", [(1, 1, 1), (4, 1, 4), (11, 1, 11), (16, 1, 16), (17, 2, 9), (33, 3, 11),
+                                             (100, 7, 15)])
+def test_plans_split_m1_into_as_few_groups_as_fit(m1, groups, group):
+    """M1 above the 16 accumulators a thread keeps is split into
+    ceil(M1 / 16) groups of equal size (the last may be short)."""
+    p = dim0_mac_cuda.plan(m1, 8, 5, MODULI["w55"][0])
+    assert p.group == group and -(-m1 // p.group) == groups
+
+
+@pytest.mark.parametrize("q,cap32,cap60,cap64", [((1 << 27) - 40959, 1024, (1 << 34) - 1, (1 << 35) - 1),
+                                                  ((1 << 31) - 1, 4, (1 << 30) - 1, (1 << 31) - 1),
+                                                  ((1 << 32) - 5, 1, (1 << 30) - 1, (1 << 31) - 1),
+                                                  ((1 << 55) - 55, None, 63, 127), ((1 << 60) - 93, None, 3, 7),
+                                                  ((1 << 62) - 57, None, None, 1)])
+def test_lazy_caps_hold_their_bound(q, cap32, cap60, cap64):
+    """The 32-bit instance's cap c is the largest with (q - 1) + c (q - 1)^2
+    below 2^64: one more product could wrap. The limb instances' sums of
+    limbs below 2^s (s = limb_shift) stay below 2^64 for c products after
+    a residue below 2^(2s): Karatsuba's middle sum takes c products of limb
+    sums below 2^(s + 1), the four-product middle sum 2 c products below
+    2^(2s); the folded sum fits the 128-bit reduction. The instance is the
+    narrowest the moduli allow: 32 below 2^32, 60 below 2^60, else 64."""
+    if cap32 is not None:
+        cap = dim0_mac_cuda.lazy_cap((q,), 32)
+        assert cap == cap32
+        assert (q - 1) + cap * (q - 1) ** 2 < 1 << 64 <= (q - 1) + (cap + 1) * (q - 1) ** 2
+    s = dim0_mac_cuda.limb_shift((q,))
+    assert q <= 1 << (2 * s) and s <= 31
+    limb = (1 << s) - 1
+    if cap60 is not None:
+        cap = dim0_mac_cuda.lazy_cap((q,), 60)
+        assert cap == min(cap60, dim0_mac_cuda.MAX_CAP) and s <= 30 and 2 * limb < 1 << 31
+        assert (1 << (2 * s)) + cap * (2 * limb) ** 2 < 1 << 64
+    cap = dim0_mac_cuda.lazy_cap((q,), 64)
+    assert cap == min(cap64, dim0_mac_cuda.MAX_CAP)
+    assert 2 * cap * limb ** 2 < 1 << 64 and (1 << (2 * s)) + cap * limb ** 2 < 1 << 64
+    assert (1 << (2 * s)) + cap * (1 << (4 * s)) < 1 << 128
+    assert dim0_mac_cuda.word_bits((q,)) == (32 if q < 1 << 32 else 60 if q < 1 << 60 else 64)
+    assert dim0_mac_cuda.lazy_cap((2, 3), 32) == dim0_mac_cuda.MAX_CAP
 
 
 # -- the expansion's leaves ------------------------------------------------------

@@ -9,14 +9,21 @@ she_tpu), so it also runs on a machine without jax:
 
     python -m pytest --noconftest -p no:cacheprovider -q -m gpu tests/test_torch_dim0_mac_kernels.py
 
-Moduli of three kinds (27-28-bit, 55-bit and 60-62-bit, as
-tests/test_torch_behz_kernels.py), N from 8 to 8192, d0 from 1 to 64 (the
-kernel reduces after 16 products near 2^62, so 17 and 64 cross it), zero,
-q - 1 and random fills, every tile of the kernel, a strided d0 slice,
+Moduli of five kinds: 27-28-bit, just below 2^31 and just below 2^32 (the
+32-bit instance, which reduces after 256, 4 and 1 products), 55-bit (the
+Karatsuba limbs, reduced after 63 products) and 60-62-bit (the
+four-product limbs, reduced after each product near 2^62); N from 8 to
+8192, d0 from 1 to 64 (so 2, 5, 17 and 64 cross the caps), M1 of 1, 4,
+11 and 16 (one group) and 17 and 33 (more than the 16 accumulators a
+thread keeps), zero, q - 1 and random fills, every launch variant (every
+instance the moduli allow, every ring depth, 1 to 8 lanes, runs of 1, 2,
+5 or all of M2), a strided d0 slice,
 permuted and broadcast operands, the widest w64 and PNNS shapes, levels
 that write leaves with and without doubling, and the dispatch on CUDA
 tensors (the kernels launch, no plain pass runs, the bits equal the CPU's).
 """
+
+import itertools
 
 import numpy as np
 import pytest
@@ -36,6 +43,8 @@ from she_tpu_torch.utils import nt
 
 MODULI = {
     "w32": ((1 << 27) - 40959, (1 << 28) - 65535, (1 << 28) - 73727),
+    "b31": tuple(nt.generate_primes([31] * 3, preferring_small=False, ntt_degree=8192)),
+    "b32": tuple(nt.generate_primes([32] * 3, preferring_small=False, ntt_degree=8192)),
     "w64": tuple(nt.generate_primes([55] * 3, preferring_small=False, ntt_degree=8192)),
     "w62": tuple(nt.generate_primes([62, 60, 61], preferring_small=False, ntt_degree=8192)),
 }
@@ -97,18 +106,45 @@ def test_dim0_mac(route, degree, fill):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m1,m2", [(1, 1), (1, 16), (2, 9), (3, 5), (4, 4), (8, 2), (12, 3), (5, 33)])
-def test_every_tile(m1, m2):
-    """The wrapper's tile and every built tile, at shapes that leave
-    partial tiles at both edges."""
+@pytest.mark.parametrize("fill", FILLS)
+@pytest.mark.parametrize("m1", [1, 4, 11, 16, 17, 33])
+@pytest.mark.parametrize("route", list(MODULI))
+def test_accumulator_groups(route, m1, fill):
+    """M1 in one group of accumulators (up to 16) and split (17, 33), at
+    depths on both sides of every lazy cap, q - 1 residues included."""
     _card()
-    moduli = MODULI["w62"]
-    a, b = _rows(moduli, (m1, 18), 512, seed=m1), _rows(moduli, (18, m2), 512, seed=m2)
-    _equal(a, b, moduli, 512)
-    assert dc.tile(m1, m2) in dc.TILES
-    want = dim0_mac.dim0_mac_plain(a, b, _ctx(moduli, 512))
-    for tile_shape in dc.TILES:
-        assert torch.equal(dc.dim0_mac(a, b, moduli, tile_shape), want), tile_shape
+    moduli = MODULI[route]
+    for j, m2 in ((1, 3), (2, 5), (5, 9), (17, 4), (64, 2)):
+        a = _rows(moduli, (m1, j), 512, seed=m1 + j, fill=fill)
+        b = _rows(moduli, (j, m2), 512, seed=m2 + j, fill="max" if fill == "max" else "random")
+        _equal(a, b, moduli, 512)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m1,m2", [(1, 1), (1, 16), (2, 9), (3, 5), (4, 4), (8, 2), (12, 3), (5, 33), (20, 7)])
+@pytest.mark.parametrize("route", ["w32", "b32", "w62"])
+def test_every_tile(route, m1, m2):
+    """The wrapper's plan (the tiles' successor) and every variant of it the
+    kernel takes: every instance the moduli allow (32-bit words, Karatsuba and four-product
+    limbs), every ring depth, 1, 2 and 8 lanes, runs of 1, 2, 5 and all of
+    M2, at shapes that leave partial groups, runs, lanes and blocks (N =
+    512 in blocks of 32; a plan past a block's shared memory is
+    refused)."""
+    _card()
+    moduli = MODULI[route]
+    degree = 512
+    a, b = _rows(moduli, (m1, 18), degree, seed=m1), _rows(moduli, (18, m2), degree, seed=m2)
+    _equal(a, b, moduli, degree)
+    want = dim0_mac.dim0_mac_plain(a, b, _ctx(moduli, degree))
+    base = dc.plan(m1, m2, 18, moduli)
+    words = [w for w in (32, 60, 64) if w >= base.word_bits]
+    for word_bits, depth, lanes, run in itertools.product(words, dc.DEPTHS, (1, 2, 8), (1, 2, 5, m2)):
+        p = base._replace(word_bits=word_bits, depth=depth, lanes=lanes, run=run)
+        if dc._shared_bytes(p, 18) > dc.MAX_SHARED_BYTES:
+            with pytest.raises(ValueError, match="more shared memory"):
+                dc.dim0_mac(a, b, moduli, p)
+            continue
+        assert torch.equal(dc.dim0_mac(a, b, moduli, p), want), p
 
 
 @pytest.mark.gpu
@@ -184,7 +220,7 @@ def test_inner_product_ct_pt_on_the_card_equals_the_cpu(bits):
 @pytest.mark.gpu
 @pytest.mark.parametrize("fill", FILLS)
 @pytest.mark.parametrize("degree", DEGREES)
-@pytest.mark.parametrize("route", list(MODULI))
+@pytest.mark.parametrize("route", ["w32", "w64", "w62"])
 def test_expand_leaves(route, degree, fill):
     """A level whose children are pool slots and output positions, with
     and without doubled leaves, at several shifts."""
