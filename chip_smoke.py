@@ -42,7 +42,10 @@ then PNNS (BatchedPnnsServer), 16 cosine-similarity queries a batch over a
    at the w64 shape (8 digits);
 7. the PIR service (service_phase): the keyword cell's 1M-keyword
    database behind PirService, a config request, an evaluation-key upload
-   and 8 PIR requests (one for an absent keyword) as protobuf bytes; then
+   and 8 PIR requests (one for an absent keyword) as protobuf bytes, each
+   expanded level by level on the key-switch kernels (the per-query
+   server's expansion, pir/expansion.py), with the kernels' launches a
+   request; then
    Symmetric PIR (spir_phase): 512 keywords sealed through
    process(..., symmetric_pir_config=...) and 16 lookups (2 absent)
    through OPRF and PIR requests, each value unsealed with the port's
@@ -104,7 +107,13 @@ then PNNS (BatchedPnnsServer), 16 cosine-similarity queries a batch over a
    tensors; then each is timed at every shape a path launched it with,
    before any plain version, beside its byte bound (and
    torch.remainder where that one call computes ks_digits), then held
-   bit-equal to its plain version;
+   bit-equal to its plain version; the mod switch too: every path that
+   mod-switches its answers (w32, w64, keyword, keyword_large, both PNNS
+   cells, the service, Symmetric PIR, mesh (a), (b) and (d)) drops its
+   moduli with one launch of csrc/key_switch.cu's mod_switch a mod switch
+   (every poly, every drop); a path fails unless mod_switch launched once a
+   mod switch the port ran (bfv.mod_switch_runs), and at least once, and
+   the kernel is timed at every shape with the key switch's kernels;
 14. the BEHZ product (behz_kernel_timing, behz_plain_checks): every path
    that multiplies ciphertexts (w32, w64, keyword, keyword_large, the
    service, mesh (a), (b) and (e)) lifts each side to [q, B_sk], sums the
@@ -150,6 +159,9 @@ w32, keyword and both PNNS cells and runs step 15 on their shapes.
 `--only ntt` serves the w32 and w64 cells, times both NTT kernels at
 every shape they launched (and at the keyword cell's widest) before any
 plain version, then holds each bit-equal to the plain version.
+`--only mod_switch` serves the w64, w32, keyword and both PNNS cells and
+times mod_switch at every shape they launched it with, before any plain
+version, then holds it bit-equal to the plain version at each.
 """
 
 from __future__ import annotations
@@ -245,13 +257,17 @@ NTT_KERNELS = ("ntt_forward", "ntt_inverse")
 NTT_AND_DIM0 = NTT_KERNELS + ("dim0_int8",)
 # the key switch's kernels (csrc/key_switch.cu): a key switch launches the
 # first three once each, an expansion level expand_combine once, or its leaf
-# instance (expand_leaves) where the level writes leaves into the output
-KS_KERNELS = ("ks_digits", "ks_mac", "ks_finish", "expand_combine", "expand_leaves")
+# instance (expand_leaves) where the level writes leaves into the output; a
+# mod switch (every drop of every poly of a ciphertext batch) mod_switch once
+KS_KERNELS = ("ks_digits", "ks_mac", "ks_finish", "expand_combine", "expand_leaves", "mod_switch")
 KS_SWITCH = KS_KERNELS[:3]
+# kernels shorter than their wrapper's host work a call: their ms is
+# replayed from a CUDA graph (graph_ms), beside the time through the wrapper
+GRAPH_TIMED = ("mod_switch",)
 # the she_tpu functions each replaces (none is a Pallas kernel: XLA fuses them)
 KS_REPLACES = {"ks_digits": "she_tpu/ops/galois.py:61", "ks_mac": "she_tpu/bfv/keys.py:319",
                "ks_finish": "she_tpu/core/poly.py:207", "expand_combine": "she_tpu/pir/serving.py:160",
-               "expand_leaves": "she_tpu/pir/serving.py:168"}
+               "expand_leaves": "she_tpu/pir/serving.py:168", "mod_switch": "she_tpu/core/poly.py:207"}
 # the BEHZ product's kernels (csrc/behz.cu): a tensor product launches
 # behz_lift twice (a side) and behz_tensor_mac once, a floor behz_floor once
 BEHZ_KERNELS = ("behz_lift", "behz_tensor_mac", "behz_floor")
@@ -285,10 +301,12 @@ KERNEL_SOURCES = {
     "behz_floor": "she_tpu_torch/csrc/behz.cu",
     "expand_leaves": "she_tpu_torch/csrc/key_switch.cu",
     "dim0_mac": "she_tpu_torch/csrc/dim0_mac.cu",
+    "mod_switch": "she_tpu_torch/csrc/key_switch.cu",
 }
 # ptxas_lines' labels of each kernel's instances
 PTXAS_LABELS = {"ks_digits": "ks_digits_kernel", "ks_mac": "ks_mac_kernel", "ks_finish": "ks_finish_kernel",
-                "expand_combine": "expand_combine_kernel", "expand_leaves": "expand_leaves", "dim0_mac": "dim0_mac_kernel"}
+                "expand_combine": "expand_combine_kernel", "expand_leaves": "expand_leaves", "dim0_mac": "dim0_mac_kernel",
+                "mod_switch": "mod_switch_kernel"}
 # profiler names of the kernels where f"{name}_kernel" does not single them out
 PROFILE_NAMES = {"expand_combine": "expand_combine_kernel<false", "expand_leaves": "expand_combine_kernel<true"}
 MESH_PATHS = ("mesh_batch_w32", "mesh_two_axis_w32", "mesh_pnns_w32", "mesh_dim0_psum", "mesh_sharded")
@@ -321,6 +339,34 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20) -> float:
+    """Milliseconds of fn() replayed from a CUDA graph of `iters` calls (the
+    mean of 3 replays after a warm-up): the kernel's time without the
+    host's cost of a call, which a short launch does not hide."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * iters)
+
+
 def random_rows(moduli, shape, degree, seed):
     import numpy as np
     import torch
@@ -341,7 +387,7 @@ def ptxas_lines(name: str) -> list[str]:
     dynamic shared memory and stages of their rings; and of the matrix
     NTT's fused kernel at 4, 8 and 9 digits, both directions; of every
     key-switch kernel instance (each one is served, expand_combine's leaf
-    instances as expand_leaves); of the BEHZ kernels (the lift at every L,
+    instances as expand_leaves, the mod switch's at every L); of the BEHZ kernels (the lift at every L,
     the floor at every L in both words); and of every instance of the
     dim-0 MAC (word, accumulators, depth of its ring of B)."""
     import re
@@ -383,6 +429,9 @@ def ptxas_lines(name: str) -> list[str]:
             variant = (("update", "galois", "relinearize")[int(m.group(2))] if m.group(2)
                        else {"0": "no gather", "1": "gather"}.get(m.group(3)))
             label = m.group(1) + (f"<{variant}>" if variant else "")
+        elif "Compiling entry function" in line and "mod_switch_kernel" in line:
+            m = re.search(r"mod_switch_kernelILi(\d)E", line)
+            label = f"mod_switch_kernel<L={m.group(1)}>" if m else None
         elif "Compiling entry function" in line and "dim0_mac_kernel" in line:
             m = re.search(r"dim0_mac_kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
             label = f"dim0_mac_kernel<W={m.group(1)}, MG={m.group(2)}, D={m.group(3)}>" if m else None
@@ -406,8 +455,8 @@ def reset_counts() -> None:
     """Every kernel's launch count and launch shapes, the plain NTTs',
     key-switch, BEHZ and dim-0 MAC passes' counts on CUDA tensors, and the
     port's count of key switches, expansion levels (and of them those that
-    write leaves), tensor products and floors set to 0: just before a path
-    is driven."""
+    write leaves), tensor products, floors and mod switches set to 0: just
+    before a path is driven."""
     from she_tpu_torch.bfv import bfv, keys
     from she_tpu_torch.ops import behz, behz_cuda, dim0_cuda, dim0_mac, dim0_mac_cuda, key_switch, key_switch_cuda
     from she_tpu_torch.ops import ntt, ntt_cuda, ntt_mxu, ntt_mxu_cuda, simple_pir_cuda
@@ -422,6 +471,7 @@ def reset_counts() -> None:
     keys.reset_switches()
     serving.reset_levels_run()
     bfv.reset_behz_runs()
+    bfv.reset_mod_switch_runs()
 
 
 def key_switch_counts(label: str, launches: dict, switches: bool, expands: bool) -> None:
@@ -447,6 +497,19 @@ def key_switch_counts(label: str, launches: dict, switches: bool, expands: bool)
         raise AssertionError(f"[{label}] the path ran {ran} key switches and expansion levels")
     if any(key_switch.plain_calls_on_cuda.values()):
         raise AssertionError(f"[{label}] a plain key-switch pass ran on CUDA tensors: {key_switch.plain_calls_on_cuda}")
+
+
+def mod_switch_counts(label: str, launches: dict, mod_switches: bool) -> None:
+    """Fails unless mod_switch launched once a mod switch the port ran
+    (bfv.mod_switch_runs), or if a path that mod-switches (`mod_switches`)
+    ran none. A plain mod switch on CUDA tensors fails key_switch_counts."""
+    from she_tpu_torch.bfv import bfv
+
+    ran = bfv.mod_switch_runs["mod_switch"]
+    if launches["mod_switch"] != ran:
+        raise AssertionError(f"[{label}] {launches['mod_switch']} mod_switch launches against {ran} mod switches")
+    if mod_switches and not ran:
+        raise AssertionError(f"[{label}] the path mod-switches and ran no mod switch")
 
 
 def behz_counts(label: str, launches: dict, multiplies: bool) -> None:
@@ -482,16 +545,18 @@ def mac_counts(label: str, launches: dict, mac: bool) -> None:
 
 
 def read_counts(label: str, use_dim0_int8: bool, simple_pir: bool = False, mxu: bool = False,
-                switches: bool = True, expands: bool = True, multiplies: bool = True, mac: bool = False) -> dict:
+                switches: bool = True, expands: bool = True, multiplies: bool = True, mac: bool = False,
+                mod_switches: bool = True) -> dict:
     """The counts of the path just driven. Fails if a kernel of the path
     never launched, if the int8 dim-0 kernel launched on a path that serves
     the MAC form, if the SimplePIR kernel launched on another protocol's
     path, if the NTT took the other route than the path's (`mxu`: the
     matrix NTT's fused kernel, else the butterfly kernels), if a plain
     NTT ran on CUDA tensors, or as key_switch_counts says (`switches`,
-    `expands`: the path switches keys, and expands queries in batches) and
-    behz_counts (`multiplies`: the path multiplies ciphertexts) and
-    mac_counts (`mac`: the path serves a MAC)."""
+    `expands`: the path switches keys, and expands queries level by level)
+    and behz_counts (`multiplies`: the path multiplies ciphertexts) and
+    mac_counts (`mac`: the path serves a MAC) and mod_switch_counts
+    (`mod_switches`: the path mod-switches its answers)."""
     from she_tpu_torch.ops import behz_cuda, dim0_cuda, dim0_mac_cuda, key_switch_cuda, ntt, ntt_cuda, ntt_mxu
     from she_tpu_torch.ops import ntt_mxu_cuda, simple_pir_cuda
 
@@ -517,6 +582,7 @@ def read_counts(label: str, use_dim0_int8: bool, simple_pir: bool = False, mxu: 
     key_switch_counts(label, launches, switches, expands)
     behz_counts(label, launches, multiplies)
     mac_counts(label, launches, mac)
+    mod_switch_counts(label, launches, mod_switches)
     return dict(launches=launches, launch_shapes=dict(ntt_cuda.launch_shapes),
                 dim0_shapes=dict(dim0_cuda.launch_shapes), simple_pir_shapes=dict(simple_pir_cuda.launch_shapes),
                 mxu_shapes=dict(ntt_mxu_cuda.launch_shapes), ks_shapes=dict(key_switch_cuda.launch_shapes),
@@ -1471,13 +1537,25 @@ def _read_response(ctx, answer: bytes):
     return pc.pir_response_from_proto(list(pb.api_pir_pb2.PIRResponse.FromString(answer).replies), ctx)
 
 
+def per_request_launches(launches: dict, requests: int) -> dict:
+    """Each kernel's launches a request (those it launched), with the
+    expansion levels a request ran (serving.levels_run)."""
+    from she_tpu_torch.pir import serving
+
+    out = {k: v / requests for k, v in launches.items() if v}
+    out["expansion_levels"] = serving.levels_run["expansion_level"] / requests
+    return out
+
+
 def service_phase(ctx, processed, rows: dict, absent: list, seed: int) -> dict:
     """The keyword cell's processed 1M-keyword database behind PirService,
     driven as a client of the protobuf envelope: a ConfigRequest, an
     EvaluationKeys upload and SERVICE_REQUESTS PIRRequests (the last for an
     absent keyword), each sent and answered as bytes; every answer is
     decrypted and checked. The service answers on the per-query
-    KeywordPirServer, as she_tpu's does."""
+    KeywordPirServer, as she_tpu's does, whose expansion runs level by
+    level on the key-switch kernels (pir/expansion.py); the kernels'
+    launches a request are reported."""
     import numpy as np
     import torch
 
@@ -1521,14 +1599,16 @@ def service_phase(ctx, processed, rows: dict, absent: list, seed: int) -> dict:
         got = client.decrypt(_read_response(ctx, answer), kw, sk)
         if got != rows.get(kw):
             raise AssertionError(f"[{label}] keyword {kw.hex()} came back as {got!r}, expected {rows.get(kw)!r}")
-    # the per-query server: no batched expansion, a ct x pt MAC a column
-    counts = read_counts(label, False, expands=False, mac=True)
+    # the per-query server: its expansion level by level, a ct x pt MAC a column
+    counts = read_counts(label, False, mac=True)
+    per_request = per_request_launches(counts["launches"], len(keywords))
     log(f"[{label}] PirService over the {len(rows)}-keyword database: config {len(config_bytes)} bytes, "
         f"evaluation keys {key_bytes} bytes; {len(keywords)} PIR requests as bytes ({len(keywords) - 1} present "
         f"keywords gave their values, 1 absent gave None; {answer_bytes} bytes an answer); seconds a request "
         f"(parse, serve, serialize): {[round(x, 4) for x in request_s]}, median {statistics.median(request_s):.4f} s; "
-        f"kernel launches {counts['launches']}")
+        f"kernel launches a request {per_request}")
     return dict(path=label, requests=len(keywords), request_s=request_s, median_request_s=statistics.median(request_s),
+                launches_per_request=per_request,
                 config_bytes=len(config_bytes), evaluation_key_bytes=key_bytes, answer_bytes=answer_bytes,
                 launches=counts["launches"], launch_shapes=counts["launch_shapes"], ks_shapes=counts["ks_shapes"], behz_shapes=counts["behz_shapes"], mac_shapes=counts["mac_shapes"],
                 dim0_shapes=counts["dim0_shapes"], batches=1)
@@ -1609,14 +1689,16 @@ def spir_phase(seed: int) -> dict:
         got = None if sealed is None else oprf_client.decrypt(sealed, parsed)
         if got != rows.get(kw):
             raise AssertionError(f"[{label}] keyword {kw.hex()} came back as {got!r}, expected {rows.get(kw)!r}")
-    # the per-query server: no batched expansion, a ct x pt MAC a column
-    counts = read_counts(label, False, expands=False, mac=True)
+    # the per-query server: its expansion level by level, a ct x pt MAC a column
+    counts = read_counts(label, False, mac=True)
+    per_request = per_request_launches(counts["launches"], len(keywords))
     log(f"[{label}] {count} keywords sealed (OPRF P-384 + AES-192-GCM) and processed in {process_s:.3f} s "
         f"({1e3 * process_s / count:.1f} ms a row); {len(keywords)} lookups ({n_absent} absent): every present "
         f"value unsealed to its value, every absent keyword gave None; OPRF round trip median "
         f"{statistics.median(oprf_s):.4f} s, PIR request median {statistics.median(pir_s):.4f} s; "
-        f"kernel launches {counts['launches']}")
+        f"kernel launches a request {per_request}")
     return dict(path=label, keywords=count, lookups=len(keywords), absent=n_absent, process_s=process_s,
+                median_request_s=statistics.median(pir_s), launches_per_request=per_request,
                 oprf_s=oprf_s, pir_request_s=pir_s, launches=counts["launches"],
                 launch_shapes=counts["launch_shapes"],
                 ks_shapes=counts["ks_shapes"], behz_shapes=counts["behz_shapes"], mac_shapes=counts["mac_shapes"], dim0_shapes=counts["dim0_shapes"], batches=1)
@@ -1944,7 +2026,8 @@ def simple_pir_path(seed: int, batches: int) -> dict:
     single = server.compute_response(queries[0].queries)
     torch.cuda.synchronize()
     single_s = time.perf_counter() - t0
-    counts = read_counts(label, False, simple_pir=True, switches=False, expands=False, multiplies=False)
+    counts = read_counts(label, False, simple_pir=True, switches=False, expands=False, multiplies=False,
+                         mod_switches=False)
     peak = torch.cuda.max_memory_allocated()
     served_shapes = {(tuple(server.planes.data.shape), server.planes.rows, tuple(q.shape), b_bits): c
                      for q, c in ((requests, batches), (queries[0].queries, 1))}
@@ -2058,6 +2141,8 @@ def ks_bytes(key) -> int:
         batch, l_t = prod(shape[:-3]), l_ks - 1
         _, c0, c1, _ = variant
         return words * n * batch * (2 * l_ks + (int(c0) + int(c1)) * l_t + 2 * l_t)
+    if name == "mod_switch":  # x [..., L, N] in, [..., target, N] out
+        return words * prod(shape[:-2]) * n * (shape[-2] + variant[0])
     return words * 4 * prod(shape)  # expand_combine, expand_leaves: the update and the parents in, both children out
 
 
@@ -2067,7 +2152,8 @@ def ks_case(key, seed: int, device="cuda") -> dict:
     computes the kernel's whole function, that call, each as a function
     of no arguments returning what the kernel writes. Indexed operands
     read a random pool of `slots` through distinct random indices, c0 and
-    c1 are views of one stacked tensor, as on the main path.
+    c1 are views of one stacked tensor, as on the main path, and the mod
+    switch's input is laid out with the strides the launch read.
     expand_combine's kernel writes into a copy of the pool made here and
     its plain version into a copy made at each call, so both start from
     the same untouched pool and every slot is compared."""
@@ -2108,6 +2194,11 @@ def ks_case(key, seed: int, device="cuda") -> dict:
         key_rows = residues(moduli, (shape[-3], 2), 3)
         kernel = lambda: kc.ks_mac(fwd, key_rows, moduli)  # noqa: E731
         plain = lambda: ks.ks_mac_plain(fwd, key_rows, ctx)  # noqa: E731
+    elif name == "mod_switch":
+        target_count, strides = variant
+        x = strided_like(residues(moduli, shape[:-2], 1), strides)
+        kernel = lambda: kc.mod_switch(x, moduli, target_count)  # noqa: E731
+        plain = lambda: ks.mod_switch_plain(x, ctx, target_count)  # noqa: E731
     elif name == "ks_finish":
         element, has_c0, has_c1, slots = variant
         inv = residues(moduli, shape[:-2], 2)
@@ -2187,8 +2278,10 @@ def ks_shape_timing(paths: dict, names=KS_KERNELS) -> list:
     """Each key-switch kernel at every launch shape of the paths' runs
     (launch_shapes of ops/key_switch_cuda.py, keyed by KsKey), in two
     passes so that every kernel is timed before any plain version runs:
-    first the kernel (mean of 20 launches after a warm-up, CUDA events)
-    and, where one PyTorch call computes the whole function, that call;
+    first the kernel (mean of 20 launches after a warm-up, CUDA events;
+    for GRAPH_TIMED kernels 20 launches replayed from a CUDA graph, beside
+    the time through the wrapper, `wrapper_ms`) and, where one PyTorch call
+    computes the whole function, that call;
     then, on the same inputs made again from the same seed, the plain
     version (3 calls; 1 where a modulus takes the wide route), and the
     kernel held bit-equal to it. Rows: ms, plain_ms, library_ms, bytes,
@@ -2204,11 +2297,14 @@ def ks_shape_timing(paths: dict, names=KS_KERNELS) -> list:
     for i, key in enumerate(ordered):
         case = case_of.get(key.name, ks_case)(key, 100 + 7 * i)
         ms = cuda_ms(case["kernel"], 20)
+        extra = {}
+        if key.name in GRAPH_TIMED:
+            extra["wrapper_ms"], ms = ms, graph_ms(case["kernel"])
         library_ms = None if case["library"] is None else cuda_ms(case["library"], 20)
         bound = 1e3 * ks_bytes(key) / HBM_BYTES_PER_S
         rows.append(dict(name=key.name, shape=list(key.shape), moduli=list(key.moduli), variant=list(key.variant),
                          ms=ms, library_ms=library_ms, bytes=ks_bytes(key), bound_ms=bound, share_of_bound=bound / ms,
-                         launches_per_batch=keys[key]))
+                         launches_per_batch=keys[key], **extra))
         del case
         torch.cuda.empty_cache()
     for i, (key, row) in enumerate(zip(ordered, rows)):
@@ -2222,7 +2318,9 @@ def ks_shape_timing(paths: dict, names=KS_KERNELS) -> list:
         plain_iters = 1 if modarith.is_wide(max(key.moduli)) else 3
         row.update(max_abs_err=err, plain_ms=cuda_ms(case["plain"], plain_iters), plain_iters=plain_iters)
         log(f"{key.name} {tuple(key.shape)} moduli {key.moduli} {tuple(key.variant)} "
-            f"(a batch: {row['launches_per_batch']}): bit-equal to plain; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms (x{plain_iters}), "
+            f"(a batch: {row['launches_per_batch']}): bit-equal to plain; kernel {row['ms']:.4f} ms"
+            + ("" if "wrapper_ms" not in row else f" (from a CUDA graph; {row['wrapper_ms']:.4f} through the wrapper)")
+            + f", plain {row['plain_ms']:.4f} ms (x{plain_iters}), "
             + ("" if row["library_ms"] is None else f"library {row['library_ms']:.4f} ms, ")
             + f"byte bound {row['bound_ms']:.4f} ms ({100 * row['share_of_bound']:.1f}% of bound)")
         del case, got, want
@@ -2238,6 +2336,7 @@ KS_LIBRARY = {
     "expand_combine": "none: no PyTorch call computes a modular add and a negacyclic shift into indexed slots",
     "expand_leaves": "torch.index_select of the same leaves, in output order, from a pool of every node: the gather "
                      "alone of the leaf pass it replaces, without the level's combine or the doubling",
+    "mod_switch": "none: no PyTorch call computes a divide-and-round across RNS rows",
 }
 
 
@@ -2260,7 +2359,8 @@ def ks_kernel_entries(rows: list, paths: dict, names=KS_KERNELS) -> list:
         out.append(dict(
             name=name, route="cuda", source=KERNEL_SOURCES[name], replaces=KS_REPLACES[name],
             launches=sum(launches_by_path.values()), max_abs_err=max(r["max_abs_err"] for r in mine),
-            ms=widest["ms"], plain_ms=widest["plain_ms"], bound_ms=widest["bound_ms"], bound_by="bytes",
+            ms=widest["ms"], wrapper_ms=widest.get("wrapper_ms"), plain_ms=widest["plain_ms"],
+            bound_ms=widest["bound_ms"], bound_by="bytes",
             library_ms=None if library_row is None else library_row["library_ms"], library=KS_LIBRARY[name],
             library_shape=None if library_row is None else library_row["shape"],
             library_shape_ms=None if library_row is None else library_row["ms"], widest_shape=widest["shape"],
@@ -2271,14 +2371,29 @@ def ks_kernel_entries(rows: list, paths: dict, names=KS_KERNELS) -> list:
 
 
 def ks_summary(entries: list, paths: dict, card: str) -> str:
-    stage = {p: {k: round(v["stages_ms"][k], 3) for k in ("expansion", "behz_relinearize") if k in v["stages_ms"]}
+    stage = {p: {k: round(v["stages_ms"][k], 3) for k in ("expansion", "behz_relinearize", "mod_switch")
+                 if k in v["stages_ms"]}
              for p, v in paths.items() if "stages_ms" in v}
-    return ("key switch: " + "; ".join(
+    return ("key switch and mod switch: " + "; ".join(
         f"{e['name']} {e['ms']:.4f} ms at {tuple(e['widest_shape'])} against a byte bound of {e['bound_ms']:.4f} ms "
         f"({100 * e['bound_ms'] / e['ms']:.1f}%), plain {e['plain_ms']:.4f} ms, "
         + ("" if e["library_ms"] is None else f"library {e['library_ms']:.4f} ms at {tuple(e['library_shape'])}, "
            f"where the kernel takes {e['library_shape_ms']:.4f} ms, ")
-        + f"{e['launches']} launches" for e in entries) + f"; expansion and BEHZ device ms by path {stage}; on {card}")
+        + f"{e['launches']} launches" for e in entries) + f"; expansion, BEHZ and mod switch device ms by path {stage}; "
+        f"on {card}")
+
+
+def mod_switch_summary(entry: dict, paths: dict, card: str) -> str:
+    """The mod switch at every shape it was timed at, and each path's
+    mod_switch stage."""
+    stage = {p: round(v["stages_ms"]["mod_switch"], 4) for p, v in paths.items() if "mod_switch" in v.get("stages_ms", {})}
+    return ("mod_switch: " + "; ".join(
+        f"{tuple(r['shape'])} -> {r['variant'][0]} moduli {r['ms']:.4f} ms from a CUDA graph ({r['wrapper_ms']:.4f} "
+        f"through the wrapper) against a byte bound of {r['bound_ms']:.4f} ms ({100 * r['share_of_bound']:.1f}%), "
+        f"plain {r['plain_ms']:.4f} ms, {r['launches_per_batch']} a batch"
+        for r in sorted(entry["shapes"], key=lambda r: -r["bytes"]))
+        + f"; {entry['launches']} launches by path {entry['launches_by_path']}; mod_switch stage device ms by path "
+        f"{stage}; on {card}")
 
 
 def behz_bytes(key) -> int:
@@ -3174,9 +3289,10 @@ def _rank_part(label: str, mesh, run, reps: int, kernels: tuple) -> dict:
     key-switch kernels as key_switch_counts says (the part switches keys
     where ks_digits is one of `kernels`, and expands queries in batches
     where expand_combine is), the BEHZ kernels as behz_counts says (the
-    part multiplies ciphertexts where behz_lift is one of `kernels`) and
-    the dim-0 MAC as mac_counts says (the part serves a MAC where dim0_mac
-    is one of `kernels`)."""
+    part multiplies ciphertexts where behz_lift is one of `kernels`), the
+    dim-0 MAC as mac_counts says (the part serves a MAC where dim0_mac
+    is one of `kernels`) and the mod switch as mod_switch_counts says (the
+    part mod-switches where mod_switch is one of `kernels`)."""
     import torch
 
     from she_tpu_torch.ops import behz_cuda, dim0_cuda, dim0_mac_cuda, key_switch_cuda, ntt, ntt_cuda, simple_pir_cuda
@@ -3199,6 +3315,7 @@ def _rank_part(label: str, mesh, run, reps: int, kernels: tuple) -> dict:
     key_switch_counts(f"{label} rank {rank}", launches, "ks_digits" in kernels, "expand_combine" in kernels)
     behz_counts(f"{label} rank {rank}", launches, "behz_lift" in kernels)
     mac_counts(f"{label} rank {rank}", launches, "dim0_mac" in kernels)
+    mod_switch_counts(f"{label} rank {rank}", launches, "mod_switch" in kernels)
     if (any(launches[k] == 0 for k in kernels) or (launches["dim0_int8"] and "dim0_int8" not in kernels)
             or launches["simple_pir_matmul"] or any(ntt.plain_calls_on_cuda.values())):
         raise AssertionError(f"[{label}] rank {rank}: launches {launches} (the part's kernels: {kernels}), plain "
@@ -3267,7 +3384,7 @@ def mesh_world2(mesh, specs: dict) -> dict:
         return [torch.stack([torch.stack([c.stacked() for c in r.ciphertext_matrices[0].ciphertexts])
                              for r in responses])]
 
-    out["d"] = _rank_part("mesh (d)", mesh, serve_d, MESH_REPS, NTT_KERNELS + KS_SWITCH + ("dim0_mac",))
+    out["d"] = _rank_part("mesh (d)", mesh, serve_d, MESH_REPS, NTT_KERNELS + KS_SWITCH + ("dim0_mac", "mod_switch"))
     return out
 
 
@@ -3540,6 +3657,8 @@ def run(args) -> int:
         return dim0_mac_only(args, card)
     if args.only == "ntt":
         return ntt_only(args, card)
+    if args.only == "mod_switch":
+        return mod_switch_only(args, card)
 
     checked = kernel_phase(args.seed)
     paths = {}
@@ -3622,6 +3741,7 @@ def run(args) -> int:
     log(ntt_mxu_summary(paths, mxu_entry, card))
     log(mesh_summary(paths, card))
     log(ks_summary(ks_entries, paths, card))
+    log(mod_switch_summary(next(e for e in ks_entries if e["name"] == "mod_switch"), paths, card))
     log(behz_summary(behz_entries, paths, card))
     log(mac_summary(mac_entry, next(e for e in ks_entries if e["name"] == "expand_leaves"), paths, card))
     log(f"cli: every tool exited 0 on the card, {sum(cli['seconds'].values()):.3f} s in all, on {card}")
@@ -3812,6 +3932,25 @@ def key_switch_only(args, card: str) -> int:
     return report(args, card, entries, paths=paths)
 
 
+def mod_switch_only(args, card: str) -> int:
+    """--only mod_switch: the w64, w32, keyword and both PNNS cells, then
+    mod_switch timed at every shape they launched it with, before any
+    plain version, and held bit-equal to it at each (ks_shape_timing);
+    then the kernels line (mod_switch, with these cells' launches) and the
+    last line."""
+    paths = {path: main_path(path, args.seed, args.batches) for path in ("w64", "w32")}
+    paths["keyword"] = keyword_path(args.seed, args.batches)[0]
+    for label in PNNS_PATHS:
+        paths[label] = pnns_path(label, args.seed, args.batches)
+    names = ("mod_switch",)
+    entries = ks_kernel_entries(ks_shape_timing(paths, names), paths, names)
+    for path, p in paths.items():
+        log(f"{path}: median {p['median_s_per_batch']:.4f} s/batch, device ms by stage "
+            f"{ {k: round(v, 4) for k, v in p['stages_ms'].items()} }, on {card}")
+    log(mod_switch_summary(entries[0], paths, card))
+    return report(args, card, entries, paths=paths)
+
+
 def behz_only(args, card: str) -> int:
     """--only behz: the w32, w64 and keyword cells, then each BEHZ kernel
     timed at the widest shape of each cell and held to its plain version
@@ -3898,7 +4037,7 @@ def parse_args(argv=None):
     parser.add_argument("--seed", type=int, default=0, help="seed of the database, keys and indices")
     parser.add_argument("--json-out", default=None, help="also write the full results to this file")
     parser.add_argument("--only", choices=["dim0", "simple_pir", "mesh", "ntt_mxu", "key_switch", "behz", "dim0_mac",
-                                           "ntt"],
+                                           "ntt", "mod_switch"],
                         default=None,
                         help="run one phase alone: dim0, the int8 dim-0 kernel at every served shape; "
                              "simple_pir, the SimplePIR cell; mesh, multi-device serving with gloo ranks; "
@@ -3906,7 +4045,8 @@ def parse_args(argv=None):
                              "the w32 and keyword cells and the key-switch kernels at their shapes; behz, the w32, "
                              "w64 and keyword cells and the BEHZ kernels at their shapes; dim0_mac, the w64, w32, "
                              "keyword and PNNS cells, dim0_mac and the expansion's leaf kernel at their shapes; ntt, the "
-                             "w32 and w64 cells and the NTT kernels at their shapes")
+                             "w32 and w64 cells and the NTT kernels at their shapes; mod_switch, the w64, w32, keyword "
+                             "and PNNS cells and the mod switch kernel at their shapes")
     args = parser.parse_args(argv)
     if args.batches < 3:
         parser.error("--batches must be at least 3")

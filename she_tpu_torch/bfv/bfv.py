@@ -29,7 +29,7 @@ from ..core import rns as rnsmod
 from ..core.context import PolyContext, get_poly_context
 from ..core.poly import COEFF, EVAL, PolyRq
 from ..device import resolve_device
-from ..ops import behz, dim0_mac
+from ..ops import behz, dim0_mac, key_switch
 from ..ops import galois as galoismod
 from ..ops import modarith as ma
 from ..ops import ntt as nttmod
@@ -565,21 +565,38 @@ def ct_to_coeff(a: Ciphertext) -> Ciphertext:
     )
 
 
-def mod_switch_down(a: Ciphertext) -> Ciphertext:
-    """Drop the last ciphertext modulus (reference Bfv.swift:163-171)."""
+# mod switches run since the last reset: on a CUDA card each launches
+# mod_switch once, for every poly and every dropped modulus
+mod_switch_runs = {"mod_switch": 0}
+
+
+def reset_mod_switch_runs() -> None:
+    mod_switch_runs["mod_switch"] = 0
+
+
+def _mod_switch(a: Ciphertext, target: int) -> Ciphertext:
+    """a (Coeff, over L > target moduli) down to its first `target` moduli:
+    ops/key_switch.mod_switch over all its polys, read in place where they
+    are equally spaced views of one tensor (stacked_view)."""
     if a.fmt != COEFF:
         raise errors.InvalidFormat("modSwitchDown requires Coeff")
     if a.moduli_count < 2:
         raise errors.InvalidCiphertext("cannot drop below one modulus")
-    return Ciphertext(
-        a.context, [polymod.divide_and_round_q_last(p) for p in a.polys], a.correction_factor
-    )
+    ctx = a.poly_context()
+    data = key_switch.mod_switch(stacked_view(a), ctx, target)
+    mod_switch_runs["mod_switch"] += 1
+    return Ciphertext.from_stacked(a.context, data, ctx.get_context(target), COEFF, a.correction_factor)
+
+
+def mod_switch_down(a: Ciphertext) -> Ciphertext:
+    """Drop the last ciphertext modulus (reference Bfv.swift:163-171)."""
+    return _mod_switch(a, a.moduli_count - 1)
 
 
 def mod_switch_down_to_single(a: Ciphertext) -> Ciphertext:
-    while a.moduli_count > 1:
-        a = mod_switch_down(a)
-    return a
+    """Drop every ciphertext modulus but the first: mod_switch_down until
+    one is left, as one mod switch of all the drops."""
+    return a if a.moduli_count == 1 else _mod_switch(a, 1)
 
 
 # ---------------------------------------------------------------------------

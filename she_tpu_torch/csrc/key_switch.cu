@@ -1,5 +1,6 @@
 // Key switching for Hopper (sm_90a): the four passes around a key switch's
-// two NTTs (csrc/ntt.cu), and the combine of an oblivious-expansion level.
+// two NTTs (csrc/ntt.cu), the combine of an oblivious-expansion level, and
+// the mod switch, which shares ks_finish's divide-and-round.
 //
 // Replaces what she_tpu leaves to XLA to fuse inside its jitted key switch
 // and expansion (none of it is a Pallas kernel):
@@ -20,7 +21,11 @@
 //                   instance (expand_leaves) also writes a level's leaves
 //                   straight into the output in output order, doubled
 //                   where the plan says (she_tpu/pir/serving.py:168-171),
-//                   so no pass over the output follows the last level.
+//                   so no pass over the output follows the last level;
+//   mod_switch      she_tpu/core/poly.py:207 divide_and_round_q_last, once
+//                   a dropped modulus, under she_tpu/bfv/bfv.py:694
+//                   mod_switch_down and :707 mod_switch_down_to_single: a
+//                   ciphertext batch from L moduli down to L' in one launch.
 // The plain versions are she_tpu_torch/ops/key_switch.py; every output is
 // fully reduced, so the kernels equal them bit for bit.
 //
@@ -36,7 +41,8 @@
 // once, a handful of 64-bit multiplies a word; at the keyword cell's widest
 // expansion level (16,384 target polynomials, L_t = 2, L_ks = 3, N = 4096;
 // U = 16,384 * 4096 * 8 bytes) ks_digits moves 8 U, ks_mac 12 U (and the
-// key, which stays in L2), ks_finish 12 U and expand_combine 16 U.
+// key, which stays in L2), ks_finish 12 U and expand_combine 16 U;
+// mod_switch reads L rows and writes L' a polynomial.
 //
 // The design is the simple one: a block takes one row of N words (a
 // polynomial residue), each thread two consecutive words at a time with
@@ -44,7 +50,10 @@
 // run. The Galois gather (ks_digits, and ks_finish on c0) first copies its
 // row into shared memory with coalesced loads and gathers from there; the
 // source index of output k is computed, not loaded: t = k * element^-1
-// mod 2N, the word at t mod N, negated where t >= N.
+// mod 2N, the word at t mod N, negated where t >= N. mod_switch's block
+// takes 512 coefficients of one polynomial, each thread two of them with
+// all L residues in registers, so the L - L' drops run without another
+// pass over memory.
 //
 // Traps the kernels keep, each pinned by tests/test_torch_key_switch.py:
 //  * negate, then reduce: the Galois negation is taken mod q_j (the row's
@@ -55,7 +64,10 @@
 //    key[j, c, i] for i < L_ks of the launch's own moduli;
 //  * the divide-and-round is last_plus = (last + floor(q_ks / 2)) mod q_ks,
 //    then (x_i + floor(q_ks / 2) mod q_i - last_plus mod q_i) *
-//    q_ks^-1 mod q_i, with a 128-bit product;
+//    q_ks^-1 mod q_i, with a 128-bit product (round_last and
+//    divide_round, which ks_finish and mod_switch both call);
+//  * mod_switch's drops run in order, each on the previous drop's fully
+//    reduced residues: the next drop's last row is this drop's output;
 //  * a MAC sum of 16 products of residues below 2^62 can pass 2^128: the
 //    accumulator is reduced after every 15.
 
@@ -66,6 +78,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kLazyProducts = 15;
 constexpr int kComps = 2;  // the components of every key-switching key
+constexpr int kMaxModSwitchRows = 8;  // the moduli a mod_switch input may have
 
 // What ks_finish adds after the divide-and-round: nothing (the update
 // alone), g(c0) into component 0 (apply_galois), or c0 and c1 into
@@ -88,6 +101,34 @@ __device__ __forceinline__ u64 gathered(const u64* row, int k, u64 pinv, int log
   const u64 t = (static_cast<u64>(k) * pinv) & two_n_mask;
   const u64 v = row[t & ((1ull << log2n) - 1)];
   return (t >> log2n) ? neg_mod(v, q) : v;
+}
+
+// What the divide-and-round by a last modulus q_last needs of a remaining
+// modulus q_i: q_i with its Barrett words, floor(q_last / 2) mod q_i, and
+// q_last^-1 mod q_i with its Shoup constant (a row of
+// ops/key_switch_cuda.constants).
+struct DivRow {
+  Mod m;
+  u64 half_mod, w, ws;
+};
+
+__device__ __forceinline__ DivRow load_div(const u64* consts, int i) {
+  const u64* c = consts + kConstWords * i;
+  return DivRow{load_mod(consts, i), __ldg(c + 3), __ldg(c + 4), __ldg(c + 5)};
+}
+
+// (last + floor(q_last / 2)) mod q_last, once a coefficient.
+__device__ __forceinline__ u64 round_last(u64 last, u64 q_last) {
+  const u64 lp = last + (q_last >> 1);
+  return lp >= q_last ? lp - q_last : lp;
+}
+
+// she_tpu's divide_and_round_q_last of residue x mod q_i:
+// (x + floor(q_last / 2) - last_plus) * q_last^-1 mod q_i, every step
+// fully reduced.
+__device__ __forceinline__ u64 divide_round(u64 x, u64 last_plus, const DivRow& r) {
+  const u64 coeff = sub_mod(add_mod(x, r.half_mod, r.m.q), reduce64(last_plus, r.m), r.m.q);
+  return mul_shoup(coeff, r.w, r.ws, r.m.q);
 }
 
 // Block (m, j): digit j of batch entry m, reduced mod every key-switching
@@ -176,11 +217,9 @@ __global__ void __launch_bounds__(kThreads) ks_finish_kernel(const u64* __restri
   const i64 m = mi / lt;
   const int lks = lt + 1;
   const int n = 1 << log2n;
-  const Mod mq = load_mod(consts, i);
-  const u64* ci = consts + kConstWords * i;
-  const u64 half_mod = __ldg(ci + 3), w = __ldg(ci + 4), ws = __ldg(ci + 5);
+  const DivRow dr = load_div(consts, i);
+  const Mod& mq = dr.m;
   const u64 q_last = __ldg(consts + kConstWords * lt);
-  const u64 half = q_last >> 1;
   const u64* src0 = nullptr;
   const u64* src1 = nullptr;
   if constexpr (FINISH != Finish::kUpdate) src0 = c0.base + batch_offset(c0, m) + i * c0.lstride;
@@ -192,15 +231,7 @@ __global__ void __launch_bounds__(kThreads) ks_finish_kernel(const u64* __restri
       const u64* base = inv + ((m * kComps + c) * lks << log2n);
       const ulonglong2 last = load2(base + (static_cast<i64>(lt) << log2n) + k);
       const ulonglong2 x = load2(base + (static_cast<i64>(i) << log2n) + k);
-      u64 u[2];
-      const u64 lasts[2] = {last.x, last.y}, xs[2] = {x.x, x.y};
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        u64 lp = lasts[e] + half;
-        if (lp >= q_last) lp -= q_last;
-        const u64 coeff = sub_mod(add_mod(xs[e], half_mod, mq.q), reduce64(lp, mq), mq.q);
-        u[e] = mul_shoup(coeff, w, ws, mq.q);
-      }
+      u64 u[2] = {divide_round(x.x, round_last(last.x, q_last), dr), divide_round(x.y, round_last(last.y, q_last), dr)};
       if (FINISH != Finish::kUpdate && c == 0) {
         if constexpr (kGather) {
           u[0] = add_mod(gathered(row, k, pinv, log2n, mq.q), u[0], mq.q);
@@ -219,6 +250,48 @@ __global__ void __launch_bounds__(kThreads) ks_finish_kernel(const u64* __restri
       store2(out + ((((m * kComps + c) * lt) + i) << log2n) + k, u[0], u[1]);
     }
   }
+}
+
+// Block (m, s): coefficients [512 s, 512 s + 512) of batch entry m of x
+// [..., L, N] (read in place), two a thread with their L residues in
+// registers, divided and rounded by the last modulus L - lt times, each
+// drop on the previous drop's fully reduced output; rows < lt are written
+// to out [..., lt, N]. consts holds the drops' tables one after another:
+// drop d (modulus q_d dropped, d = L - 1 down to lt) is d + 1 rows of
+// constants(q_0..q_d).
+template <int L>
+__global__ void __launch_bounds__(kThreads) mod_switch_kernel(Operand x, u64* __restrict__ out, int lt, int log2n,
+                                                               int segs, const u64* __restrict__ consts) {
+  const i64 m = blockIdx.x / segs;
+  const int k = (blockIdx.x % segs) * 2 * kThreads + 2 * threadIdx.x;
+  if (k >= (1 << log2n)) return;
+  const u64* src = x.base + batch_offset(x, m) + k;
+  u64 v[L][2];
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    const ulonglong2 a = load2(src + l * x.lstride);
+    v[l][0] = a.x;
+    v[l][1] = a.y;
+  }
+  const u64* table = consts;
+#pragma unroll
+  for (int d = L - 1; d >= 1; --d) {
+    if (d >= lt) {
+      const u64 q_last = __ldg(table + kConstWords * d);
+      const u64 lp0 = round_last(v[d][0], q_last), lp1 = round_last(v[d][1], q_last);
+#pragma unroll
+      for (int i = 0; i < d; ++i) {
+        const DivRow r = load_div(table, i);
+        v[i][0] = divide_round(v[i][0], lp0, r);
+        v[i][1] = divide_round(v[i][1], lp1, r);
+      }
+      table += kConstWords * (d + 1);
+    }
+  }
+  u64* dst = out + ((m * lt) << log2n) + k;
+#pragma unroll
+  for (int l = 0; l < L; ++l)
+    if (l < lt) store2(dst + (static_cast<i64>(l) << log2n), v[l][0], v[l][1]);
 }
 
 // Where a child goes: code >= 0 is a slot of the pool, code < 0 the leaf at
@@ -307,6 +380,15 @@ cudaError_t finish(const void* inv, const Operand* c0, const Operand* c1, void* 
   return cudaGetLastError();
 }
 
+template <int L>
+cudaError_t mod_switch_rows(const Operand& x, void* out, i64 m, int lt, int log2n, const void* consts,
+                            cudaStream_t st) {
+  const int segs = ((1 << log2n) + 2 * kThreads - 1) / (2 * kThreads);
+  mod_switch_kernel<L><<<static_cast<unsigned>(m * segs), kThreads, 0, st>>>(
+      x, static_cast<u64*>(out), lt, log2n, segs, static_cast<const u64*>(consts));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int she_ks_digits(const Operand* c1, void* out, long long m, int lt, int lks, int log2n,
@@ -383,4 +465,24 @@ extern "C" int she_expand_combine(void* pool, void* out, const void* upd, const 
     expand_combine_kernel<true, true><<<grid, kThreads, 0, st>>>(p, o, u, par, c0, c1, dbl, count, inner, l_count,
                                                                  log2n, shift, cs);
   return static_cast<int>(cudaGetLastError());
+}
+
+// x [..., l, N] (m polynomials, read in place) -> out [..., lt, N],
+// 1 <= lt < l <= kMaxModSwitchRows; consts: the drops' tables (see
+// mod_switch_kernel).
+extern "C" int she_mod_switch(const Operand* x, void* out, long long m, int l, int lt, int log2n, const void* consts,
+                              void* stream) {
+  if (m <= 0) return 0;
+  if (x == nullptr || lt < 1 || lt >= l || l > kMaxModSwitchRows || log2n < 1 || log2n > 13)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (l) {
+    case 2: return static_cast<int>(mod_switch_rows<2>(*x, out, m, lt, log2n, consts, st));
+    case 3: return static_cast<int>(mod_switch_rows<3>(*x, out, m, lt, log2n, consts, st));
+    case 4: return static_cast<int>(mod_switch_rows<4>(*x, out, m, lt, log2n, consts, st));
+    case 5: return static_cast<int>(mod_switch_rows<5>(*x, out, m, lt, log2n, consts, st));
+    case 6: return static_cast<int>(mod_switch_rows<6>(*x, out, m, lt, log2n, consts, st));
+    case 7: return static_cast<int>(mod_switch_rows<7>(*x, out, m, lt, log2n, consts, st));
+    default: return static_cast<int>(mod_switch_rows<8>(*x, out, m, lt, log2n, consts, st));
+  }
 }

@@ -1,4 +1,4 @@
-"""The key switch's four passes around its two NTTs, and the expansion's combine.
+"""The key switch's four passes around its two NTTs, the expansion's combine, and the mod switch.
 
 she_tpu compiles a key switch as one jitted program that XLA fuses
 (she_tpu/bfv/keys.py:270-363 _compute_key_switching_update, and the
@@ -11,7 +11,9 @@ as
 
     ks_digits -> forward NTT -> ks_mac -> inverse NTT -> ks_finish
 
-and an expansion level as one or more of those, then expand_combine. Each
+and an expansion level as one or more of those, then expand_combine; a
+mod switch (she_tpu/bfv/bfv.py:694 mod_switch_down, :707
+mod_switch_down_to_single) is one mod_switch for every drop. Each
 function dispatches on its data's device: a CPU tensor takes the plain
 PyTorch version below, a CUDA tensor the hand-written kernel of
 ops/key_switch_cuda.py (csrc/key_switch.cu), and anything else raises.
@@ -36,6 +38,11 @@ so the kernels equal the plain versions bit for bit.
   doubled (2 p mod q, she_tpu/pir/serving.py:168-171) where the plan's
   mask says. On the card a level that writes leaves launches the
   kernel's leaf instance, counted as expand_leaves.
+* mod_switch: a [..., L, N] Coeff tensor over ctx down to its first
+  `target` moduli, core/poly.divide_and_round_q_last_data once a dropped
+  modulus (she_tpu/core/poly.py:207), each drop on the previous one's
+  output; the kernel takes all drops of all polys in one launch, reading
+  the input in place, with ks_finish's divide-and-round.
 
 `index`: where given, the operand's axis 0 is gathered by it (the slot
 pool of the expansion, read in place).
@@ -50,7 +57,8 @@ from . import galois as galoismod
 from . import key_switch_cuda
 from . import modarith as ma
 
-plain_calls_on_cuda = {"ks_digits": 0, "ks_mac": 0, "ks_finish": 0, "expand_combine": 0, "expand_leaves": 0}
+plain_calls_on_cuda = {"ks_digits": 0, "ks_mac": 0, "ks_finish": 0, "expand_combine": 0, "expand_leaves": 0,
+                       "mod_switch": 0}
 
 
 def _count_plain(name: str, x: torch.Tensor) -> None:
@@ -150,6 +158,22 @@ def expand_combine_plain(pool: torch.Tensor, update: torch.Tensor, parents: torc
         out[-children[leaf] - 1] = p[leaf]
 
 
+def _check_drop(ctx, target: int) -> None:
+    if not 1 <= target < len(ctx.moduli):
+        raise ValueError(f"a mod switch goes from {len(ctx.moduli)} moduli to 1 or more fewer, not to {target}")
+
+
+def mod_switch_plain(x: torch.Tensor, ctx, target: int) -> torch.Tensor:
+    """x [..., L, N] Coeff over ctx -> [..., target, N]: the divide-and-round
+    by the last modulus once a drop, walking ctx.next."""
+    _check_drop(ctx, target)
+    _count_plain("mod_switch", x)
+    while len(ctx.moduli) > target:
+        x = polymod.divide_and_round_q_last_data(x, ctx)
+        ctx = ctx.next
+    return x
+
+
 # -- dispatch -----------------------------------------------------------------
 
 
@@ -175,3 +199,8 @@ def expand_combine(pool: torch.Tensor, update: torch.Tensor, parents: torch.Tens
            lambda: key_switch_cuda.expand_combine(pool, update, parents, child0, child1, shift, ct_ctx.moduli, out,
                                                   doubled),
            lambda: expand_combine_plain(pool, update, parents, child0, child1, shift, ct_ctx, out, doubled))
+
+
+def mod_switch(x: torch.Tensor, ctx, target: int) -> torch.Tensor:
+    return _route("mod_switch", x, lambda: key_switch_cuda.mod_switch(x, ctx.moduli, target),
+                  lambda: mod_switch_plain(x, ctx, target))

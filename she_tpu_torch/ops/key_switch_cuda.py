@@ -2,8 +2,9 @@
 
 The kernels replace the passes that she_tpu leaves to XLA to fuse in a key
 switch (she_tpu/bfv/keys.py:270-363, ops/galois.py:61, core/poly.py:207,
-bfv/bfv.py:796-840) and in an expansion level (pir/serving.py:160-171:
-the combine, and the leaves written by its leaf instance);
+bfv/bfv.py:796-840), in an expansion level (pir/serving.py:160-171:
+the combine, and the leaves written by its leaf instance) and in the mod
+switch (bfv/bfv.py:694,707 over core/poly.py:207);
 ops/key_switch.py holds their plain versions and the dispatch. Each
 wrapper checks its operands, allocates its output with torch.empty,
 launches on torch.cuda.current_stream() and raises if the launch reports a
@@ -19,7 +20,9 @@ pool, an index array that maps axis 0; its last axis must be contiguous,
 its strides even and its base 16-byte aligned (the kernels load two
 coefficients at a time). The moduli's constants (q, floor(2^128 / q),
 and for the divide-and-round floor(q_ks / 2) mod q_i and q_ks^-1 mod q_i
-with its Shoup constant) are made on the host once per moduli and device.
+with its Shoup constant) are made on the host once per moduli and device;
+the mod switch's, one such table a dropped modulus, once per moduli,
+target and device, and its launch once per shape (_mod_switch_launch).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from __future__ import annotations
 import ctypes
 from collections import Counter
 from functools import lru_cache
+from math import prod
 from typing import NamedTuple
 
 import torch
@@ -39,6 +43,7 @@ MAX_MODULUS = 1 << 62
 MAX_BATCH_AXES = 6
 CONST_WORDS = 8  # per modulus: q, r_lo, r_hi, half mod q, q_ks^-1 mod q, its Shoup constant, 0, 0
 COMPS = 2  # the components of every key-switching key (bfv/keys.KeySwitchKey)
+MAX_MOD_SWITCH_MODULI = 8  # the moduli a mod_switch input may have (csrc/key_switch.cu kMaxModSwitchRows)
 
 
 class KsKey(NamedTuple):
@@ -48,8 +53,9 @@ class KsKey(NamedTuple):
     the kernel's variant: (element, slots) for ks_digits, () for ks_mac,
     (element, c0 given, c1 given, slots) for ks_finish, (shift, slots) for
     expand_combine, (shift, slots, outputs, a doubling mask given) for
-    its leaf instance, expand_leaves; slots is the size of an indexed
-    operand's axis 0, else None."""
+    its leaf instance, expand_leaves, (target moduli count, the input's
+    strides) for mod_switch; slots is the size of an indexed operand's
+    axis 0, else None."""
 
     name: str
     shape: tuple
@@ -57,7 +63,7 @@ class KsKey(NamedTuple):
     variant: tuple
 
 
-launches = {"ks_digits": 0, "ks_mac": 0, "ks_finish": 0, "expand_combine": 0, "expand_leaves": 0}
+launches = {"ks_digits": 0, "ks_mac": 0, "ks_finish": 0, "expand_combine": 0, "expand_leaves": 0, "mod_switch": 0}
 launch_shapes: Counter = Counter()
 
 
@@ -82,6 +88,7 @@ _ARGTYPES = {
     "she_ks_mac": [_VP, _VP, _VP, _LL, _INT, _INT, _INT, _VP, _VP],
     "she_ks_finish": [_VP, _OP, _OP, _VP, _LL, _INT, _INT, _VP, _U64, _INT, _VP],
     "she_expand_combine": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _INT, _INT, _INT, _VP, _VP],
+    "she_mod_switch": [_OP, _VP, _LL, _INT, _INT, _INT, _VP, _VP],
 }
 
 
@@ -362,3 +369,55 @@ def expand_combine(pool: torch.Tensor, update: torch.Tensor, parents: torch.Tens
         launches["expand_leaves"] += 1
         launch_shapes[KsKey("expand_leaves", tuple(update.shape), moduli,
                             (shift, pool.shape[0], out.shape[0], doubled is not None))] += 1
+
+
+@lru_cache(maxsize=None)
+def mod_switch_constants(moduli: tuple, target: int, device: torch.device) -> torch.Tensor:
+    """The mod switch's drops' tables, one after another (the order the
+    kernel drops in): for L = len(moduli) down to target + 1, the L rows of
+    constants(moduli[:L]), whose first L - 1 rows divide and round by
+    moduli[L - 1], as PolyContext.next walks the chain."""
+    return torch.cat([constants(moduli[:count], device) for count in range(len(moduli), target, -1)])
+
+
+class _ModSwitchLaunch(NamedTuple):
+    """What a mod switch's launch shape needs beside its input's and
+    output's pointers, made once per shape: its key, the output's shape,
+    the Operand (its base filled in at each call) and the C call's
+    arguments."""
+
+    key: KsKey
+    out_shape: tuple
+    op: Operand
+    args: list
+
+
+@lru_cache(maxsize=1024)
+def _mod_switch_launch(shape: tuple, strides: tuple, moduli: tuple, target: int) -> _ModSwitchLaunch:
+    L, degree = len(moduli), shape[-1]
+    log2n = _check_moduli(moduli, degree)
+    if not 1 <= target < L <= MAX_MOD_SWITCH_MODULI:
+        raise ValueError(f"mod_switch takes {MAX_MOD_SWITCH_MODULI} >= L > target >= 1, got L = {L}, target {target}")
+    op, batch = layout(shape, strides, L, degree, "x")
+    args = [ctypes.byref(op), None, prod(batch), L, target, log2n, None, None]
+    return _ModSwitchLaunch(KsKey("mod_switch", shape, moduli, (target, strides)), batch + (target, degree), op, args)
+
+
+def mod_switch(x: torch.Tensor, moduli: tuple, target: int) -> torch.Tensor:
+    """x [..., L, N] over `moduli` (Coeff; read in place) -> [..., target, N]:
+    divided and rounded by the last modulus L - target times, in one
+    launch. The launch is made once per shape (_mod_switch_launch)."""
+    moduli = tuple(moduli)
+    _check_tensor(x, "x")
+    launch = _mod_switch_launch(tuple(x.shape), x.stride(), moduli, target)
+    if x.data_ptr() % 16:
+        raise ValueError("x needs even strides and a 16-byte aligned base")
+    out = torch.empty(launch.out_shape, dtype=torch.int64, device=x.device)
+    if out.numel():
+        launch.op.base = x.data_ptr()
+        args = launch.args
+        args[1], args[6], args[7] = out.data_ptr(), mod_switch_constants(moduli, target, x.device).data_ptr(), _stream()
+        _raise_on(_library().she_mod_switch(*args), "mod_switch")
+    launches["mod_switch"] += 1
+    launch_shapes[launch.key] += 1
+    return out

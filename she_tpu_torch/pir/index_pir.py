@@ -2,9 +2,11 @@
 
 The port of she_tpu/pir/index_pir.py (reference Sources/
 PrivateInformationRetrieval/IndexPir/{IndexPirProtocol,MulPir,PirUtil}.swift):
-config and parameter generation, the per-query oblivious expansion,
-query compression, the client, the per-query server (the reference the
-batched server is checked against) and database processing.
+config and parameter generation, the oblivious expansion (she_tpu's
+node-by-node expand_ciphertext, and expand, which serves level by level
+through pir/expansion.py), query compression, the client, the per-query
+server (the reference the batched server is checked against) and database
+processing.
 
 A processed database is one dense Eval tensor [count, L, N] plus a mask of
 the plaintexts that are present (a zero plaintext is skipped, as she_tpu's
@@ -26,6 +28,7 @@ from ..bfv import bfv, keys
 from ..core.poly import COEFF, EVAL, PolyRq
 from ..io import coeffs as coeffio
 from ..utils import nt
+from .expansion import expand_batched, expansion_step_element
 
 
 class PirKeyCompression(Enum):
@@ -258,26 +261,6 @@ def chunk_count(parameter: IndexPirParameter, context: bfv.BfvContext) -> int:
 # ---------------------------------------------------------------------------
 
 
-def expansion_step_element(evaluation_key, degree: int, log_step: int) -> tuple[int, int]:
-    """(Galois element, times to apply it) for one expansion level: the
-    substitution x -> x^(N/2^(logStep-1) + 1), built from the largest
-    available key element."""
-    log2n = nt.log2_exact(degree)
-    target_element = (1 << (log2n - log_step + 1)) + 1
-    available = (
-        [e for e in evaluation_key.galois_key.keys if e <= target_element]
-        if evaluation_key.galois_key
-        else []
-    )
-    if not available:
-        raise errors.MissingGaloisKey(str(target_element))
-    element = max(available)
-    apply_count = 1 << (
-        coeffio.floor_log2(target_element - 1) - coeffio.floor_log2(element - 1)
-    )
-    return element, apply_count
-
-
 def expand_ciphertext_for_one_step(ct, log_step: int, evaluation_key):
     """One expansion step: (ct + g(ct), x^{-2^(logStep-1)} * (ct - g(ct)))."""
     element, apply_count = expansion_step_element(evaluation_key, ct.context.degree, log_step)
@@ -310,16 +293,29 @@ def expand_ciphertext(ct, output_count: int, log_step: int, expected_height: int
 
 
 def expand(ciphertexts: list, output_count: int, evaluation_key) -> list:
+    """Each ciphertext expanded into its min(remaining, N) outputs
+    (PirUtil.swift:306-355), level by level: expansion.expand_batched at a
+    batch of one, a key switch and one expand_combine a level, each
+    parent read in place from the pool (on a CUDA card, the kernels of
+    csrc/key_switch.cu). The same tree, doubling and bits as
+    expand_ciphertext, she_tpu's node by node structure, which stays as
+    the reference."""
     degree = ciphertexts[0].context.degree
     if not (len(ciphertexts) - 1) * degree < output_count <= len(ciphertexts) * degree:
         raise errors.PirError(f"{len(ciphertexts)} ciphertexts cannot expand to {output_count}")
-    out = []
-    remaining = output_count
-    for ct in ciphertexts:
-        n = min(remaining, degree)
-        out.extend(expand_ciphertext(ct, n, 1, coeffio.ceil_log2(n), evaluation_key))
-        remaining -= n
-    return out
+    first = ciphertexts[0]
+    for i, ct in enumerate(ciphertexts):
+        if output_count - degree * i > 1:  # apply_galois's checks, as she_tpu's first step makes them
+            if len(ct.polys) != 2:
+                raise errors.InvalidCiphertext("applyGalois requires 2 polys")
+            if ct.correction_factor != 1:
+                raise errors.InvalidCorrectionFactor(str(ct.correction_factor))
+            if ct.fmt != COEFF:
+                raise errors.InvalidFormat("applyGalois requires canonical (Coeff) format")
+    stacked = [bfv.stacked_view(ct).unsqueeze(0) for ct in ciphertexts]
+    out = expand_batched(stacked, output_count, evaluation_key, first.context)
+    return [bfv.Ciphertext.from_stacked(first.context, o[0], first.poly_context(), first.fmt, first.correction_factor)
+            for o in out.unbind(0)]
 
 
 def compress_binary_inputs(total_input_count: int, one_indices: list[int], context, secret_key) -> list:

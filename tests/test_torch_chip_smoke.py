@@ -114,15 +114,15 @@ def test_ntt_mxu_cells():
 def test_kernels_line_names_every_kernel():
     """The kernels line (run() checks its names against KERNEL_SOURCES)
     covers all seven sources the package builds: the NTT's two kernels,
-    dim0_int8, simple_pir_matmul, ntt_mxu, the key switch's four and
-    expand_combine's leaf instance, the BEHZ product's three and
-    dim0_mac."""
+    dim0_int8, simple_pir_matmul, ntt_mxu, the key switch's four,
+    expand_combine's leaf instance and the mod switch, the BEHZ product's
+    three and dim0_mac."""
     from she_tpu_torch.ops import kernel_build
 
     assert set(chip_smoke.KERNEL_SOURCES) == {"ntt_forward", "ntt_inverse", "dim0_int8", "simple_pir_matmul",
                                               "ntt_mxu", "ks_digits", "ks_mac", "ks_finish", "expand_combine",
-                                              "expand_leaves", "behz_lift", "behz_tensor_mac", "behz_floor",
-                                              "dim0_mac"}
+                                              "expand_leaves", "mod_switch", "behz_lift", "behz_tensor_mac",
+                                              "behz_floor", "dim0_mac"}
     assert set(chip_smoke.KERNEL_SOURCES.values()) == {
         f"she_tpu_torch/csrc/{source}" for source in kernel_build.SOURCES.values()}
     assert len(kernel_build.SOURCES) == 7
@@ -148,6 +148,28 @@ def test_key_switch_byte_bounds():
     assert chip_smoke.ks_bytes(KsKey("ks_finish", (128, 128, 2, 3, 4096), moduli, relin)) == 14 * unit
     assert chip_smoke.ks_bytes(KsKey("expand_combine", (128, 128, 2, 2, 4096), moduli[:2], (64, 511))) == 16 * unit
     assert 1e3 * 8 * unit / chip_smoke.HBM_BYTES_PER_S == pytest.approx(1.282, abs=5e-4)
+
+
+def test_mod_switch_byte_bounds():
+    """Each input row read once, each output row written once: the w64
+    cell's [128, 2, 2, 8192] -> one modulus moves 50.3 MB (0.0150 ms at
+    3.35 TB/s), w32's and keyword's [128, 2, 2, 4096] 25.2 MB (0.0075 ms),
+    PNNS's [1, 16, 2, 2, 4096] 3.1 MB."""
+    from she_tpu_torch.ops.key_switch_cuda import KsKey
+
+    def bound(shape, target=1):
+        key = KsKey("mod_switch", shape, (1, 2, 3)[: shape[-2]], (target, ()))
+        return chip_smoke.ks_bytes(key), 1e3 * chip_smoke.ks_bytes(key) / chip_smoke.HBM_BYTES_PER_S
+
+    assert bound((128, 2, 2, 8192))[0] == 8 * 256 * 8192 * 3
+    assert bound((128, 2, 2, 8192))[1] == pytest.approx(0.0150, abs=5e-5)
+    assert bound((128, 2, 2, 4096))[1] == pytest.approx(0.0075, abs=5e-5)
+    assert bound((1, 16, 2, 2, 4096))[0] == pytest.approx(3.1e6, rel=0.02)
+    assert bound((4, 2, 3, 8192), 2)[0] == 8 * 8 * 8192 * 5
+
+
+def test_only_mod_switch_selects_the_mod_switch_cells():
+    assert chip_smoke.parse_args(["--only", "mod_switch"]).only == "mod_switch"
 
 
 def test_behz_byte_bounds():

@@ -13,7 +13,10 @@ Moduli of three kinds: 28-bit (the w32 sets), 55-bit (the w64 set) and
 L_t from 1 to 4 (and 17, where a MAC sum passes 2^128 unless reduced
 part-way), zero, q - 1 and random fills, several Galois elements, c0 and
 c1 as strided views of a stacked ciphertext and through the slot pool's
-index, and the widest shapes the keyword and w64 cells launch.
+index, and the widest shapes the keyword and w64 cells launch. The mod
+switch from 2, 3 and 5 moduli down to every target, at the residues'
+edges (0, q - 1 and the last modulus's half), and at every shape a path
+mod-switches at.
 """
 
 import numpy as np
@@ -197,5 +200,70 @@ def test_dispatch_takes_the_kernels_on_cuda():
     ks.expand_combine(pool, out[:1], idx[:1], idx[1:2], idx[2:], 4, _ctx(moduli[:-1], 64))
     leaves = torch.zeros((1,) + tuple(pool.shape[1:]), dtype=torch.int64, device="cuda")
     ks.expand_combine(pool, out[:1], idx[:1], idx[1:2], -idx[:1] - 1, 4, _ctx(moduli[:-1], 64), leaves)
+    ks.mod_switch(out, _ctx(moduli[:-1], 64), 1)
     assert {k: kc.launches[k] - before[k] for k in kc.launches} == dict.fromkeys(kc.launches, 1)
     assert ks.plain_calls_on_cuda == plain
+
+
+# -- the mod switch ------------------------------------------------------------
+
+
+def _switch_rows(moduli, batch, degree, seed, fill):
+    """Residues of a mod switch's input; `edge`: each one of 0, q_i - 1 and
+    floor(q_last / 2) mod q_i and the next value (the rounding's edges)."""
+    if fill != "edge":
+        return _rows(moduli, batch, degree, seed, fill)
+    rng = np.random.default_rng(seed)
+    half = moduli[-1] // 2
+    out = np.zeros(tuple(batch) + (len(moduli), degree), dtype=np.int64)
+    for i, q in enumerate(moduli):
+        out[..., i, :] = rng.choice([0, q - 1, half % q, (half + 1) % q], size=tuple(batch) + (degree,))
+    return torch.from_numpy(out).cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fill", FILLS + ["edge"])
+@pytest.mark.parametrize("count", [2, 3, 5])
+@pytest.mark.parametrize("degree", DEGREES)
+@pytest.mark.parametrize("route", list(MODULI))
+def test_mod_switch(route, degree, count, fill):
+    """Every target from count - 1 moduli down to 1, the input a strided
+    view of a stacked batch of ciphertexts ([3, 2, L, N] read as
+    [2, 3, L, N])."""
+    _card()
+    moduli = MODULI[route][:count]
+    ctx = _ctx(moduli, degree)
+    x = _switch_rows(moduli, (3, 2), degree, seed=37 * degree + count, fill=fill).transpose(0, 1)
+    for target in range(1, count):
+        before = kc.launches["mod_switch"]
+        got = kc.mod_switch(x, moduli, target)
+        assert kc.launches["mod_switch"] == before + 1
+        assert torch.equal(got, ks.mod_switch_plain(x, ctx, target)), target
+
+
+# every shape a path mod-switches at: (batch, ciphertext moduli, degree,
+# route); the batch's last axis is a ciphertext's 2 polys
+MOD_SWITCH_SERVED = {
+    "w64": ((128, 2), 2, 8192, "w64"),
+    "w32 and keyword": ((128, 2), 2, 4096, "w32"),
+    "pnns": ((1, 16, 2), 2, 4096, "w32"),
+    "per-query": ((2,), 2, 4096, "w32"),
+    "keyword_large": ((32, 2), 2, 4096, "w32"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fill", ["random", "edge", "max", "zero"])
+@pytest.mark.parametrize("cell", list(MOD_SWITCH_SERVED))
+def test_mod_switch_served_shapes(cell, fill):
+    """Each served shape read in place as the batched server reads it (its
+    columns' [B, 1, 2, L, N] at axis 1), and through bfv's dispatch."""
+    _card()
+    batch, count, degree, route = MOD_SWITCH_SERVED[cell]
+    moduli = MODULI[route][:count]
+    ctx = _ctx(moduli, degree)
+    columns = _switch_rows(moduli, batch[:-1] + (1, 2), degree, seed=degree + len(batch), fill=fill)
+    x = columns.select(-4, 0)
+    assert torch.equal(kc.mod_switch(x, moduli, 1), ks.mod_switch_plain(x, ctx, 1))
+    assert torch.equal(ks.mod_switch(x, ctx, 1), ks.mod_switch_plain(x.cpu(), get_poly_context(
+        degree, moduli, 64, torch.device("cpu")), 1).cuda())

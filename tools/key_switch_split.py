@@ -12,9 +12,18 @@ its device ms (the kernels the profiler links to the range) and its kernel
 launches, apart for the expansion, the dim-0 stage, the BEHZ stage (the
 higher dimensions' ct x ct inner products and their relinearizations,
 serving's fold_dimensions), PNNS's BSGS MAC and the other Galois
-rotations (PNNS). A CUDA-event span of every part is kept beside it, and
-the profiled batch's device ms of the NTT kernels by name (every launch,
-whichever part made it) beside its busy ms.
+rotations (PNNS) and the mod switch (`mod_switch`). A CUDA-event span and
+the host seconds of every part are kept beside it, and the profiled
+batch's device ms of the NTT kernels by name (every launch, whichever part
+made it) beside its busy ms. Launches are counted apart for the port's
+hand-written kernels and for PyTorch's own (plain) ones.
+
+The cell `service` puts the keyword cell's database behind PirService
+(chip_smoke's service phase) and sends `--requests` PIR requests as
+protobuf bytes (the last for an absent keyword), each timed up to a
+synchronize and decrypted, then splits one more request by part: parse,
+expansion, dim0_to_eval, dim0_mac, dim0_columns, fold, mod_switch,
+serialize (instrument_service).
 
 The key switch's parts: the Galois gather, the digits (each digit reduced
 mod every key-switching modulus), the forward NTT, the MAC against the
@@ -46,7 +55,8 @@ modules), so two trees answer with the same bits: each cell prints a
 digest of its responses.
 
 Run from the repository root, on a machine with the card:
-  python3 tools/key_switch_split.py [--root DIR] [--cells keyword,w64] [--batches 3] [--json-out FILE]
+  python3 tools/key_switch_split.py [--root DIR] [--cells keyword,w64,service] [--batches 3] [--requests 8]
+      [--json-out FILE]
 """
 
 from __future__ import annotations
@@ -63,7 +73,23 @@ import time
 import types
 from pathlib import Path
 
-CELLS = ("keyword", "w32", "w64", "pnns_w32", "pnns_w64")
+CELLS = ("keyword", "w32", "w64", "pnns_w32", "pnns_w64", "service")
+
+
+KERNEL_WRAPPERS = ("ntt_cuda", "dim0_cuda", "simple_pir_cuda", "ntt_mxu_cuda", "key_switch_cuda", "behz_cuda",
+                   "dim0_mac_cuda")
+
+
+def hand_launches() -> int:
+    """The launches of the port's hand-written kernels so far, by the
+    wrappers' own counts (the profiler does not link a kernel that a
+    library loaded with ctypes launched to the range it ran in)."""
+    total = 0
+    for name in KERNEL_WRAPPERS:
+        module = sys.modules.get(f"she_tpu_torch.ops.{name}")
+        if module is not None:
+            total += sum(module.launches.values())
+    return total
 
 
 class Labels:
@@ -72,7 +98,8 @@ class Labels:
     def __init__(self):
         self.stage = None
         self.part = None
-        self.events = []  # (stage, part, start event, end event)
+        self.events = []  # (stage, part, start event, end event, host seconds, hand-written kernel launches)
+        self.stage_runs = []  # (stage, host seconds, hand-written kernel launches)
 
     def stage_wrapper(self, name, fn):
         def wrapped(*args, **kwargs):
@@ -81,11 +108,13 @@ class Labels:
             if self.stage is not None:
                 return fn(*args, **kwargs)
             self.stage = name
+            t0, k0 = time.perf_counter(), hand_launches()
             try:
                 with record_function(f"stage|{name}"):
                     return fn(*args, **kwargs)
             finally:
                 self.stage = None
+                self.stage_runs.append((name, time.perf_counter() - t0, hand_launches() - k0))
 
         wrapped.__wrapped__ = fn
         return wrapped
@@ -102,6 +131,7 @@ class Labels:
                 return fn(*args, **kwargs)
             self.part = part
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0, k0 = time.perf_counter(), hand_launches()
             try:
                 with record_function(f"part|{self.stage}|{part}"):
                     start.record()
@@ -109,7 +139,7 @@ class Labels:
                     end.record()
             finally:
                 self.part = None
-            self.events.append((self.stage, part, start, end))
+            self.events.append((self.stage, part, start, end, time.perf_counter() - t0, hand_launches() - k0))
             return out
 
         wrapped.__wrapped__ = fn
@@ -139,7 +169,13 @@ def instrument(labels: Labels) -> str:
     bfv.apply_galois = labels.stage_wrapper("galois", bfv.apply_galois)
     # one part inside the BEHZ stage, a stage of its own elsewhere
     bfv.relinearize = labels.part_wrapper("relinearize", labels.stage_wrapper("relinearize", bfv.relinearize))
-    serving.expand_stacked = labels.stage_wrapper("expansion", serving.expand_stacked)
+    # where expand_stacked is defined (pir/expansion.py in a tree whose
+    # per-query server expands by level) and where serving names it
+    expansion = sys.modules[serving.expand_stacked.__module__]
+    expansion.expand_stacked = serving.expand_stacked = labels.stage_wrapper("expansion", serving.expand_stacked)
+    # a stage of its own in a batch, a part of a service request
+    bfv.mod_switch_down_to_single = labels.part_wrapper(
+        "mod_switch", labels.stage_wrapper("mod_switch", bfv.mod_switch_down_to_single), only_in="request")
     serving.BatchedMulPirServer.fold_dimensions = labels.stage_wrapper(
         "behz", serving.BatchedMulPirServer.fold_dimensions)
     ntt.forward_ntt = labels.part_wrapper("ntt_fwd", ntt.forward_ntt)
@@ -256,15 +292,20 @@ def pnns_digest(responses) -> str:
     return digest(ct.stacked() for r in responses for m in r.ciphertext_matrices for ct in m.ciphertexts)
 
 
-def keyword_cell(cs, seed: int):
-    import numpy as np
+_KEYWORD_DATABASES: dict = {}
 
+
+def keyword_database(cs, seed: int):
+    """The keyword cell's context, processed database (one shard), rows,
+    absent keywords, secret key, client and evaluation key; processed once
+    a seed and shared by the keyword and service cells."""
+    if seed in _KEYWORD_DATABASES:
+        return _KEYWORD_DATABASES[seed]
     from she_tpu_torch import params as paramsmod
     from she_tpu_torch.bfv import bfv
     from she_tpu_torch.pir import index_pir as ip
     from she_tpu_torch.pir import keyword_pir as kp
     from she_tpu_torch.pir import process_database as pd
-    from she_tpu_torch.pir import serving
     from she_tpu_torch.rng.ctr_drbg import nist_aes128_ctr
 
     ep = paramsmod.from_predefined(cs.PARAMS, scalar_bits=32)
@@ -276,11 +317,22 @@ def keyword_cell(cs, seed: int):
         uneven_dimensions=True, key_compression=ip.PirKeyCompression.NO_COMPRESSION,
     )
     arguments = pd.Arguments(pd.KeywordDatabaseConfig(kp.Sharding("shardCount", 1), config), ep)
-    shard = pd.process(rows, arguments, rng=random.Random(seed)).shards["0"]
+    processed = pd.process(rows, arguments, rng=random.Random(seed))
+    shard = processed.shards["0"]
     sk = bfv.generate_secret_key(ctx, nist_aes128_ctr(seed.to_bytes(4, "little") * 8))
     client = kp.KeywordPirClient(shard.keyword_pir_parameter, shard.pir_parameter, ctx)
     ek = client.generate_evaluation_key(sk, nist_aes128_ctr(b"evaluation-key-err-seed-32-bytes"))
-    server = serving.BatchedKeywordPirServer(ctx, shard)
+    _KEYWORD_DATABASES[seed] = out = (ctx, processed, rows, absent, sk, client, ek)
+    return out
+
+
+def keyword_cell(cs, seed: int):
+    import numpy as np
+
+    from she_tpu_torch.pir import serving
+
+    ctx, processed, rows, absent, sk, client, ek = keyword_database(cs, seed)
+    server = serving.BatchedKeywordPirServer(ctx, processed.shards["0"])
     kws = cs.keyword_batches(np.random.default_rng(seed + 2), list(rows), absent, 1, cs.BATCH)[0]
     queries = [client.generate_query(kw, sk) for kw in kws]
     return server, queries, ek, cs.PIR_STAGES, pir_digest
@@ -322,21 +374,85 @@ def pnns_cell(cs, label: str, seed: int):
     return server, queries, ek, cs.PNNS_STAGES, pnns_digest
 
 
-def profiled_parts(labels: Labels, server, queries, ek) -> dict:
-    """Per (stage, part): the CUDA-event span of one batch, then, of one
-    more batch under torch.profiler, the device ms of the kernels linked to
-    its ranges and their launches; per stage its kernels' ms and launches
-    in all."""
+def instrument_service(labels: Labels) -> None:
+    """Wrap a service request's parts: PirService.handle_pir_request is
+    stage `request`; its parts are the query's parse from the protobuf
+    message (`parse`), the expansion (`expansion`: index_pir.expand), the
+    expanded ciphertexts' forward NTT (`dim0_to_eval`: bfv.ct_to_eval), the
+    ct x pt MAC a column (`dim0_mac`: bfv.inner_product_ct_pt), the
+    columns' inverse NTT (`dim0_columns`: bfv.ct_to_coeff), the higher
+    dimensions (`fold`: bfv.inner_product_ct_ct and bfv.relinearize), the
+    mod switch (`mod_switch`, wrapped in instrument) and the answer's
+    conversion to protobuf (`serialize`)."""
+    from she_tpu_torch.bfv import bfv
+    from she_tpu_torch.io import proto_conversion as pc
+    from she_tpu_torch.pir import index_pir as ip
+    from she_tpu_torch.pir import service as svc
+
+    svc.PirService.handle_pir_request = labels.stage_wrapper("request", svc.PirService.handle_pir_request)
+    for module, name, part in ((pc, "pir_query_from_proto", "parse"), (pc, "pir_response_to_proto", "serialize"),
+                               (ip, "expand", "expansion"), (bfv, "ct_to_eval", "dim0_to_eval"),
+                               (bfv, "inner_product_ct_pt", "dim0_mac"), (bfv, "ct_to_coeff", "dim0_columns"),
+                               (bfv, "inner_product_ct_ct", "fold"), (bfv, "relinearize", "fold")):
+        setattr(module, name, labels.part_wrapper(part, getattr(module, name), only_in="request"))
+
+
+def service_cell(cs, seed: int, count: int):
+    """The keyword cell's database behind PirService, its client's keys
+    uploaded, and `count` PIR requests as protobuf messages (the last for
+    an absent keyword) with the value each must decrypt to (None where
+    absent)."""
+    import numpy as np
+
+    from she_tpu_torch.io import pb
+    from she_tpu_torch.pir import service as svc
+
+    ctx, processed, rows, absent, sk, client, ek = keyword_database(cs, seed)
+    service = svc.PirService()
+    service.add_keyword_pir_usecase(cs.KEYWORD_CELL, ctx, processed)
+    config_id = bytes(service.handle_config_request(pb.api_pb2.ConfigRequest()).configs[cs.KEYWORD_CELL].config_id)
+    cs._upload_keys(service, ctx, ek, b"split-client")
+    present = list(rows)
+    rng = np.random.default_rng(seed + 8)
+    keywords = [present[int(i)] for i in rng.integers(0, len(present), size=count - 1)] + [absent[0]]
+    requests = [(cs._pir_request(client.generate_query(kw, sk), config_id, "0", b"split-client"), kw, rows.get(kw))
+                for kw in keywords]
+
+    def check(answer: bytes, kw: bytes, want) -> None:
+        got = client.decrypt(cs._read_response(ctx, answer), kw, sk)
+        if got != want:
+            raise AssertionError(f"[service] keyword {kw.hex()} came back as {got!r}, expected {want!r}")
+
+    return service, requests, check
+
+
+HAND_KERNELS = ("ntt_forward_kernel", "ntt_inverse_kernel", "ntt_mxu_kernel", "dim0_int8_kernel", "plane_products",
+                "ks_digits_kernel", "ks_mac_kernel", "ks_finish_kernel", "expand_combine_kernel", "mod_switch_kernel",
+                "behz_lift_kernel", "behz_tensor_mac_kernel", "behz_floor_kernel", "dim0_mac_kernel")
+
+
+def profiled_parts(labels: Labels, run) -> dict:
+    """Per (stage, part): the CUDA-event span, host seconds and launches of
+    the port's hand-written kernels (`kernel_launches`, the wrappers'
+    counts) of one run() (a batch or a request), then, of one more run()
+    under torch.profiler, the device ms of the kernels linked to its ranges
+    and their launches (`plain_launches`: PyTorch's own; the profiler links
+    none of the hand-written kernels, which ctypes launched); per stage
+    the same in all. The hand-written kernels' device ms are in the event
+    spans and, by name, in the profiled run's busy ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     labels.events.clear()
-    server.compute_response_batch(queries, ek)  # the CUDA-event spans, unprofiled
+    labels.stage_runs.clear()
+    k0 = hand_launches()
+    run()  # the CUDA-event spans, unprofiled
     torch.cuda.synchronize()
-    spans = list(labels.events)
+    run_kernels = hand_launches() - k0
+    spans, stage_runs = list(labels.events), list(labels.stage_runs)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        server.compute_response_batch(queries, ek)
+        run()
         torch.cuda.synchronize()
 
     def kernels(evt):
@@ -353,29 +469,38 @@ def profiled_parts(labels: Labels, server, queries, ek) -> dict:
             ks = kernels(evt)
             key = tuple(evt.name.split("|")[1:])
             table = parts if evt.name.startswith("part|") else stages
-            row = table.setdefault("|".join(key), dict(ms=0.0, launches=0, calls=0))
+            row = table.setdefault("|".join(key), dict(ms=0.0, plain_launches=0, calls=0))
             row["ms"] += sum(k.duration for k in ks) / 1e3
-            row["launches"] += len(ks)
+            row["plain_launches"] += len(ks)
             row["calls"] += 1
-    for stage, part, start, end in spans:
-        row = parts.setdefault(f"{stage}|{part}", dict(ms=0.0, launches=0, calls=0))
+    for stage, part, start, end, host_s, kernels_run in spans:
+        row = parts.setdefault(f"{stage}|{part}", dict(ms=0.0, plain_launches=0, calls=0))
         row["event_ms"] = row.get("event_ms", 0.0) + start.elapsed_time(end)
+        row["host_s"] = row.get("host_s", 0.0) + host_s
+        row["kernel_launches"] = row.get("kernel_launches", 0) + kernels_run
+    for stage, host_s, kernels_run in stage_runs:
+        row = stages.setdefault(stage, dict(ms=0.0, plain_launches=0, calls=0))
+        row["host_s"] = row.get("host_s", 0.0) + host_s
+        row["kernel_launches"] = row.get("kernel_launches", 0) + kernels_run
     for key, row in stages.items():
         inside = [r for k, r in parts.items() if k.split("|")[0] == key]
         parts[f"{key}|other"] = dict(ms=row["ms"] - sum(r["ms"] for r in inside),
-                                     launches=row["launches"] - sum(r["launches"] for r in inside), calls=row["calls"])
+                                     plain_launches=row["plain_launches"] - sum(r["plain_launches"] for r in inside),
+                                     calls=row["calls"])
     ntt_ms = {name: 0.0 for name in ("ntt_forward", "ntt_inverse")}
-    busy_us = 0.0
+    busy_us = hand_us = 0.0
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
             continue
         us = getattr(evt, "self_device_time_total", None)
         us = evt.self_cuda_time_total if us is None else us
         busy_us += us
+        hand_us += us if any(h in evt.key for h in HAND_KERNELS) else 0.0
         for name in ntt_ms:
             if f"{name}_kernel" in evt.key:
                 ntt_ms[name] += us / 1e3
-    return dict(parts=parts, stages=stages, ntt_kernel_ms=ntt_ms, busy_ms=busy_us / 1e3)
+    return dict(parts=parts, stages=stages, ntt_kernel_ms=ntt_ms, busy_ms=busy_us / 1e3, kernel_launches=run_kernels,
+                hand_kernel_ms=hand_us / 1e3)
 
 
 def run_cell(cs, labels: Labels, cell: str, seed: int, batches: int) -> dict:
@@ -404,7 +529,7 @@ def run_cell(cs, labels: Labels, cell: str, seed: int, batches: int) -> dict:
     peak = torch.cuda.max_memory_allocated()
     same = cs.assert_same_pnns_responses if cell.startswith("pnns") else cs.assert_same_responses
     stages = cs.stage_split(server, queries, ek, responses, stage_names, same)
-    split = profiled_parts(labels, server, queries, ek)
+    split = profiled_parts(labels, lambda: server.compute_response_batch(queries, ek))
     out = dict(cell=cell, setup_s=setup_s, batch_s=batch_s, median_s_per_batch=statistics.median(steady),
                cpu_s=cpu_s, median_cpu_s_per_batch=statistics.median(cpu_s[1:]),
                stages_ms=stages, peak_bytes=peak, digest=dig(responses), **split)
@@ -414,13 +539,57 @@ def run_cell(cs, labels: Labels, cell: str, seed: int, batches: int) -> dict:
           f"responses digest {out['digest']}", flush=True)
     print(f"[{cell}]   NTT kernels of the profiled batch: forward {split['ntt_kernel_ms']['ntt_forward']:.3f} ms, "
           f"inverse {split['ntt_kernel_ms']['ntt_inverse']:.3f} ms, of {split['busy_ms']:.3f} busy ms", flush=True)
+    print_parts(cell, split)
+    return out
+
+
+def print_parts(cell: str, split: dict) -> None:
+    print(f"[{cell}]   the run: {split['kernel_launches']} hand-written kernel launches, their device ms "
+          f"{split['hand_kernel_ms']:.3f} of {split['busy_ms']:.3f} busy ms", flush=True)
+
+    def launches(row) -> str:
+        hand = row.get("kernel_launches")
+        return f"{row['plain_launches']} plain launches" + ("" if hand is None else f", {hand} hand-written kernels")
+
     for key, row in sorted(split["stages"].items()):
-        print(f"[{cell}]   stage {key}: kernels {row['ms']:.3f} ms, {row['launches']} launches, {row['calls']} calls",
-              flush=True)
+        host = row.get("host_s")
+        print(f"[{cell}]   stage {key}: kernels {row['ms']:.3f} ms, {launches(row)}, {row['calls']} calls"
+              + ("" if host is None else f", host {host:.4f} s"), flush=True)
     for key, row in sorted(split["parts"].items()):
-        ev = row.get("event_ms")
-        print(f"[{cell}]     {key}: kernels {row['ms']:.3f} ms, {row['launches']} launches, {row['calls']} calls"
-              + ("" if ev is None else f", event span {ev:.3f} ms"), flush=True)
+        ev, host = row.get("event_ms"), row.get("host_s")
+        print(f"[{cell}]     {key}: kernels {row['ms']:.3f} ms, {launches(row)}, {row['calls']} calls"
+              + ("" if ev is None else f", event span {ev:.3f} ms") + ("" if host is None else f", host {host:.4f} s"),
+              flush=True)
+
+
+def run_service(cs, labels: Labels, seed: int, count: int) -> dict:
+    """`count` PIR requests through PirService (chip_smoke's service
+    phase, as bytes), each timed on the host clock up to a synchronize
+    and decrypted, after one warm-up request; then one more request split
+    by part (profiled_parts)."""
+    import torch
+
+    t0 = time.perf_counter()
+    service, requests, check = service_cell(cs, seed, count)
+    setup_s = time.perf_counter() - t0
+    cs._serve_request(service, cs.KEYWORD_CELL, requests[0][0])  # warm-up
+    request_s, answers = [], []
+    for request, kw, want in requests:
+        answer, seconds = cs._serve_request(service, cs.KEYWORD_CELL, request)
+        check(answer, kw, want)
+        request_s.append(seconds)
+        answers.append(answer)
+    split = profiled_parts(labels, lambda: cs._serve_request(service, cs.KEYWORD_CELL, requests[0][0]))
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for answer in answers:
+        h.update(answer)
+    out = dict(cell="service", setup_s=setup_s, request_s=request_s, median_s_per_request=statistics.median(request_s),
+               digest=h.hexdigest()[:16], **split)
+    print(f"[service] {len(requests)} requests ({len(requests) - 1} present keywords gave their values, 1 absent "
+          f"gave None): seconds a request {[round(x, 4) for x in request_s]}, median "
+          f"{out['median_s_per_request']:.4f} s; answers digest {out['digest']}", flush=True)
+    print_parts("service", split)
     return out
 
 
@@ -429,6 +598,7 @@ def main() -> int:
     parser.add_argument("--root", default=".", help="the tree whose port and chip_smoke.py are measured")
     parser.add_argument("--cells", default="keyword,w64", help=f"comma-separated, of {', '.join(CELLS)}")
     parser.add_argument("--batches", type=int, default=3, help="steady batches timed after a warm-up batch")
+    parser.add_argument("--requests", type=int, default=8, help="requests of the service cell, the last absent")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--json-out", default=None)
     args = parser.parse_args()
@@ -453,18 +623,20 @@ def main() -> int:
     kind = instrument(labels)
     behz_kind = instrument_behz(labels)
     tail_kind = instrument_dim0_and_leaves(labels)
+    instrument_service(labels)
     seed_urandom(args.seed)
     card = cs.card_line()
     print(f"key_switch_split: tree {root} ({kind} key switch, {behz_kind} BEHZ product, expansion leaves: "
           f"{tail_kind}), card {card}", flush=True)
-    results = {cell: run_cell(cs, labels, cell, args.seed, args.batches) for cell in cells}
+    results = {cell: run_service(cs, labels, args.seed, args.requests) if cell == "service"
+               else run_cell(cs, labels, cell, args.seed, args.batches) for cell in cells}
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump(dict(root=str(root), kind=kind, behz_kind=behz_kind, tail_kind=tail_kind, card=card,
                            cells=results), f, indent=1)
-    print(json.dumps({cell: dict(digest=r["digest"], median_s_per_batch=r["median_s_per_batch"],
-                                 ntt_kernel_ms=sum(r["ntt_kernel_ms"].values()), busy_ms=r["busy_ms"],
-                                 median_cpu_s_per_batch=r["median_cpu_s_per_batch"], peak_bytes=r["peak_bytes"])
+    keys = ("digest", "median_s_per_batch", "median_s_per_request", "busy_ms", "median_cpu_s_per_batch",
+            "peak_bytes")
+    print(json.dumps({cell: {k: r[k] for k in keys if k in r} | dict(ntt_kernel_ms=sum(r["ntt_kernel_ms"].values()))
                       for cell, r in results.items()}))
     return 0
 

@@ -64,34 +64,6 @@ SHAPES = {
 PLAN_SWEEP = [(y, s, d) for y in (2, 4, 8) for s in (1, 2, 4, 8, 16) for d in (1, 2) if d <= s]
 
 
-def graph_ms(fn, iters: int = 20) -> float:
-    """Milliseconds of fn() replayed from a CUDA graph of `iters` calls (the
-    mean of 3 replays after a warm-up): the kernel's time without the
-    host's cost of a call, which a short launch does not hide."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(3):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (3 * iters)
-
-
 RATES_SOURCE = r"""
 #include <cstdio>
 #include <cuda_runtime.h>
@@ -316,7 +288,7 @@ def main() -> int:
         times, graphs = {tree: [] for tree in trees}, {tree: [] for tree in trees}
         for tree in order:
             times[tree].append(cs.cuda_ms(lambda tree=tree: call(tree, case), 20))
-            graphs[tree].append(graph_ms(lambda tree=tree: call(tree, case)))
+            graphs[tree].append(cs.graph_ms(lambda tree=tree: call(tree, case)))
         results[label] = dict(bound_ms=case["bound_ms"], ms=times, graph_ms=graphs)
         if case["kernel"] == "dim0_mac":
             a, b, q = case["args"]
@@ -337,7 +309,7 @@ def main() -> int:
                     continue
                 if not torch.equal(call("this", case, p), want):
                     raise AssertionError(f"{label} plan {p} differs from the default plan's output")
-                sweep[str(tuple(p))] = graph_ms(lambda p=p: call("this", case, p))
+                sweep[str(tuple(p))] = cs.graph_ms(lambda p=p: call("this", case, p))
                 print(f"{label} plan {tuple(p)}: {sweep[str(tuple(p))]:.4f} ms in a graph "
                       f"({100 * case['bound_ms'] / sweep[str(tuple(p))]:.1f}%), on {card}", flush=True)
             results[label]["plans"] = sweep
