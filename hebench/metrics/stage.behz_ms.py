@@ -1,0 +1,14 @@
+"""Device ms a batch of the stage span that ends at the server's
+'fold_dimensions' mark: the higher dimensions: BEHZ ct-ct inner products and relinearization. CUDA events recorded at each mark as the host
+passes it; a span ends when the stage's work is issued and done, so it
+holds the device's idle time while the host issues it. The mean over the
+traced window's batches."""
+
+MARK = "fold_dimensions"
+
+
+def read(run):
+    spans = [s[MARK] for s in run.stage_ms if MARK in s]
+    if not spans:
+        return None
+    return sum(spans) / len(spans)
