@@ -112,16 +112,17 @@ then PNNS (BatchedPnnsServer), 16 cosine-similarity queries a batch over a
    cells, the service, Symmetric PIR, mesh (a), (b) and (d)) drops its
    moduli with one launch of csrc/key_switch.cu's mod_switch a mod switch
    (every poly, every drop); a path fails unless mod_switch launched once a
-   mod switch the port ran (bfv.mod_switch_runs), and at least once, and
-   the kernel is timed at every shape with the key switch's kernels;
+   mod switch the port ran (the tracer's mod_switch count), and at least
+   once, and the kernel is timed at every shape with the key switch's
+   kernels;
 14. the BEHZ product (behz_kernel_timing, behz_plain_checks): every path
    that multiplies ciphertexts (w32, w64, keyword, keyword_large, the
    service, mesh (a), (b) and (e)) lifts each side to [q, B_sk], sums the
    tensor product and scales it by t, and floors it back to q through the
    three kernels of csrc/behz.cu; every path fails unless behz_lift
    launched twice and behz_tensor_mac once a tensor product the port ran
-   (bfv.behz_runs), behz_floor once a floor, and no plain BEHZ pass ran
-   on CUDA tensors; each kernel is timed at the widest shape of each path
+   (the tracer's behz.tensor_product count), behz_floor once a floor, and
+   no plain BEHZ pass ran on CUDA tensors; each kernel is timed at the widest shape of each path
    first, before any plain BEHZ version runs (and before the key switch's
    are timed), beside its byte bound; after the key switch's checks every
    launched shape is held bit-equal to its plain version;
@@ -271,6 +272,9 @@ KS_REPLACES = {"ks_digits": "she_tpu/ops/galois.py:61", "ks_mac": "she_tpu/bfv/k
 # the BEHZ product's kernels (csrc/behz.cu): a tensor product launches
 # behz_lift twice (a side) and behz_tensor_mac once, a floor behz_floor once
 BEHZ_KERNELS = ("behz_lift", "behz_tensor_mac", "behz_floor")
+# every hand-written kernel, as the tracer's registry counts them (launch.<kernel>)
+ALL_KERNELS = NTT_KERNELS + ("dim0_int8", "simple_pir_matmul", "ntt_mxu") + KS_KERNELS + BEHZ_KERNELS + ("dim0_mac",)
+PLAIN_NTTS = ("ntt_forward", "ntt_inverse", "ntt_mxu_forward", "ntt_mxu_inverse")
 BEHZ_REPLACES = {"behz_lift": "she_tpu/core/rns.py:376", "behz_tensor_mac": "she_tpu/bfv/bfv.py:734",
                  "behz_floor": "she_tpu/core/rns.py:458"}
 BEHZ_LIBRARY = ("none: no PyTorch call computes a base conversion between moduli sets or a modular sum of 128-bit "
@@ -452,41 +456,53 @@ def prod(shape) -> int:
 
 
 def reset_counts() -> None:
-    """Every kernel's launch count and launch shapes, the plain NTTs',
-    key-switch, BEHZ and dim-0 MAC passes' counts on CUDA tensors, and the
-    port's count of key switches, expansion levels (and of them those that
-    write leaves), tensor products, floors and mod switches set to 0: just
-    before a path is driven."""
-    from she_tpu_torch.bfv import bfv, keys
-    from she_tpu_torch.ops import behz, behz_cuda, dim0_cuda, dim0_mac, dim0_mac_cuda, key_switch, key_switch_cuda
-    from she_tpu_torch.ops import ntt, ntt_cuda, ntt_mxu, ntt_mxu_cuda, simple_pir_cuda
-    from she_tpu_torch.pir import serving
+    """The tracer's registry cleared (every kernel's launches and launch
+    shapes, the plain passes' counts on CUDA tensors, the port's count of
+    key switches, expansion levels and of them those that write leaves,
+    tensor products, floors and mod switches) and its spans dropped, with
+    tracing on, so that launches are counted by shape: just before a path
+    is driven."""
+    from she_tpu_torch import trace
 
-    for wrapper in (ntt_cuda, dim0_cuda, simple_pir_cuda, ntt_mxu_cuda, key_switch_cuda, behz_cuda, dim0_mac_cuda):
-        wrapper.reset_launches()
-    for counts in (ntt.plain_calls_on_cuda, ntt_mxu.plain_calls_on_cuda, key_switch.plain_calls_on_cuda,
-                   behz.plain_calls_on_cuda, dim0_mac.plain_calls_on_cuda):
-        for k in counts:
-            counts[k] = 0
-    keys.reset_switches()
-    serving.reset_levels_run()
-    bfv.reset_behz_runs()
-    bfv.reset_mod_switch_runs()
+    trace.reset()
+    trace.drain()
+    if not trace.tracing():
+        trace.enable()
+
+
+def kernel_launches() -> dict:
+    """Each hand-written kernel's launches since reset_counts."""
+    from she_tpu_torch import trace
+
+    return {k: trace.counters["launch." + k] for k in ALL_KERNELS}
+
+
+def plain_on_cuda(ops) -> dict:
+    """The plain passes of `ops` run on CUDA tensors since reset_counts."""
+    from she_tpu_torch import trace
+
+    return {k: trace.counters["plain_on_cuda." + k] for k in ops}
+
+
+def launch_shapes_of(kernels) -> dict:
+    """The launches of `kernels` by their wrappers' launch keys since
+    reset_counts."""
+    from she_tpu_torch import trace
+
+    return {key: n for (kernel, key), n in trace.launch_shapes.items() if kernel in kernels}
 
 
 def key_switch_counts(label: str, launches: dict, switches: bool, expands: bool) -> None:
     """Fails unless each of ks_digits, ks_mac and ks_finish launched once a
-    key switch the port ran (bfv/keys.switches), expand_leaves once an
-    expansion level that wrote leaves and expand_combine once any other
-    level (pir/serving.levels_run); if a path that switches keys
+    key switch the port ran (the registry's key_switch), expand_leaves once
+    an expansion level that wrote leaves and expand_combine once any other
+    level (expansion_level, leaf_level); if a path that switches keys
     (`switches`) ran no key switch, or one that expands queries in batches
     (`expands`) no level or no level that wrote its leaves; or if a plain
     key-switch pass (the leaves' too) ran on CUDA tensors."""
-    from she_tpu_torch.bfv import keys
-    from she_tpu_torch.ops import key_switch
-    from she_tpu_torch.pir import serving
+    from she_tpu_torch import trace
 
-    ran = keys.switches | serving.levels_run
+    ran = {k: trace.counters[k] for k in ("key_switch", "expansion_level", "leaf_level")}
     if (any(launches[k] != ran["key_switch"] for k in KS_SWITCH)
             or launches["expand_leaves"] != ran["leaf_level"]
             or launches["expand_combine"] != ran["expansion_level"] - ran["leaf_level"]):
@@ -495,17 +511,19 @@ def key_switch_counts(label: str, launches: dict, switches: bool, expands: bool)
                              f"{ran['leaf_level']} of them writing leaves")
     if (switches and not ran["key_switch"]) or (expands and not (ran["expansion_level"] and ran["leaf_level"])):
         raise AssertionError(f"[{label}] the path ran {ran} key switches and expansion levels")
-    if any(key_switch.plain_calls_on_cuda.values()):
-        raise AssertionError(f"[{label}] a plain key-switch pass ran on CUDA tensors: {key_switch.plain_calls_on_cuda}")
+    plain = plain_on_cuda(KS_KERNELS)
+    if any(plain.values()):
+        raise AssertionError(f"[{label}] a plain key-switch pass ran on CUDA tensors: {plain}")
 
 
 def mod_switch_counts(label: str, launches: dict, mod_switches: bool) -> None:
-    """Fails unless mod_switch launched once a mod switch the port ran
-    (bfv.mod_switch_runs), or if a path that mod-switches (`mod_switches`)
-    ran none. A plain mod switch on CUDA tensors fails key_switch_counts."""
-    from she_tpu_torch.bfv import bfv
+    """Fails unless mod_switch launched once a mod switch the port ran (the
+    registry's mod_switch), or if a path that mod-switches
+    (`mod_switches`) ran none. A plain mod switch on CUDA tensors fails
+    key_switch_counts."""
+    from she_tpu_torch import trace
 
-    ran = bfv.mod_switch_runs["mod_switch"]
+    ran = trace.counters["mod_switch"]
     if launches["mod_switch"] != ran:
         raise AssertionError(f"[{label}] {launches['mod_switch']} mod_switch launches against {ran} mod switches")
     if mod_switches and not ran:
@@ -514,21 +532,22 @@ def mod_switch_counts(label: str, launches: dict, mod_switches: bool) -> None:
 
 def behz_counts(label: str, launches: dict, multiplies: bool) -> None:
     """Fails unless behz_lift launched twice and behz_tensor_mac once a
-    tensor product the port ran (bfv.behz_runs) and behz_floor once a
-    floor; if a path that multiplies ciphertexts (`multiplies`) ran no
-    product or no floor; or if a plain BEHZ pass ran on CUDA tensors."""
-    from she_tpu_torch.bfv import bfv
-    from she_tpu_torch.ops import behz
+    tensor product the port ran (the registry's behz.tensor_product) and
+    behz_floor once a floor (behz.floor); if a path that multiplies
+    ciphertexts (`multiplies`) ran no product or no floor; or if a plain
+    BEHZ pass ran on CUDA tensors."""
+    from she_tpu_torch import trace
 
-    ran = bfv.behz_runs
+    ran = {"tensor_product": trace.counters["behz.tensor_product"], "floor": trace.counters["behz.floor"]}
     if (launches["behz_lift"] != 2 * ran["tensor_product"] or launches["behz_tensor_mac"] != ran["tensor_product"]
             or launches["behz_floor"] != ran["floor"]):
         raise AssertionError(f"[{label}] BEHZ launches {[launches[k] for k in BEHZ_KERNELS]} against "
                              f"{ran['tensor_product']} tensor products and {ran['floor']} floors")
     if multiplies and not (ran["tensor_product"] and ran["floor"]):
         raise AssertionError(f"[{label}] the path ran {ran} tensor products and floors")
-    if any(behz.plain_calls_on_cuda.values()):
-        raise AssertionError(f"[{label}] a plain BEHZ pass ran on CUDA tensors: {behz.plain_calls_on_cuda}")
+    plain = plain_on_cuda(BEHZ_KERNELS)
+    if any(plain.values()):
+        raise AssertionError(f"[{label}] a plain BEHZ pass ran on CUDA tensors: {plain}")
 
 
 def mac_counts(label: str, launches: dict, mac: bool) -> None:
@@ -536,12 +555,11 @@ def mac_counts(label: str, launches: dict, mac: bool) -> None:
     product, the per-query server's ct x pt products) never launched
     dim0_mac, or if a plain dim-0, BSGS or ct x pt MAC ran on CUDA
     tensors."""
-    from she_tpu_torch.ops import dim0_mac
-
     if mac and not launches["dim0_mac"]:
         raise AssertionError(f"[{label}] the path serves a MAC and never launched dim0_mac: {launches}")
-    if any(dim0_mac.plain_calls_on_cuda.values()):
-        raise AssertionError(f"[{label}] a plain dim-0 MAC ran on CUDA tensors: {dim0_mac.plain_calls_on_cuda}")
+    plain = plain_on_cuda(("dim0_mac",))
+    if any(plain.values()):
+        raise AssertionError(f"[{label}] a plain dim-0 MAC ran on CUDA tensors: {plain}")
 
 
 def read_counts(label: str, use_dim0_int8: bool, simple_pir: bool = False, mxu: bool = False,
@@ -557,15 +575,8 @@ def read_counts(label: str, use_dim0_int8: bool, simple_pir: bool = False, mxu: 
     and behz_counts (`multiplies`: the path multiplies ciphertexts) and
     mac_counts (`mac`: the path serves a MAC) and mod_switch_counts
     (`mod_switches`: the path mod-switches its answers)."""
-    from she_tpu_torch.ops import behz_cuda, dim0_cuda, dim0_mac_cuda, key_switch_cuda, ntt, ntt_cuda, ntt_mxu
-    from she_tpu_torch.ops import ntt_mxu_cuda, simple_pir_cuda
-
-    launches = (dict(ntt_cuda.launches) | dict(dim0_cuda.launches) | dict(simple_pir_cuda.launches)
-                | dict(ntt_mxu_cuda.launches) | dict(key_switch_cuda.launches) | dict(behz_cuda.launches)
-                | dict(dim0_mac_cuda.launches))
-    plain_on_cuda = {f"{k}_{d}": v for k, counts in (("ntt", ntt.plain_calls_on_cuda),
-                                                    ("ntt_mxu", ntt_mxu.plain_calls_on_cuda))
-                     for d, v in counts.items()}
+    launches = kernel_launches()
+    plain_ntts = plain_on_cuda(PLAIN_NTTS)
     ntt_kernels, other_route = (["ntt_mxu"], NTT_KERNELS) if mxu else (list(NTT_KERNELS), ("ntt_mxu",))
     path_kernels = (ntt_kernels + (["dim0_int8"] if use_dim0_int8 else [])
                     + (["simple_pir_matmul"] if simple_pir else []))
@@ -577,16 +588,17 @@ def read_counts(label: str, use_dim0_int8: bool, simple_pir: bool = False, mxu: 
         raise AssertionError(f"[{label}] the int8 dim-0 kernel ran on a MAC path: {launches}")
     if not simple_pir and launches["simple_pir_matmul"]:
         raise AssertionError(f"[{label}] the SimplePIR kernel ran on another path: {launches}")
-    if any(plain_on_cuda.values()):
-        raise AssertionError(f"[{label}] a plain NTT ran on CUDA tensors: {plain_on_cuda}")
+    if any(plain_ntts.values()):
+        raise AssertionError(f"[{label}] a plain NTT ran on CUDA tensors: {plain_ntts}")
     key_switch_counts(label, launches, switches, expands)
     behz_counts(label, launches, multiplies)
     mac_counts(label, launches, mac)
     mod_switch_counts(label, launches, mod_switches)
-    return dict(launches=launches, launch_shapes=dict(ntt_cuda.launch_shapes),
-                dim0_shapes=dict(dim0_cuda.launch_shapes), simple_pir_shapes=dict(simple_pir_cuda.launch_shapes),
-                mxu_shapes=dict(ntt_mxu_cuda.launch_shapes), ks_shapes=dict(key_switch_cuda.launch_shapes),
-                behz_shapes=dict(behz_cuda.launch_shapes), mac_shapes=dict(dim0_mac_cuda.launch_shapes))
+    return dict(launches=launches, launch_shapes=launch_shapes_of(NTT_KERNELS),
+                dim0_shapes=launch_shapes_of(("dim0_int8",)),
+                simple_pir_shapes=launch_shapes_of(("simple_pir_matmul",)),
+                mxu_shapes=launch_shapes_of(("ntt_mxu",)), ks_shapes=launch_shapes_of(KS_KERNELS),
+                behz_shapes=launch_shapes_of(BEHZ_KERNELS), mac_shapes=launch_shapes_of(("dim0_mac",)))
 
 
 def kernel_bound_ms(shape, moduli, degree) -> float:
@@ -1539,11 +1551,11 @@ def _read_response(ctx, answer: bytes):
 
 def per_request_launches(launches: dict, requests: int) -> dict:
     """Each kernel's launches a request (those it launched), with the
-    expansion levels a request ran (serving.levels_run)."""
-    from she_tpu_torch.pir import serving
+    expansion levels a request ran (the registry's expansion_level)."""
+    from she_tpu_torch import trace
 
     out = {k: v / requests for k, v in launches.items() if v}
-    out["expansion_levels"] = serving.levels_run["expansion_level"] / requests
+    out["expansion_levels"] = trace.counters["expansion_level"] / requests
     return out
 
 
@@ -1771,7 +1783,7 @@ def pnns_path(label: str, seed: int, batches: int) -> dict:
     queries = [client.generate_query(v, sk, err_rng=nist_aes128_ctr(bytes([i]) * 32))
                for i, v in enumerate(query_vectors)]
     torch.cuda.synchronize()
-    setup_shapes = dict(ntt_cuda.launch_shapes)
+    setup_shapes = launch_shapes_of(NTT_KERNELS)
     log(f"[{label}] keys, server and {PNNS_BATCH} queries ready in {time.perf_counter() - t0:.4f} s")
 
     # the main path, with the launch counts read around it: the first batch
@@ -3089,8 +3101,6 @@ def cli_phase(seed: int) -> dict:
     from she_tpu_torch.cli import (mmap_tool, pir_generate_database, pir_process_database, pir_shard_database,
                                    pnns_generate_database, pnns_process_database, simple_pir_process_database,
                                    warm)
-    from she_tpu_torch.ops import dim0_cuda, dim0_mac, dim0_mac_cuda, ntt, ntt_cuda, simple_pir_cuda
-
     label = "cli"
     reset_counts()
     seconds = {}
@@ -3147,15 +3157,14 @@ def cli_phase(seed: int) -> dict:
         if hint.shape != (CLI_SIMPLE_PIR_ROWS, CLI_SIMPLE_PIR_DEGREE) or hint.dtype != np.uint64:
             raise AssertionError(f"[{label}] the SimplePIR hint is {hint.dtype} {hint.shape}")
         files = sorted(f.name for f in d.iterdir())
-    launches = (dict(ntt_cuda.launches) | dict(dim0_cuda.launches) | dict(simple_pir_cuda.launches)
-                | dict(dim0_mac_cuda.launches))
+    launches = {k: v for k, v in kernel_launches().items() if k in NTT_AND_DIM0 + ("simple_pir_matmul", "dim0_mac")}
     # N = 1024 is the SimplePIR tool's lattice dimension alone (22-bit q')
-    simple_pir_shapes = {k: v for k, v in ntt_cuda.launch_shapes.items() if k.shape[-1] == CLI_SIMPLE_PIR_DEGREE}
+    simple_pir_shapes = {k: v for k, v in launch_shapes_of(NTT_KERNELS).items() if k.shape[-1] == CLI_SIMPLE_PIR_DEGREE}
     if not (launches["ntt_forward"] and launches["ntt_inverse"] and launches["dim0_int8"] and launches["dim0_mac"]):
         raise AssertionError(f"[{label}] the tools did not run the kernels on the card: {launches}")
-    if any(ntt.plain_calls_on_cuda.values()) or any(dim0_mac.plain_calls_on_cuda.values()):
-        raise AssertionError(f"[{label}] a plain NTT or MAC ran on CUDA tensors: {dict(ntt.plain_calls_on_cuda)}, "
-                             f"{dict(dim0_mac.plain_calls_on_cuda)}")
+    plain = plain_on_cuda(("ntt_forward", "ntt_inverse", "dim0_mac"))
+    if any(plain.values()):
+        raise AssertionError(f"[{label}] a plain NTT or MAC ran on CUDA tensors: {plain}")
     log(f"[{label}] every tool exited 0 on the card in {sum(seconds.values()):.3f} s; files {files}; kernel "
         f"launches {launches}")
     return dict(seconds=seconds, launches=launches, files=files, simple_pir_launch_shapes=simple_pir_shapes)
@@ -3295,13 +3304,11 @@ def _rank_part(label: str, mesh, run, reps: int, kernels: tuple) -> dict:
     part mod-switches where mod_switch is one of `kernels`)."""
     import torch
 
-    from she_tpu_torch.ops import behz_cuda, dim0_cuda, dim0_mac_cuda, key_switch_cuda, ntt, ntt_cuda, simple_pir_cuda
-    from she_tpu_torch.parallel import collectives
+    from she_tpu_torch import trace
 
     outs, seconds = [], []
     rank = torch.distributed.get_rank()
     reset_counts()
-    collectives.reset_staged()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for _ in range(reps):
@@ -3310,24 +3317,23 @@ def _rank_part(label: str, mesh, run, reps: int, kernels: tuple) -> dict:
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         outs.append(out)
-    launches = (dict(ntt_cuda.launches) | dict(dim0_cuda.launches) | dict(simple_pir_cuda.launches)
-                | dict(key_switch_cuda.launches) | dict(behz_cuda.launches) | dict(dim0_mac_cuda.launches))
+    launches = {k: v for k, v in kernel_launches().items() if k not in ("ntt_mxu",)}
     key_switch_counts(f"{label} rank {rank}", launches, "ks_digits" in kernels, "expand_combine" in kernels)
     behz_counts(f"{label} rank {rank}", launches, "behz_lift" in kernels)
     mac_counts(f"{label} rank {rank}", launches, "dim0_mac" in kernels)
     mod_switch_counts(f"{label} rank {rank}", launches, "mod_switch" in kernels)
     if (any(launches[k] == 0 for k in kernels) or (launches["dim0_int8"] and "dim0_int8" not in kernels)
-            or launches["simple_pir_matmul"] or any(ntt.plain_calls_on_cuda.values())):
+            or launches["simple_pir_matmul"] or any(plain_on_cuda(NTT_KERNELS).values())):
         raise AssertionError(f"[{label}] rank {rank}: launches {launches} (the part's kernels: {kernels}), plain "
-                             f"NTT on CUDA {dict(ntt.plain_calls_on_cuda)}")
+                             f"NTT on CUDA {plain_on_cuda(NTT_KERNELS)}")
     for out in outs[1:]:
         if any(not torch.equal(a, b) for a, b in zip(out, outs[0], strict=True)):
             raise AssertionError(f"[{label}] rank {rank}: a repeated call answered differently")
-    return dict(rank=rank, s=seconds, staged_bytes=collectives.staged["bytes"],
-                staged_s=collectives.staged["seconds"], peak_bytes=torch.cuda.max_memory_allocated(),
-                launches=launches, launch_shapes=dict(ntt_cuda.launch_shapes),
-                dim0_shapes=dict(dim0_cuda.launch_shapes), ks_shapes=dict(key_switch_cuda.launch_shapes),
-                behz_shapes=dict(behz_cuda.launch_shapes), mac_shapes=dict(dim0_mac_cuda.launch_shapes), reps=reps,
+    return dict(rank=rank, s=seconds, staged_bytes=trace.counters["collective.staged_bytes"],
+                staged_s=trace.counters["collective.staged_s"], peak_bytes=torch.cuda.max_memory_allocated(),
+                launches=launches, launch_shapes=launch_shapes_of(NTT_KERNELS),
+                dim0_shapes=launch_shapes_of(("dim0_int8",)), ks_shapes=launch_shapes_of(KS_KERNELS),
+                behz_shapes=launch_shapes_of(BEHZ_KERNELS), mac_shapes=launch_shapes_of(("dim0_mac",)), reps=reps,
                 out=[t.cpu().numpy() for t in outs[0]])
 
 
@@ -3832,13 +3838,13 @@ def dim0_only(args, card: str) -> int:
     check (dim0_case); then the kernels line (launches: those of this run's
     checks and timings) and the last line."""
     from she_tpu_torch import params as paramsmod
-    from she_tpu_torch.ops import dim0_cuda
+    from she_tpu_torch import trace
 
     moduli = paramsmod.from_predefined(PARAMS, scalar_bits=32).coefficient_moduli[:2]
-    dim0_cuda.reset_launches()
+    trace.reset()
     rows = [dim0_case(label, moduli, *shape, 60 + i) for i, (label, shape) in enumerate(DIM0_SERVED_SHAPES.items())]
     w64_check = dim0_w64_check()
-    entry = dim0_kernel_entry(rows, w64_check, dim0_cuda.launches["dim0_int8"])
+    entry = dim0_kernel_entry(rows, w64_check, trace.counters["launch.dim0_int8"])
     return report(args, card, [entry])
 
 

@@ -23,7 +23,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .. import errors
+from .. import errors, trace
 from ..core import poly as polymod
 from ..core import rns as rnsmod
 from ..core.context import PolyContext, get_poly_context
@@ -565,26 +565,20 @@ def ct_to_coeff(a: Ciphertext) -> Ciphertext:
     )
 
 
-# mod switches run since the last reset: on a CUDA card each launches
-# mod_switch once, for every poly and every dropped modulus
-mod_switch_runs = {"mod_switch": 0}
-
-
-def reset_mod_switch_runs() -> None:
-    mod_switch_runs["mod_switch"] = 0
-
-
 def _mod_switch(a: Ciphertext, target: int) -> Ciphertext:
     """a (Coeff, over L > target moduli) down to its first `target` moduli:
     ops/key_switch.mod_switch over all its polys, read in place where they
-    are equally spaced views of one tensor (stacked_view)."""
+    are equally spaced views of one tensor (stacked_view). Counted as
+    mod_switch in the tracer's registry: on a CUDA card each launches
+    mod_switch once, for every poly and every dropped modulus."""
     if a.fmt != COEFF:
         raise errors.InvalidFormat("modSwitchDown requires Coeff")
     if a.moduli_count < 2:
         raise errors.InvalidCiphertext("cannot drop below one modulus")
     ctx = a.poly_context()
-    data = key_switch.mod_switch(stacked_view(a), ctx, target)
-    mod_switch_runs["mod_switch"] += 1
+    with trace.span("mod_switch"):
+        data = key_switch.mod_switch(stacked_view(a), ctx, target)
+    trace.count("mod_switch")
     return Ciphertext.from_stacked(a.context, data, ctx.get_context(target), COEFF, a.correction_factor)
 
 
@@ -602,17 +596,6 @@ def mod_switch_down_to_single(a: Ciphertext) -> Ciphertext:
 # ---------------------------------------------------------------------------
 # Ciphertext-ciphertext multiply (BEHZ, eprint 2016/510)
 # ---------------------------------------------------------------------------
-
-
-# BEHZ products run since the last reset: on a CUDA card each tensor
-# product launches behz_lift twice (one a side) and behz_tensor_mac once,
-# each drop_extended_base behz_floor once
-behz_runs = {"tensor_product": 0, "floor": 0}
-
-
-def reset_behz_runs() -> None:
-    for k in behz_runs:
-        behz_runs[k] = 0
 
 
 def stack_in_place(datas: list, dim: int) -> torch.Tensor:
@@ -653,7 +636,8 @@ def tensor_product(lhs: Ciphertext, rhs: Ciphertext, axis: int | None = None, sc
     summed over the K axis at `axis` of the polys' [..., K, L, N] data
     where one is given, each row times `scale` mod its modulus. On a CUDA
     card: two behz_lift launches, their forward NTTs and one
-    behz_tensor_mac (ops/behz.py)."""
+    behz_tensor_mac (ops/behz.py). Counted as behz.tensor_product in the
+    tracer's registry."""
     if lhs.context is not rhs.context:
         raise errors.IncompatibleContexts("different contexts")
     if len(lhs.polys) != 2 or len(rhs.polys) != 2:
@@ -666,8 +650,9 @@ def tensor_product(lhs: Ciphertext, rhs: Ciphertext, axis: int | None = None, sc
     ext_ctx = tool.q_bsk_context
     # the K axis of the stacked [..., K, polys, L, N] data
     stacked_axis = None if axis is None else (axis - 1 if axis < 0 else axis)
-    out = behz.behz_tensor_mac(_lifted_eval(lhs, tool), _lifted_eval(rhs, tool), ext_ctx, scale, stacked_axis)
-    behz_runs["tensor_product"] += 1
+    with trace.span("behz.tensor_product"):
+        out = behz.behz_tensor_mac(_lifted_eval(lhs, tool), _lifted_eval(rhs, tool), ext_ctx, scale, stacked_axis)
+    trace.count("behz.tensor_product")
     return Ciphertext.from_stacked(lhs.context, out, ext_ctx, EVAL)
 
 
@@ -681,15 +666,18 @@ def drop_extended_base(ct: Ciphertext, scale: int | None = None) -> Ciphertext:
     (Bfv+Multiply.swift:31-48). `scale` is the factor applied first: t by
     default, as she_tpu does; 1 for a product that tensor_product already
     scaled by t. The scale runs inside the floor (behz_floor), after the
-    inverse NTT, which is linear mod each modulus: the same bits."""
+    inverse NTT, which is linear mod each modulus: the same bits. Counted
+    as behz.floor in the tracer's registry: on a CUDA card one behz_floor
+    launch."""
     count = ct.moduli_count
     if count % 2 != 1 or count < 3:
         raise errors.InvalidCiphertext("extended-base ciphertext must have odd moduli count >= 3")
     tool = ct.context.get_rns_tool((count - 1) // 2)
     ext_ctx = ct.polys[0].context
-    coeff = polymod.inverse_ntt(PolyRq(stacked_view(ct), ext_ctx, EVAL))  # one inverse NTT for all polys
-    floored = tool.floor_qbsk_to_q(coeff.data, ct.context.plaintext_modulus if scale is None else scale)
-    behz_runs["floor"] += 1
+    with trace.span("behz.floor"):
+        coeff = polymod.inverse_ntt(PolyRq(stacked_view(ct), ext_ctx, EVAL))  # one inverse NTT for all polys
+        floored = tool.floor_qbsk_to_q(coeff.data, ct.context.plaintext_modulus if scale is None else scale)
+    trace.count("behz.floor")
     return Ciphertext.from_stacked(
         ct.context, floored, tool.input_context, COEFF, ct.correction_factor
     )
@@ -767,9 +755,10 @@ def relinearize(ct: Ciphertext, evaluation_key) -> Ciphertext:
         raise errors.InvalidFormat("key switch target must be Coeff")
     for p in (c0, c1):
         polymod.check_same(p, c2)
-    out = keysmod.key_switch(
-        ct.context, c2.data, evaluation_key.relinearization_key.key_switch_key, c0=c0.data, c1=c1.data
-    )
+    with trace.span("relinearize"):
+        out = keysmod.key_switch(
+            ct.context, c2.data, evaluation_key.relinearization_key.key_switch_key, c0=c0.data, c1=c1.data
+        )
     return Ciphertext.from_stacked(ct.context, out, c2.context, COEFF, ct.correction_factor)
 
 

@@ -23,7 +23,7 @@ from dataclasses import dataclass, field
 
 import torch
 
-from .. import errors
+from .. import errors, trace
 from ..core import poly as polymod
 from ..core.poly import COEFF, EVAL, PolyRq
 from ..ops import galois as galoismod
@@ -147,16 +147,6 @@ def generate_evaluation_key(context, config: EvaluationKeyConfig, secret_key, er
     return EvaluationKey(galois, relin)
 
 
-# key switches run since the last reset: on a CUDA card each launches
-# ks_digits, ks_mac and ks_finish once
-switches = {"key_switch": 0}
-
-
-def reset_switches() -> None:
-    for k in switches:
-        switches[k] = 0
-
-
 def key_switch(context, target: torch.Tensor, ksk: KeySwitchKey, element: int | None = None, index=None,
                c0=None, c1=None) -> torch.Tensor:
     """Switch the key of `target`, int64 [..., L_t, N] Coeff data over the
@@ -165,15 +155,18 @@ def key_switch(context, target: torch.Tensor, ksk: KeySwitchKey, element: int | 
     added into u0 (c0 and `element` given: apply_galois), or with c0 and
     c1 added into u0 and u1 (both given, no element: relinearize). `index` gathers axis 0 of target, c0 and c1 (the
     expansion's slot pool, read in place). Reference
-    Bfv+Keys.swift:123-208."""
+    Bfv+Keys.swift:123-208. Counted as key_switch in the tracer's
+    registry: on a CUDA card each launches ks_digits, ks_mac and ks_finish
+    once."""
     L_t = target.shape[-2]
     ks_ctx = context.key_switching_contexts[L_t - 1]
-    digits = ks.ks_digits(target, ks_ctx, element, index)  # [..., L_t, L_ks, N]
-    fwd = nttmod.forward_ntt(digits, ks_ctx.ntt_tables)
-    acc = ks.ks_mac(fwd, ksk.key_rows(L_t), ks_ctx)  # [..., 2, L_ks, N]
-    inv = nttmod.inverse_ntt(acc, ks_ctx.ntt_tables)
-    switches["key_switch"] += 1
-    return ks.ks_finish(inv, ks_ctx, c0, c1, element, index)  # [..., 2, L_t, N]
+    with trace.span("key_switch"):
+        digits = ks.ks_digits(target, ks_ctx, element, index)  # [..., L_t, L_ks, N]
+        fwd = nttmod.forward_ntt(digits, ks_ctx.ntt_tables)
+        acc = ks.ks_mac(fwd, ksk.key_rows(L_t), ks_ctx)  # [..., 2, L_ks, N]
+        inv = nttmod.inverse_ntt(acc, ks_ctx.ntt_tables)
+        trace.count("key_switch")
+        return ks.ks_finish(inv, ks_ctx, c0, c1, element, index)  # [..., 2, L_t, N]
 
 
 def compute_key_switching_update(context, target: PolyRq, ksk: KeySwitchKey) -> list[PolyRq]:

@@ -13,9 +13,10 @@ inverse NTT (drop_extended_base :762), then the floor back to q
 Each function dispatches on its data's device: a CPU tensor takes the
 plain PyTorch version below, a CUDA tensor the hand-written kernel of
 ops/behz_cuda.py (csrc/behz.cu), and anything else raises.
-`plain_calls_on_cuda` counts plain calls on CUDA tensors, which only a
-comparison against the kernels should make. Every output is fully
-reduced, so the kernels equal the plain versions bit for bit.
+The tracer's registry counts plain calls on CUDA tensors
+(plain_on_cuda.<op>), which only a comparison against the kernels should
+make. Every output is fully reduced, so the kernels equal the plain
+versions bit for bit.
 
 * behz_lift: x [..., L, N] over q -> [..., L + L_bsk, N] over
   [q, B_sk] (the q rows copied): x m~ mod q_i, the approximate
@@ -37,17 +38,16 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ..core import poly as polymod
 from ..core.poly import COEFF, PolyRq
 from . import behz_cuda
 from . import modarith as ma
 
-plain_calls_on_cuda = {"behz_lift": 0, "behz_tensor_mac": 0, "behz_floor": 0}
-
 
 def _count_plain(name: str, x: torch.Tensor) -> None:
     if x.device.type == "cuda":
-        plain_calls_on_cuda[name] += 1
+        trace.count("plain_on_cuda." + name)
 
 
 def _route(name: str, x: torch.Tensor, kernel, plain):

@@ -5,8 +5,9 @@ The kernels replace the BEHZ passes that she_tpu leaves to XLA to fuse
 plain versions and the dispatch. Each wrapper checks its operands,
 allocates its output with torch.empty, launches on
 torch.cuda.current_stream() and raises if the launch reports a CUDA
-error; there is no fallback. `launches` counts each kernel's launches (an
-empty batch launches nothing) and `launch_shapes` counts them by BehzKey,
+error; there is no fallback. Each launch is counted in the tracer's
+registry (launch.<kernel>; an empty batch launches nothing) and, while
+tracing is on, by BehzKey,
 so a run can show that its products went through the kernels and time
 each shape it used.
 
@@ -25,13 +26,13 @@ made on the host once per moduli and passed by value with the launch.
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 from functools import lru_cache
 from math import prod
 from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from ..utils import nt
 from . import kernel_build, key_switch_cuda
 from .key_switch_cuda import MAX_MODULUS, Operand, operand
@@ -79,7 +80,7 @@ class MacParams(ctypes.Structure):
 
 
 class BehzKey(NamedTuple):
-    """What a launch is counted by in `launch_shapes`: the kernel, the
+    """What a launch is counted by in the tracer's shape table: the kernel, the
     shape of its input (x, la, y), the moduli ((q, B_sk) for the lift and
     the floor, those of [q, B_sk] for the MAC) and the kernel's variant:
     (m~, the input's strides) for behz_lift, (scale,) for behz_tensor_mac,
@@ -91,8 +92,6 @@ class BehzKey(NamedTuple):
     variant: tuple
 
 
-launches = {"behz_lift": 0, "behz_tensor_mac": 0, "behz_floor": 0}
-launch_shapes: Counter = Counter()
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -103,12 +102,6 @@ _ARGTYPES = {
     "she_behz_floor": [_OP, _VP, _LL, _INT, _INT, _INT, _VP, _VP],
     "she_behz_tensor_mac": [_VP, _VP, _VP, _LL, _INT, _INT, _INT, ctypes.POINTER(MacParams), _VP],
 }
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
-    launch_shapes.clear()
 
 
 def _library():
@@ -246,9 +239,9 @@ def behz_lift(x: torch.Tensor, q_moduli: tuple, bsk_moduli: tuple, m_tilde: int)
     if m:
         err = _library().she_behz_lift(ctypes.byref(op), out.data_ptr(), m, L, n, ctypes.byref(params), key_switch_cuda._stream())
         key_switch_cuda._raise_on(err, "behz_lift")
-        launches["behz_lift"] += 1
-        launch_shapes[BehzKey("behz_lift", tuple(x.shape), (tuple(q_moduli), tuple(bsk_moduli)),
-                              (m_tilde, tuple(x.stride())))] += 1
+        if trace.launch("behz_lift"):
+            trace.count_shape("behz_lift", BehzKey("behz_lift", tuple(x.shape), (tuple(q_moduli), tuple(bsk_moduli)),
+                                                   (m_tilde, tuple(x.stride()))))
     return out
 
 
@@ -293,8 +286,8 @@ def behz_floor(y: torch.Tensor, q_moduli: tuple, bsk_moduli: tuple, scale: int =
         args = launch.args
         args[1], args[-1] = out.data_ptr(), key_switch_cuda._stream()
         key_switch_cuda._raise_on(_library().she_behz_floor(*args), "behz_floor")
-        launches["behz_floor"] += 1
-        launch_shapes[launch.key] += 1
+        if trace.launch("behz_floor"):
+            trace.count_shape("behz_floor", launch.key)
     return out
 
 
@@ -323,6 +316,7 @@ def behz_tensor_mac(la: torch.Tensor, lb: torch.Tensor, moduli: tuple, scale: in
         err = _library().she_behz_tensor_mac(la.data_ptr(), lb.data_ptr(), out.data_ptr(), m, K, M, n,
                                              ctypes.byref(params), key_switch_cuda._stream())
         key_switch_cuda._raise_on(err, "behz_tensor_mac")
-        launches["behz_tensor_mac"] += 1
-        launch_shapes[BehzKey("behz_tensor_mac", tuple(la.shape), tuple(moduli), (scale,))] += 1
+        if trace.launch("behz_tensor_mac"):
+            trace.count_shape("behz_tensor_mac", BehzKey("behz_tensor_mac", tuple(la.shape), tuple(moduli),
+                                                         (scale,)))
     return out

@@ -6,23 +6,21 @@ the tensor cores (mma.sync), recombined and reduced mod q in its epilogue.
 The wrapper checks its inputs, allocates the output with torch.empty,
 launches on torch.cuda.current_stream() and raises if the launch reports a
 CUDA error. There is no fallback: a tensor the kernel does not take raises.
-`launches` counts each launch; `launch_shapes` counts the same launches by
-(digits shape, query shape, moduli), so a run can time each shape it used.
+Each launch is counted in the tracer's registry as launch.dim0_int8 and,
+while tracing is on, by (digits shape, query shape, moduli), so a run can
+time each shape it used.
 """
 
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 from functools import lru_cache
 
 import torch
 
+from .. import trace
 from . import digits as dg
 from . import kernel_build
-
-launches = {"dim0_int8": 0}
-launch_shapes: Counter = Counter()
 
 MMA_DEPTH = 32  # k of mma.sync m16n8k32 for int8
 MAX_MODULUS = 1 << 56  # r * 2^7 + partial must fit 64 bits: at most 8 digits
@@ -40,12 +38,6 @@ _ARGS = [_VP] * 5 + [_INT] * 7 + [_VP]
 def padded_depth(d0: int) -> int:
     """d0 rounded up to the MMA depth: the K of the digit layout."""
     return -(-d0 // MMA_DEPTH) * MMA_DEPTH
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
-    launch_shapes.clear()
 
 
 def _library():
@@ -111,6 +103,6 @@ def dim0_int8(db_digits: torch.Tensor, query_eval: torch.Tensor, ct_ctx) -> torc
     )
     if err != 0:
         raise RuntimeError(f"she_dim0_int8 launch failed with CUDA error {err}")
-    launches["dim0_int8"] += 1
-    launch_shapes[(tuple(db_digits.shape), tuple(query_eval.shape), moduli)] += 1
+    if trace.launch("dim0_int8"):
+        trace.count_shape("dim0_int8", (tuple(db_digits.shape), tuple(query_eval.shape), moduli))
     return out

@@ -15,19 +15,19 @@ PyTorch version below, the lazy multiply-add stream of
 ops/modarith.sum_products_mod (int64 on the int64 route, (hi, lo) pairs
 on the wide route), and a CUDA tensor the hand-written kernel of
 ops/dim0_mac_cuda.py (csrc/dim0_mac.cu); anything else raises.
-`plain_calls_on_cuda` counts plain calls on CUDA tensors, which only a
-comparison against the kernel should make. The output is the unique
-residue, so the kernel equals the plain version bit for bit.
+The tracer's registry counts plain calls on CUDA tensors
+(plain_on_cuda.dim0_mac), which only a comparison against the kernel
+should make. The output is the unique residue, so the kernel equals the
+plain version bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import trace
 from . import dim0_mac_cuda
 from . import modarith as ma
-
-plain_calls_on_cuda = {"dim0_mac": 0}
 
 
 def dim0_mac_plain(a: torch.Tensor, b: torch.Tensor, ctx) -> torch.Tensor:
@@ -35,7 +35,7 @@ def dim0_mac_plain(a: torch.Tensor, b: torch.Tensor, ctx) -> torch.Tensor:
     [*M1, *M2, L, N]: the lazy stream over j, reduced every
     ctx.max_signed_lazy_product_count() products."""
     if a.device.type == "cuda":
-        plain_calls_on_cuda["dim0_mac"] += 1
+        trace.count("plain_on_cuda.dim0_mac")
     m1 = a.dim() - 3
     spread = (slice(None),) * m1 + (None,) * (b.dim() - 3)  # a's rows against every m2
     terms = ((a.select(m1, j)[spread], b[j]) for j in range(b.shape[0]))

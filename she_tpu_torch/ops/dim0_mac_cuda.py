@@ -7,8 +7,9 @@ bfv.inner_product_ct_pt (she_tpu/bfv/bfv.py:876); ops/dim0_mac.py holds
 its plain version and the dispatch. The wrapper checks its operands,
 allocates the output with torch.empty, launches on
 torch.cuda.current_stream() and raises if the launch reports a CUDA error;
-there is no fallback. `launches` counts the launches (an empty output
-launches nothing) and `launch_shapes` counts them by MacKey, so a run can
+there is no fallback. Each launch is counted in the tracer's registry as
+launch.dim0_mac (an empty output launches nothing) and, while tracing is
+on, by MacKey, so a run can
 show that its MACs went through the kernel and time each shape it used.
 
 Both operands are read in place: a [*M1, J, L, N] and b [J, *M2, L, N],
@@ -30,13 +31,13 @@ Everything but the operands' base pointers is made once per launch shape
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 from functools import lru_cache
 from math import prod
 from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from . import kernel_build
 from .key_switch_cuda import MAX_BATCH_AXES, MAX_MODULUS, Operand, constants
 
@@ -51,7 +52,7 @@ MAX_SHARED_BYTES = 227 * 1024  # the most shared memory an H100 block can have
 
 
 class MacKey(NamedTuple):
-    """What a launch is counted by in `launch_shapes`: the shapes and
+    """What a launch is counted by in the tracer's shape table: the shapes and
     strides of both operands as read, and the moduli."""
 
     a_shape: tuple
@@ -78,19 +79,12 @@ class MacPlan(NamedTuple):
     depth: int
 
 
-launches = {"dim0_mac": 0}
-launch_shapes: Counter = Counter()
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 _LL = ctypes.c_longlong
 _OP = ctypes.POINTER(Operand)
 _ARGTYPES = [_OP, _LL, _OP, _LL, _VP, _LL, _LL, _INT, _INT, _INT, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VP]
-
-
-def reset_launches() -> None:
-    launches["dim0_mac"] = 0
-    launch_shapes.clear()
 
 
 def _library():
@@ -268,6 +262,6 @@ def dim0_mac(a: torch.Tensor, b: torch.Tensor, moduli: tuple, launch_plan: MacPl
         err = _library().she_dim0_mac(*args)
         if err != 0:
             raise RuntimeError(f"she_dim0_mac launch failed with CUDA error {err}")
-        launches["dim0_mac"] += 1
-        launch_shapes[key] += 1
+        if trace.launch("dim0_mac"):
+            trace.count_shape("dim0_mac", key)
     return out

@@ -17,9 +17,10 @@ mod_switch_down_to_single) is one mod_switch for every drop. Each
 function dispatches on its data's device: a CPU tensor takes the plain
 PyTorch version below, a CUDA tensor the hand-written kernel of
 ops/key_switch_cuda.py (csrc/key_switch.cu), and anything else raises.
-`plain_calls_on_cuda` counts plain calls on CUDA tensors, which only a
-comparison against the kernels should make. Every output is fully reduced,
-so the kernels equal the plain versions bit for bit.
+The tracer's registry counts plain calls on CUDA tensors
+(plain_on_cuda.<op>), which only a comparison against the kernels should
+make. Every output is fully reduced, so the kernels equal the plain
+versions bit for bit.
 
 * ks_digits: out[..., j, i, k] = (g(c1)[..., j, k] mod q_j) mod q_i, where
   g is the signed Galois gather +-c1[..., j, src[k]] (the negation taken
@@ -52,18 +53,16 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ..core import poly as polymod
 from . import galois as galoismod
 from . import key_switch_cuda
 from . import modarith as ma
 
-plain_calls_on_cuda = {"ks_digits": 0, "ks_mac": 0, "ks_finish": 0, "expand_combine": 0, "expand_leaves": 0,
-                       "mod_switch": 0}
-
 
 def _count_plain(name: str, x: torch.Tensor) -> None:
     if x.device.type == "cuda":
-        plain_calls_on_cuda[name] += 1
+        trace.count("plain_on_cuda." + name)
 
 
 def _select(x: torch.Tensor, index) -> torch.Tensor:
@@ -195,10 +194,11 @@ def ks_finish(inv: torch.Tensor, ks_ctx, c0=None, c1=None, element: int | None =
 
 def expand_combine(pool: torch.Tensor, update: torch.Tensor, parents: torch.Tensor, child0: torch.Tensor,
                    child1: torch.Tensor, shift: int, ct_ctx, out=None, doubled=None) -> None:
-    _route("expand_combine", update,
-           lambda: key_switch_cuda.expand_combine(pool, update, parents, child0, child1, shift, ct_ctx.moduli, out,
-                                                  doubled),
-           lambda: expand_combine_plain(pool, update, parents, child0, child1, shift, ct_ctx, out, doubled))
+    with trace.span("expand.combine"):
+        _route("expand_combine", update,
+               lambda: key_switch_cuda.expand_combine(pool, update, parents, child0, child1, shift, ct_ctx.moduli,
+                                                      out, doubled),
+               lambda: expand_combine_plain(pool, update, parents, child0, child1, shift, ct_ctx, out, doubled))
 
 
 def mod_switch(x: torch.Tensor, ctx, target: int) -> torch.Tensor:

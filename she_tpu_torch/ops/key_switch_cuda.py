@@ -8,9 +8,10 @@ switch (bfv/bfv.py:694,707 over core/poly.py:207);
 ops/key_switch.py holds their plain versions and the dispatch. Each
 wrapper checks its operands, allocates its output with torch.empty,
 launches on torch.cuda.current_stream() and raises if the launch reports a
-CUDA error; there is no fallback. `launches` counts each kernel's launches
-and `launch_shapes` counts them by KsKey, so a run can show that its key
-switches went through the kernels and time each shape it used.
+CUDA error; there is no fallback. Each launch is counted in the tracer's
+registry (launch.<kernel>) and, while tracing is on, by KsKey, so a run can
+show that its key switches went through the kernels and time each shape it
+used.
 
 An operand the kernels read in place (c1, c0 and the source's c1, which
 may be views of a stacked ciphertext or of the expansion's slot pool) is
@@ -28,13 +29,13 @@ target and device, and its launch once per shape (_mod_switch_launch).
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 from functools import lru_cache
 from math import prod
 from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from ..utils import nt
 from . import kernel_build
 
@@ -47,7 +48,7 @@ MAX_MOD_SWITCH_MODULI = 8  # the moduli a mod_switch input may have (csrc/key_sw
 
 
 class KsKey(NamedTuple):
-    """What a launch is counted by in `launch_shapes`: the kernel, the
+    """What a launch is counted by in the tracer's shape table: the kernel, the
     shape of its main input (c1 as read, fwd, inv, the update), the
     key-switching moduli (the ciphertext moduli for expand_combine) and
     the kernel's variant: (element, slots) for ks_digits, () for ks_mac,
@@ -62,9 +63,6 @@ class KsKey(NamedTuple):
     moduli: tuple
     variant: tuple
 
-
-launches = {"ks_digits": 0, "ks_mac": 0, "ks_finish": 0, "expand_combine": 0, "expand_leaves": 0, "mod_switch": 0}
-launch_shapes: Counter = Counter()
 
 
 class Operand(ctypes.Structure):
@@ -90,12 +88,6 @@ _ARGTYPES = {
     "she_expand_combine": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _INT, _INT, _INT, _VP, _VP],
     "she_mod_switch": [_OP, _VP, _LL, _INT, _INT, _INT, _VP, _VP],
 }
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
-    launch_shapes.clear()
 
 
 def _library():
@@ -236,9 +228,9 @@ def ks_digits(c1: torch.Tensor, moduli: tuple, element: int | None = None, index
                                        constants(moduli, c1.device).data_ptr(), _pinv(element, degree),
                                        int(element is not None), _stream())
         _raise_on(err, "ks_digits")
-    launches["ks_digits"] += 1
-    launch_shapes[KsKey("ks_digits", batch + (L_ks - 1, degree), moduli,
-                        (element, None if index is None else c1.shape[0]))] += 1
+    if trace.launch("ks_digits"):
+        trace.count_shape("ks_digits", KsKey("ks_digits", batch + (L_ks - 1, degree), moduli,
+                                             (element, None if index is None else c1.shape[0])))
     return out
 
 
@@ -262,8 +254,8 @@ def ks_mac(fwd: torch.Tensor, key: torch.Tensor, moduli: tuple) -> torch.Tensor:
         err = _library().she_ks_mac(fwd.data_ptr(), key.data_ptr(), out.data_ptr(), m, L_ks - 1, L_ks, log2n,
                                     constants(moduli, fwd.device).data_ptr(), _stream())
         _raise_on(err, "ks_mac")
-    launches["ks_mac"] += 1
-    launch_shapes[KsKey("ks_mac", tuple(fwd.shape), moduli, ())] += 1
+    if trace.launch("ks_mac"):
+        trace.count_shape("ks_mac", KsKey("ks_mac", tuple(fwd.shape), moduli, ()))
     return out
 
 
@@ -305,9 +297,10 @@ def ks_finish(inv: torch.Tensor, moduli: tuple, c0=None, c1=None, element: int |
             None if ops[1] is None else ctypes.byref(ops[1]), out.data_ptr(), m, L_ks - 1, log2n,
             constants(moduli, inv.device).data_ptr(), _pinv(element, degree), int(element is not None), _stream())
         _raise_on(err, "ks_finish")
-    launches["ks_finish"] += 1
-    slots = None if index is None else c0.shape[0]
-    launch_shapes[KsKey("ks_finish", tuple(inv.shape), moduli, (element, c0 is not None, c1 is not None, slots))] += 1
+    if trace.launch("ks_finish"):
+        slots = None if index is None else c0.shape[0]
+        trace.count_shape("ks_finish", KsKey("ks_finish", tuple(inv.shape), moduli,
+                                             (element, c0 is not None, c1 is not None, slots)))
     return out
 
 
@@ -363,12 +356,12 @@ def expand_combine(pool: torch.Tensor, update: torch.Tensor, parents: torch.Tens
                                             _stream())
         _raise_on(err, "expand_combine")
     if out is None:
-        launches["expand_combine"] += 1
-        launch_shapes[KsKey("expand_combine", tuple(update.shape), moduli, (shift, pool.shape[0]))] += 1
-    else:
-        launches["expand_leaves"] += 1
-        launch_shapes[KsKey("expand_leaves", tuple(update.shape), moduli,
-                            (shift, pool.shape[0], out.shape[0], doubled is not None))] += 1
+        if trace.launch("expand_combine"):
+            trace.count_shape("expand_combine", KsKey("expand_combine", tuple(update.shape), moduli,
+                                                      (shift, pool.shape[0])))
+    elif trace.launch("expand_leaves"):
+        trace.count_shape("expand_leaves", KsKey("expand_leaves", tuple(update.shape), moduli,
+                                                 (shift, pool.shape[0], out.shape[0], doubled is not None)))
 
 
 @lru_cache(maxsize=None)
@@ -418,6 +411,6 @@ def mod_switch(x: torch.Tensor, moduli: tuple, target: int) -> torch.Tensor:
         args = launch.args
         args[1], args[6], args[7] = out.data_ptr(), mod_switch_constants(moduli, target, x.device).data_ptr(), _stream()
         _raise_on(_library().she_mod_switch(*args), "mod_switch")
-    launches["mod_switch"] += 1
-    launch_shapes[launch.key] += 1
+    if trace.launch("mod_switch"):
+        trace.count_shape("mod_switch", launch.key)
     return out

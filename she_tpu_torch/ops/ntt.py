@@ -13,8 +13,9 @@ the radix-2 stage order of she_tpu's forward_ntt_arrays /
 inverse_ntt_arrays, including the n^-1 fold of inv_final_stage, with every
 stage fully reduced by ops/modarith.mul_mod: the int64 route for moduli
 below 2^31, the exact wide route (ops/wide.py) up to the kernel's 2^62.
-`plain_calls_on_cuda` counts plain transforms of CUDA tensors, which only
-a comparison against the kernel should make. Before either, she_tpu's
+The tracer's registry counts plain transforms of CUDA tensors
+(plain_on_cuda.ntt_forward, plain_on_cuda.ntt_inverse), which only a
+comparison against the kernel should make. Before either, she_tpu's
 opt-in (SHE_TPU_NTT_MXU=1, ops/ntt_mxu.use_mxu) sends the transform to the
 matrix NTT of ops/ntt_mxu.py, as she_tpu's ops/ntt.py:356-361,377-382 do;
 a sharded NTT's block tables never take it.
@@ -32,6 +33,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .. import trace
 from ..utils import nt
 from ..utils.refimpl import ntt_root_tables
 from . import ntt_cuda, ntt_mxu
@@ -40,8 +42,6 @@ from .modarith import add_mod, mul_mod, sub_mod
 
 PLAIN_MAX_MODULUS = 1 << 62
 W32_MAX_MODULUS = 1 << 30  # Harvey's lazy range [0, 4q) fits one 32-bit word
-
-plain_calls_on_cuda = {"forward": 0, "inverse": 0}
 
 
 @dataclass(frozen=True)
@@ -167,7 +167,7 @@ def _check_plain(x: torch.Tensor, tables: NttTables, direction: str) -> None:
     if max(tables.moduli) >= PLAIN_MAX_MODULUS:
         raise ValueError("the plain NTT takes moduli below 2^62")
     if x.device.type == "cuda":
-        plain_calls_on_cuda[direction] += 1
+        trace.count("plain_on_cuda.ntt_" + direction)
 
 
 def forward_ntt_plain(x: torch.Tensor, tables: NttTables) -> torch.Tensor:

@@ -9,35 +9,32 @@ words with the tables of `tables.w32` when every modulus is below 2^30,
 64-bit words with the int64 tables otherwise; both are kernels. The
 largest modulus' bit length goes along: on 64-bit words at N = 8192 the
 kernel runs lazily below 2^58 (csrc/ntt.cu, kLazyBits).
-`launches` counts each launch per direction, so a run can show that its
-NTTs went through the kernels; `launch_shapes` counts the same launches by
-LaunchKey (direction, input shape, moduli, tables.block), so a run can time
-each shape and each kind of table (a sharded NTT's block tables) it used.
+Each launch is counted in the tracer's registry as launch.ntt_forward or
+launch.ntt_inverse, so a run can show that its NTTs went through the
+kernels; while tracing is on also by LaunchKey (direction, input shape,
+moduli, tables.block), so a run can time each shape and each kind of table
+(a sharded NTT's block tables) it used.
 """
 
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from . import kernel_build
 
 
-
 class LaunchKey(NamedTuple):
-    """What a launch is counted by in `launch_shapes`."""
+    """What a launch is counted by in the tracer's shape table."""
 
     name: str  # "ntt_forward" or "ntt_inverse"
     shape: tuple
     moduli: tuple
     block: tuple | None  # (degree, blocks, block) of block tables, else None
 
-
-launches = {"ntt_forward": 0, "ntt_inverse": 0}
-launch_shapes: Counter = Counter()
 
 MAX_LOG2N = 13  # one row in shared memory: 8192 u64 = 64 KB
 MAX_MODULUS = 1 << 62  # Harvey lazy range [0, 4q) must fit 64 bits
@@ -46,12 +43,6 @@ _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 _FWD_ARGS = [_VP, _VP, ctypes.c_longlong, _INT, _INT, _INT, _INT] + [_VP] * 4
 _INV_ARGS = [_VP, _VP, ctypes.c_longlong, _INT, _INT, _INT, _INT] + [_VP] * 8
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
-    launch_shapes.clear()
 
 
 def _library():
@@ -116,8 +107,8 @@ def forward(x: torch.Tensor, tables) -> torch.Tensor:
     )
     if err != 0:
         raise RuntimeError(f"she_ntt_forward launch failed with CUDA error {err}")
-    launches["ntt_forward"] += 1
-    launch_shapes[LaunchKey("ntt_forward", tuple(x.shape), tables.moduli, tables.block)] += 1
+    if trace.launch("ntt_forward"):
+        trace.count_shape("ntt_forward", LaunchKey("ntt_forward", tuple(x.shape), tables.moduli, tables.block))
     return y
 
 
@@ -138,6 +129,6 @@ def inverse(x: torch.Tensor, tables) -> torch.Tensor:
     )
     if err != 0:
         raise RuntimeError(f"she_ntt_inverse launch failed with CUDA error {err}")
-    launches["ntt_inverse"] += 1
-    launch_shapes[LaunchKey("ntt_inverse", tuple(x.shape), tables.moduli, tables.block)] += 1
+    if trace.launch("ntt_inverse"):
+        trace.count_shape("ntt_inverse", LaunchKey("ntt_inverse", tuple(x.shape), tables.moduli, tables.block))
     return y

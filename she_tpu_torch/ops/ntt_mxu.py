@@ -52,6 +52,7 @@ from functools import lru_cache
 
 import torch
 
+from .. import trace
 from ..device import resolve_device
 from ..utils import nt
 from ..utils.refimpl import ntt_root_tables
@@ -65,8 +66,6 @@ BLOCK = 64  # width of the block phase: the last 6 forward stages
 MATRICES = ("Lf", "Rf", "Ri", "Li")  # she_tpu's phases: forward Lf then Rf, inverse Ri then Li
 ROW_MATRICES = ("Lf", "Li")  # the row phase, along the rows; "Rf" and "Ri" are the block phase
 ENV = "SHE_TPU_NTT_MXU"
-
-plain_calls_on_cuda = {"forward": 0, "inverse": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -299,7 +298,7 @@ def phase_plain(x: torch.Tensor, t: MxuNttTables, matrix: str) -> torch.Tensor:
     digits.recombine_partials."""
     _check_phase(x, t, matrix)
     if x.device.type == "cuda":
-        plain_calls_on_cuda["forward" if matrix.endswith("f") else "inverse"] += 1
+        trace.count("plain_on_cuda.ntt_mxu_forward" if matrix.endswith("f") else "plain_on_cuda.ntt_mxu_inverse")
     shape = x.shape
     xv = x.reshape(shape[:-1] + (t.A, BLOCK))
     xd = dg.value_digits(xv, t.D)
@@ -366,7 +365,7 @@ def forward_factored_plain(x: torch.Tensor, t: MxuNttTables) -> torch.Tensor:
     product by the shared R_f. Bit-identical to forward_ntt_plain."""
     _check_direction(x, t)
     if x.device.type == "cuda":
-        plain_calls_on_cuda["forward"] += 1
+        trace.count("plain_on_cuda.ntt_mxu_forward")
     xv = x.reshape(x.shape[:-1] + (t.A, BLOCK))
     y = ma.mul_mod(_digit_product(t.Lf, xv, t, row=True), t.s_f, t.q)
     return _digit_product(t.R_f, y, t, row=False).reshape(x.shape)
@@ -378,7 +377,7 @@ def inverse_factored_plain(x: torch.Tensor, t: MxuNttTables) -> torch.Tensor:
     Bit-identical to inverse_ntt_plain."""
     _check_direction(x, t)
     if x.device.type == "cuda":
-        plain_calls_on_cuda["inverse"] += 1
+        trace.count("plain_on_cuda.ntt_mxu_inverse")
     xv = x.reshape(x.shape[:-1] + (t.A, BLOCK))
     w = ma.mul_mod(_digit_product(t.R_i, xv, t, row=False), t.s_i, t.q)
     return _digit_product(t.Li, w, t, row=True).reshape(x.shape)

@@ -9,33 +9,30 @@ inputs, takes the kernel's operand images from the tables (made with them,
 by `kernel_operands`), allocates the output with torch.empty, launches
 on torch.cuda.current_stream() and raises if the launch reports a CUDA
 error. There is no fallback: a tensor the kernel does not take raises.
-`launches` counts each launch (one a direction); `launch_shapes` counts the
-same launches by DirectionKey (direction, input shape, moduli), so a run can
-check and time each shape it used.
+Each launch (one a direction) is counted in the tracer's registry as
+launch.ntt_mxu and, while tracing is on, by DirectionKey (direction, input
+shape, moduli), so a run can check and time each shape it used.
 """
 
 from __future__ import annotations
 
 import ctypes
 import struct
-from collections import Counter
 from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from . import kernel_build
 
 
 class DirectionKey(NamedTuple):
-    """What a launch is counted by in `launch_shapes`."""
+    """What a launch is counted by in the tracer's shape table."""
 
     direction: str  # "forward" or "inverse"
     shape: tuple
     moduli: tuple
 
-
-launches = {"ntt_mxu": 0}
-launch_shapes: Counter = Counter()
 
 DIRECTIONS = ("forward", "inverse")
 BLOCK = 64
@@ -49,12 +46,6 @@ OUTPUTS_PER_THREAD = 16  # a warpgroup's 64 x 32 tile of a unit over its 128 thr
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 _ARGS = [_VP] * 6 + [_INT] * 5 + [ctypes.c_longlong, _VP]
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
-    launch_shapes.clear()
 
 
 def _library():
@@ -177,8 +168,8 @@ def _launch(x: torch.Tensor, tables, direction: str) -> torch.Tensor:
     )
     if err != 0:
         raise RuntimeError(f"she_ntt_mxu launch failed with CUDA error {err}")
-    launches["ntt_mxu"] += 1
-    launch_shapes[DirectionKey(direction, tuple(x.shape), moduli)] += 1
+    if trace.launch("ntt_mxu"):
+        trace.count_shape("ntt_mxu", DirectionKey(direction, tuple(x.shape), moduli))
     return out
 
 

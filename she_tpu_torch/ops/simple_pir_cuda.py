@@ -19,24 +19,23 @@ per pair.
 
 `simple_pir_matmul` dispatches on the query's device: a CUDA tensor
 launches the kernel (or raises), a CPU tensor takes the plain version.
-`launches` counts each launch; `launch_shapes` counts the same launches by
-(planes shape, rows, query shape, b), so a run can time each shape it used.
+Each launch is counted in the tracer's registry as launch.simple_pir_matmul
+and, while tracing is on, by (planes shape, rows, query shape, b), so a run
+can time each shape it used.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from collections import Counter
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from .. import trace
 from . import kernel_build
 
-launches = {"simple_pir_matmul": 0}
-launch_shapes: Counter = Counter()
 
 PLANE_BITS = 8
 TILE_ROWS = 64  # rows of one wgmma and of a tile
@@ -64,12 +63,6 @@ def plane_count(bits: int) -> int:
 
 def padded_columns(columns: int) -> int:
     return -(-columns // COLUMN_STEP) * COLUMN_STEP
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
-    launch_shapes.clear()
 
 
 def _swizzle(tiles: torch.Tensor) -> torch.Tensor:
@@ -267,8 +260,8 @@ def simple_pir_matmul_cuda(planes: DatabasePlanes, queries: torch.Tensor, bits: 
     )
     if err != 0:
         raise RuntimeError(f"she_simple_pir_matmul launch failed with CUDA error {err}")
-    launches["simple_pir_matmul"] += 1
-    launch_shapes[(tuple(planes.data.shape), R, tuple(queries.shape), bits)] += 1
+    if trace.launch("simple_pir_matmul"):
+        trace.count_shape("simple_pir_matmul", (tuple(planes.data.shape), R, tuple(queries.shape), bits))
     return out
 
 

@@ -14,10 +14,11 @@ Transport follows the backend the caller made the mesh with (mesh.backend),
 never a guess:
 * nccl: the tensors lie on the card and stay there; a host tensor raises.
 * gloo: host tensors go as they are. A CUDA tensor is copied to the host,
-  sent, and the result copied back to its device, explicitly: `staged`
-  counts the bytes of those copies and their seconds on the host clock
-  (each copy waits for the device), so a run can report what staging
-  cost.
+  sent, and the result copied back to its device, explicitly: the
+  tracer's registry counts the bytes of those copies
+  (collective.staged_bytes) and their seconds on the host clock
+  (collective.staged_s; each copy waits for the device), so a run can
+  report what staging cost.
 No branch turns one backend into the other, and any other backend or
 device raises.
 """
@@ -29,12 +30,7 @@ import time
 import torch
 import torch.distributed as tdist
 
-staged = {"bytes": 0, "seconds": 0.0}
-
-
-def reset_staged() -> None:
-    staged["bytes"] = 0
-    staged["seconds"] = 0.0
+from .. import trace
 
 
 def _wire(x: torch.Tensor, backend: str) -> torch.Tensor:
@@ -52,8 +48,8 @@ def _wire(x: torch.Tensor, backend: str) -> torch.Tensor:
         raise ValueError(f"gloo stages CUDA or host tensors, got one on {x.device}")
     t0 = time.perf_counter()
     host = x.to("cpu").contiguous()
-    staged["seconds"] += time.perf_counter() - t0
-    staged["bytes"] += host.numel() * host.element_size()
+    trace.count("collective.staged_s", time.perf_counter() - t0)
+    trace.count("collective.staged_bytes", host.numel() * host.element_size())
     return host
 
 
@@ -64,8 +60,8 @@ def _home(y: torch.Tensor, device: torch.device) -> torch.Tensor:
     t0 = time.perf_counter()
     out = y.to(device)
     torch.cuda.synchronize(device)
-    staged["seconds"] += time.perf_counter() - t0
-    staged["bytes"] += y.numel() * y.element_size()
+    trace.count("collective.staged_s", time.perf_counter() - t0)
+    trace.count("collective.staged_bytes", y.numel() * y.element_size())
     return out
 
 

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import errors
+from .. import errors, trace
 from ..bfv import bfv
 from ..core.poly import COEFF
 from ..ops import behz
@@ -139,7 +139,7 @@ def sharded_ct_mul(a: "bfv.Ciphertext", b: "bfv.Ciphertext", mesh, axis: str = "
 
     scaled = behz.behz_tensor_mac(lifted_eval(a), lifted_eval(b), qbsk, ctx.plaintext_modulus)  # [3, M, N/S]
     floored = tool.floor_qbsk_to_q(sn.inverse_local(scaled))  # [3, L, N/S]
-    for k in bfv.behz_runs:  # one tensor product and one floor, as bfv.ct_mul counts them
-        bfv.behz_runs[k] += 1
+    trace.count("behz.tensor_product")  # one tensor product and one floor, as bfv.ct_mul counts them
+    trace.count("behz.floor")
     whole = collectives.all_gather_batch(floored, mesh, axis, dim=-1)
     return bfv.Ciphertext.from_stacked(ctx, whole, tool.input_context, COEFF, a.correction_factor)

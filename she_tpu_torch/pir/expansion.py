@@ -21,7 +21,7 @@ from functools import lru_cache
 
 import torch
 
-from .. import errors
+from .. import errors, trace
 from ..bfv import keys as keysmod
 from ..io import coeffs as coeffio
 from ..ops import key_switch as ks
@@ -129,17 +129,6 @@ def _plan_on_device(output_count: int, device: torch.device):
     return len(inner), levels
 
 
-# expansion levels combined since the last reset, and of them those that
-# wrote leaves: on a CUDA card each launches expand_combine's kernel once,
-# its leaf instance (expand_leaves) where the level writes leaves
-levels_run = {"expansion_level": 0, "leaf_level": 0}
-
-
-def reset_levels_run() -> None:
-    for k in levels_run:
-        levels_run[k] = 0
-
-
 def expand_stacked(stacked: torch.Tensor, output_count: int, evaluation_key, context,
                    out: torch.Tensor | None = None) -> torch.Tensor:
     """Level-batched expansion of one query ciphertext per batch entry.
@@ -150,7 +139,11 @@ def expand_stacked(stacked: torch.Tensor, output_count: int, evaluation_key, con
     from the pool of inner nodes in place, and its expand_combine writes
     the children: inner nodes into the pool, leaves (doubled where the
     plan says, she_tpu serving.py:168-171) straight into the output, so
-    nothing passes over the output after the last level."""
+    nothing passes over the output after the last level. The tracer's
+    registry counts each level as expansion_level and, where it writes
+    leaves, as leaf_level: on a CUDA card each launches expand_combine's
+    kernel once, its leaf instance (expand_leaves) where the level writes
+    leaves. The expansion is span `expand`, each level `expand.level`."""
     ct_ctx = context.ciphertext_context.get_context(stacked.shape[-2])
     if output_count == 1:
         # height 0: a single output, no doubling (logStep 1 > height 0)
@@ -160,21 +153,24 @@ def expand_stacked(stacked: torch.Tensor, output_count: int, evaluation_key, con
         return out
     inner_count, levels = _plan_on_device(output_count, stacked.device)
     shape = tuple(stacked.shape)
-    if out is None:
-        out = torch.empty((output_count,) + shape, dtype=stacked.dtype, device=stacked.device)
-    pool = torch.empty((inner_count,) + shape, dtype=stacked.dtype, device=stacked.device)
-    pool[0] = stacked
-    for log_step, parent_idx, child0_idx, child1_idx, writes_leaves, doubled in levels:
-        element, apply_count = expansion_step_element(evaluation_key, context.degree, log_step)
-        key = evaluation_key.galois_key.keys[element]
-        # the parents' Galois image, key-switched, read from the pool in place: [n, B, 2, L, N]
-        image = keysmod.key_switch(context, pool[:, :, 1], key, element, parent_idx, c0=pool[:, :, 0])
-        for _ in range(apply_count - 1):
-            image = keysmod.key_switch(context, image[:, :, 1], key, element, c0=image[:, :, 0])
-        ks.expand_combine(pool, image, parent_idx, child0_idx, child1_idx, 1 << (log_step - 1), ct_ctx,
-                          out=out if writes_leaves else None, doubled=doubled)
-        levels_run["expansion_level"] += 1
-        levels_run["leaf_level"] += int(writes_leaves)
+    with trace.span("expand"):
+        if out is None:
+            out = torch.empty((output_count,) + shape, dtype=stacked.dtype, device=stacked.device)
+        pool = torch.empty((inner_count,) + shape, dtype=stacked.dtype, device=stacked.device)
+        pool[0] = stacked
+        for log_step, parent_idx, child0_idx, child1_idx, writes_leaves, doubled in levels:
+            element, apply_count = expansion_step_element(evaluation_key, context.degree, log_step)
+            key = evaluation_key.galois_key.keys[element]
+            with trace.span("expand.level", level=log_step, parents=parent_idx.shape[0], applies=apply_count):
+                # the parents' Galois image, key-switched, read from the pool in place: [n, B, 2, L, N]
+                image = keysmod.key_switch(context, pool[:, :, 1], key, element, parent_idx, c0=pool[:, :, 0])
+                for _ in range(apply_count - 1):
+                    image = keysmod.key_switch(context, image[:, :, 1], key, element, c0=image[:, :, 0])
+                ks.expand_combine(pool, image, parent_idx, child0_idx, child1_idx, 1 << (log_step - 1), ct_ctx,
+                                  out=out if writes_leaves else None, doubled=doubled)
+            trace.count("expansion_level")
+            if writes_leaves:
+                trace.count("leaf_level")
     return out
 
 

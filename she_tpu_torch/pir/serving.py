@@ -42,7 +42,7 @@ import os
 
 import torch
 
-from .. import errors
+from .. import errors, trace
 from ..bfv import bfv
 from ..core.poly import COEFF, EVAL
 from ..ops import digits as dg
@@ -56,8 +56,6 @@ from .expansion import (  # noqa: F401
     build_expansion_plan,
     expand_batched,
     expand_stacked,
-    levels_run,
-    reset_levels_run,
 )
 
 
@@ -155,7 +153,8 @@ class BatchedMulPirServer:
     `dim0_query`), `fold_dimensions` and `mod_switch`. A caller may pass
     `on_stage`, called with each stage's name once its work is issued
     ("stack", "expand", "dim0", "fold_dimensions", "mod_switch"), to mark
-    the stages on the device's queue."""
+    the stages on the device's queue. Each batch is a root span of the
+    tracer (`server.batch`), with the stages' spans under it."""
 
     def __init__(self, parameter: ip.IndexPirParameter, context, databases: list, use_dim0_int8=None):
         self.parameter = parameter
@@ -200,16 +199,18 @@ class BatchedMulPirServer:
         """stack_queries on the context's device. she_tpu stacks a batch in
         one cached jitted dispatch; here that is already one torch.stack
         per ciphertext index."""
-        stacked, n_ct, indices_count = self.stack_queries(queries)
-        return [s.to(self.context.device) for s in stacked], n_ct, indices_count
+        with trace.span("server.stack"):
+            stacked, n_ct, indices_count = self.stack_queries(queries)
+            return [s.to(self.context.device) for s in stacked], n_ct, indices_count
 
     def compute_response_batch(self, queries: list, evaluation_key, on_stage=None) -> list:
         """queries: list of ip.Query; returns one ip.Response per query."""
-        stacked, n_ct, indices_count = self.stack_queries_device(queries)
-        _mark(on_stage, "stack")
-        return self.compute_response_batch_from_stacked(
-            stacked, evaluation_key, len(queries), n_ct, indices_count, on_stage
-        )
+        with trace.span("server.batch", B=len(queries), indices=queries[0].indices_count):
+            stacked, n_ct, indices_count = self.stack_queries_device(queries)
+            _mark(on_stage, "stack")
+            return self.compute_response_batch_from_stacked(
+                stacked, evaluation_key, len(queries), n_ct, indices_count, on_stage
+            )
 
     def compute_response_batch_from_stacked(
         self, stacked: list, evaluation_key, B: int, n_ct: int, indices_count: int = 1, on_stage=None
@@ -269,8 +270,9 @@ class BatchedMulPirServer:
         [d0, 2B, L, N], and the rest [sum(dims[1:]), B, 2, L, N] Coeff."""
         d0 = self.parameter.dimensions[0]
         B = expanded.shape[1]
-        dim0 = bfv.ct_to_eval(_ct(self.context, expanded[:d0], self.ct_ctx))
-        return dim0.stacked().reshape((d0, B * 2) + tuple(expanded.shape[-2:])), expanded[d0:]
+        with trace.span("dim0.to_eval"):
+            dim0 = bfv.ct_to_eval(_ct(self.context, expanded[:d0], self.ct_ctx))
+            return dim0.stacked().reshape((d0, B * 2) + tuple(expanded.shape[-2:])), expanded[d0:]
 
     def dim0(self, db_index: int, chunk_index: int, query_eval: torch.Tensor) -> torch.Tensor:
         """Stage 2b: one chunk's columns as Coeff ciphertexts [B, C, 2, L, N],
@@ -284,9 +286,10 @@ class BatchedMulPirServer:
         """The dim-0 sums [C, 2B, L, N] (Eval, fully reduced) of one chunk's
         hyper-rows `rows` against query_eval[rows], by the server's form of
         dim-0: all of d0 for `dim0`, a rank's share on a db mesh axis."""
-        if not self.use_dim0_int8:
-            return dim0_inner_products(self.chunks[db_index][chunk_index][:, rows], query_eval[rows], self.ct_ctx)
-        return dim0_int8(self.slice_digits(db_index, chunk_index, rows), query_eval[rows], self.ct_ctx)
+        with trace.span("dim0.mac"):
+            if not self.use_dim0_int8:
+                return dim0_inner_products(self.chunks[db_index][chunk_index][:, rows], query_eval[rows], self.ct_ctx)
+            return dim0_int8(self.slice_digits(db_index, chunk_index, rows), query_eval[rows], self.ct_ctx)
 
     def slice_digits(self, db_index: int, chunk_index: int, rows: slice) -> torch.Tensor:
         """The int8 digits of one chunk's hyper-rows `rows`: the chunk's own
@@ -304,22 +307,24 @@ class BatchedMulPirServer:
         [B, C, 2, L, N]."""
         C, B = results.shape[0], results.shape[1] // 2
         results = results.reshape((C, B, 2) + tuple(results.shape[-2:]))
-        return bfv.ct_to_coeff(_ct(self.context, results.transpose(0, 1), self.ct_ctx, EVAL)).stacked()
+        with trace.span("dim0.to_coeff"):
+            return bfv.ct_to_coeff(_ct(self.context, results.transpose(0, 1), self.ct_ctx, EVAL)).stacked()
 
     def fold_dimensions(self, columns: torch.Tensor, rest: torch.Tensor, evaluation_key) -> torch.Tensor:
         """Stage 3: the higher dimensions, BEHZ ct-ct inner products and
         relinearization, down to [B, 1, 2, L, N]."""
         ctx, ct_ctx = self.context, self.ct_ctx
         query_start = 0
-        for dim_size in self.parameter.dimensions[1:]:
-            v0 = rest[query_start : query_start + dim_size].transpose(0, 1)  # [B, d, 2, L, N]
-            groups = []
-            for start in range(0, columns.shape[1], dim_size):
-                v1 = columns[:, start : start + dim_size]
-                prod = bfv.inner_product_ct_ct_stacked(_ct(ctx, v0, ct_ctx), _ct(ctx, v1, ct_ctx), axis=-3)
-                groups.append(bfv.relinearize(prod, evaluation_key).stacked())
-            columns = torch.stack(groups, dim=1)  # [B, groups, 2, L, N]
-            query_start += dim_size
+        with trace.span("fold"):
+            for dim_size in self.parameter.dimensions[1:]:
+                v0 = rest[query_start : query_start + dim_size].transpose(0, 1)  # [B, d, 2, L, N]
+                groups = []
+                for start in range(0, columns.shape[1], dim_size):
+                    v1 = columns[:, start : start + dim_size]
+                    prod = bfv.inner_product_ct_ct_stacked(_ct(ctx, v0, ct_ctx), _ct(ctx, v1, ct_ctx), axis=-3)
+                    groups.append(bfv.relinearize(prod, evaluation_key).stacked())
+                columns = torch.stack(groups, dim=1)  # [B, groups, 2, L, N]
+                query_start += dim_size
         if columns.shape[1] != 1:
             raise errors.PirError("dimensions do not reduce to one ciphertext")
         return columns
@@ -338,13 +343,15 @@ class BatchedMulPirServer:
     def _assemble_responses(self, out: list, B: int) -> list:
         """out: per query index, per chunk, [B, 2, 1, N] -> ip.Response each."""
         single_ctx = self.ct_ctx.get_context(1)
-        unbound = [[self._unbind_batch(arr) for arr in reply] for reply in out]
-        return [
-            ip.Response(
-                [[bfv.Ciphertext.from_stacked(self.context, parts[b], single_ctx) for parts in reply] for reply in unbound]
-            )
-            for b in range(B)
-        ]
+        with trace.span("server.assemble"):
+            unbound = [[self._unbind_batch(arr) for arr in reply] for reply in out]
+            return [
+                ip.Response(
+                    [[bfv.Ciphertext.from_stacked(self.context, parts[b], single_ctx) for parts in reply]
+                     for reply in unbound]
+                )
+                for b in range(B)
+            ]
 
 
 class BatchedKeywordPirServer:

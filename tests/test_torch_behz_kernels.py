@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from she_tpu_torch import params as tparams
+from she_tpu_torch import trace
 from she_tpu_torch.bfv import bfv
 from she_tpu_torch.core import rns
 from she_tpu_torch.core.context import get_poly_context
@@ -42,6 +43,7 @@ MODULI = {
 DEGREES = [8, 512, 4096, 8192]
 FILLS = ["zero", "max", "random"]
 SCALES = [1, 17, (1 << 41) + 32769]
+KERNELS = ("behz_lift", "behz_tensor_mac", "behz_floor")
 
 
 def _card() -> torch.device:
@@ -79,9 +81,9 @@ def test_behz_lift(route, degree, l_count, fill):
     q, bsk = tool.input_context.moduli, tool.bsk_context.moduli
     base = _rows(q, (3, 2), degree, seed=degree + l_count, fill=fill)
     for x in (base, base.transpose(0, 1), base[..., degree // 2:]):  # contiguous, transposed, a column block
-        before = bc.launches["behz_lift"]
+        before = trace.counters["launch.behz_lift"]
         got = bc.behz_lift(x, q, bsk, tool.m_tilde)
-        assert bc.launches["behz_lift"] == before + 1
+        assert trace.counters["launch.behz_lift"] == before + 1
         assert torch.equal(got, behz.behz_lift_plain(x, tool)), tuple(x.stride())
 
 
@@ -198,15 +200,16 @@ def test_products_on_the_card_equal_the_cpu(params, bits):
         values = _rows(ct_ctx.moduli, (2, 9, 2), ctx.degree, seed=95).to(device)
         lhs = bfv.Ciphertext.from_stacked(ctx, values[0], ct_ctx)
         rhs = bfv.Ciphertext.from_stacked(ctx, values[1], ct_ctx)
-        before, plain = dict(bc.launches), dict(behz.plain_calls_on_cuda)
+        before = dict(trace.counters)
         one = bfv.ct_mul(bfv.Ciphertext.from_stacked(ctx, values[0, 0], ct_ctx),
                          bfv.Ciphertext.from_stacked(ctx, values[1, 0], ct_ctx))
         out[device] = [one.stacked().cpu(), bfv.inner_product_ct_ct_stacked(lhs, rhs).stacked().cpu()]
-        launched = {k: bc.launches[k] - before[k] for k in bc.launches}
+        launched = {k: trace.counters["launch." + k] - before.get("launch." + k, 0) for k in KERNELS}
+        plain = {k: trace.counters["plain_on_cuda." + k] - before.get("plain_on_cuda." + k, 0) for k in KERNELS}
         if device == "cuda":
             assert launched == {"behz_lift": 4, "behz_tensor_mac": 2, "behz_floor": 2}
-            assert behz.plain_calls_on_cuda == plain
+            assert plain == dict.fromkeys(KERNELS, 0)
         else:
-            assert launched == dict.fromkeys(bc.launches, 0)
+            assert launched == dict.fromkeys(KERNELS, 0)
     for got, want in zip(out["cuda"], out["cpu"]):
         assert torch.equal(got, want)

@@ -22,6 +22,7 @@ import torch
 
 from she_tpu_torch import convert
 from she_tpu_torch import params as tparams
+from she_tpu_torch import trace
 from she_tpu_torch.bfv import bfv as tbfv
 from she_tpu_torch.core.context import get_poly_context
 from she_tpu_torch.ops import digits as dg
@@ -147,9 +148,10 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     db, query = _operands(W32, 2, 5, 2, 8)
     ctx = get_poly_context(8, W32, 32, torch.device("cpu"))
     digits = tserving.pack_database_chunk_digits(torch.from_numpy(db), ctx)
+    before = trace.counters["launch.dim0_int8"]
     with pytest.raises(ValueError, match="CUDA"):
         dim0_cuda.dim0_int8(digits, torch.from_numpy(query), ctx)
-    assert dim0_cuda.launches["dim0_int8"] == 0
+    assert trace.counters["launch.dim0_int8"] == before
 
 
 # -- the batched servers ---------------------------------------------------------
@@ -297,10 +299,10 @@ def test_kernel_matches_plain(moduli, C, d0, P, N, fill):
     ctx = get_poly_context(N, tuple(moduli), 64, dev)
     db_t, query_t = torch.from_numpy(db).to(dev), torch.from_numpy(query).to(dev)
     digits = tserving.pack_database_chunk_digits(db_t, ctx)
-    before = dim0_cuda.launches["dim0_int8"]
+    before = trace.counters["launch.dim0_int8"]
     got = tserving.dim0_int8(digits, query_t, ctx)
     torch.cuda.synchronize()
-    assert dim0_cuda.launches["dim0_int8"] == before + 1
+    assert trace.counters["launch.dim0_int8"] == before + 1
     assert torch.equal(got, tserving.dim0_inner_products_int8(digits, query_t, ctx))
     assert torch.equal(got, tserving.dim0_inner_products(db_t, query_t, ctx))
 

@@ -42,6 +42,7 @@ from she_tpu.pnns import serving as jpnns_serving
 from she_tpu.rng.ctr_drbg import nist_aes128_ctr as jrng
 from she_tpu_torch import convert
 from she_tpu_torch import params as tparams
+from she_tpu_torch import trace
 from she_tpu_torch.bfv import bfv as tbfv
 from she_tpu_torch.core import context as tctxmod
 from she_tpu_torch.core.poly import EVAL, PolyRq
@@ -100,7 +101,7 @@ def _contexts(name):
 
 
 def _no_kernel_launched(before):
-    assert dim0_mac_cuda.launches == before and dim0_mac.plain_calls_on_cuda == {"dim0_mac": 0}
+    assert trace.counters["launch.dim0_mac"] == before and trace.counters["plain_on_cuda.dim0_mac"] == 0
 
 
 # -- the dim-0 MAC against she_tpu ----------------------------------------------
@@ -117,7 +118,7 @@ def test_dim0_inner_products_match_she_tpu(name, d0, fill):
     chunk = _residues(tctx.moduli, (3, d0 + 2), degree, seed=d0 + degree, fill=fill)
     query = _residues(tctx.moduli, (d0, 4), degree, seed=7 * d0 + degree, fill=fill)
     db = chunk[:, 1:d0 + 1]
-    before = dict(dim0_mac_cuda.launches)
+    before = trace.counters["launch.dim0_mac"]
     got = tserving.dim0_inner_products(torch.from_numpy(chunk)[:, 1:d0 + 1], torch.from_numpy(query), tctx)
     _no_kernel_launched(before)
     want = jserving.dim0_inner_products(jnp.asarray(_limbs_at(db, nlimbs, 2)), jnp.asarray(_limbs_at(query, nlimbs, 2)),
@@ -412,11 +413,11 @@ def _expand_both(keyed, output_count, reference=jserving.expand_batched):
     count_cts = -(-output_count // 8)
     stacked = [torch.stack([convert.ciphertext_from_limbs(keyed["tctx"], keyed["limbs"](q[i])).stacked()
                             for q in keyed["queries"]]) for i in range(count_cts)]  # per ciphertext [B, 2, L, N]
-    tserving.reset_levels_run()
+    before = trace.counters["leaf_level"]
     got = tserving.expand_batched(stacked, output_count, keyed["tek"], keyed["tctx"])
     assert tuple(got.shape[:2]) == (output_count, len(keyed["queries"]))
     per_ct = [min(8, output_count - 8 * i) for i in range(count_cts)]
-    assert tserving.levels_run["leaf_level"] == sum(2 if n in (3, 7) else int(n > 1) for n in per_ct)
+    assert trace.counters["leaf_level"] - before == sum(2 if n in (3, 7) else int(n > 1) for n in per_ct)
     for b, query in enumerate(keyed["queries"]):
         want = (jip.expand(query[:count_cts], output_count, keyed["jek"]) if reference is jip.expand
                 else reference(query[:count_cts], output_count, keyed["jek"], keyed["jctx"]))

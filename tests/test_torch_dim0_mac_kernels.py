@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from she_tpu_torch import params as tparams
+from she_tpu_torch import trace
 from she_tpu_torch.bfv import bfv
 from she_tpu_torch.core.context import get_poly_context
 from she_tpu_torch.core.poly import EVAL, PolyRq
@@ -82,9 +83,9 @@ def _ctx(moduli, degree):
 
 
 def _equal(a, b, moduli, degree):
-    before = dc.launches["dim0_mac"]
+    before = trace.counters["launch.dim0_mac"]
     got = dc.dim0_mac(a, b, moduli)
-    assert dc.launches["dim0_mac"] == before + 1
+    assert trace.counters["launch.dim0_mac"] == before + 1
     want = dim0_mac.dim0_mac_plain(a, b, _ctx(moduli, degree))
     assert torch.equal(got, want), (tuple(a.shape), tuple(a.stride()), tuple(b.shape), tuple(b.stride()))
 
@@ -180,14 +181,14 @@ def test_widest_served_mac(cell):
     ct_ctx = bfv.get_bfv_context(ep, device="cuda").ciphertext_context
     a = _device_rows(ct_ctx.moduli, a_batch, ct_ctx.degree, seed=7)
     b = _device_rows(ct_ctx.moduli, b_batch, ct_ctx.degree, seed=8)
-    plain = dict(dim0_mac.plain_calls_on_cuda)
+    plain = trace.counters["plain_on_cuda.dim0_mac"]
     if cell == "w64":
         got = serving.dim0_inner_products(a, b, ct_ctx)
         want_a = a
     else:
         got = pnns_serving.bsgs_inner_products(a, b, ct_ctx)
         want_a = a.permute(0, 2, 1, 3, 4)
-    assert dim0_mac.plain_calls_on_cuda == plain
+    assert trace.counters["plain_on_cuda.dim0_mac"] == plain
     assert torch.equal(got, dim0_mac.dim0_mac_plain(want_a, b, ct_ctx))
 
 
@@ -207,10 +208,10 @@ def test_inner_product_ct_pt_on_the_card_equals_the_cpu(bits):
         pts = _rows(ct_ctx.moduli, (5,), ctx.degree, seed=10).to(device)
         tcts = [bfv.Ciphertext.from_stacked(ctx, c, ct_ctx, EVAL) for c in cts]
         tpts = [bfv.Plaintext(ctx, PolyRq(p, ct_ctx, EVAL)) if i % 2 == 0 else None for i, p in enumerate(pts)]
-        before, plain = dc.launches["dim0_mac"], dict(dim0_mac.plain_calls_on_cuda)
+        before, plain = trace.counters["launch.dim0_mac"], trace.counters["plain_on_cuda.dim0_mac"]
         out[device] = bfv.inner_product_ct_pt(tcts, tpts).stacked().cpu()
-        assert dc.launches["dim0_mac"] - before == (2 if device == "cuda" else 0)
-        assert dim0_mac.plain_calls_on_cuda == plain
+        assert trace.counters["launch.dim0_mac"] - before == (2 if device == "cuda" else 0)
+        assert trace.counters["plain_on_cuda.dim0_mac"] == plain
     assert torch.equal(out["cuda"], out["cpu"])
 
 
@@ -235,9 +236,9 @@ def test_expand_leaves(route, degree, fill):
     for shift in sorted({1, 2, degree // 4, degree // 2} - {0}):
         for doubled in masks:
             got_pool, got_out, want_pool, want_out = pool.clone(), out.clone(), pool.clone(), out.clone()
-            before = kc.launches["expand_leaves"]
+            before = trace.counters["launch.expand_leaves"]
             kc.expand_combine(got_pool, update, parents, child0, child1, shift, moduli, got_out, doubled)
-            assert kc.launches["expand_leaves"] == before + 1
+            assert trace.counters["launch.expand_leaves"] == before + 1
             ks.expand_combine_plain(want_pool, update, parents, child0, child1, shift, ctx, want_out, doubled)
             assert torch.equal(got_pool, want_pool) and torch.equal(got_out, want_out), (shift, doubled is None)
 
@@ -290,12 +291,13 @@ def test_expansion_on_the_card_equals_the_cpu(output_count):
         ek = convert.evaluation_key_from_limbs(ctx, galois, None)
         ct_ctx = ctx.ciphertext_context
         stacked = [_rows(ct_ctx.moduli, (3, 2), 8, seed=20 + i).to(device) for i in range(-(-output_count // 8))]
-        serving.reset_levels_run()
-        before, plain = dict(kc.launches), dict(ks.plain_calls_on_cuda)
+        before = dict(trace.counters)
         out[device] = serving.expand_batched(stacked, output_count, ek, ctx).cpu()
-        launched = {k: kc.launches[k] - before[k] for k in ("expand_combine", "expand_leaves")}
+        ran = {k: trace.counters[k] - before.get(k, 0) for k in ("expansion_level", "leaf_level")}
+        launched = {k: trace.counters["launch." + k] - before.get("launch." + k, 0)
+                    for k in ("expand_combine", "expand_leaves")}
         if device == "cuda":
-            assert launched == {"expand_combine": serving.levels_run["expansion_level"] - serving.levels_run["leaf_level"],
-                                "expand_leaves": serving.levels_run["leaf_level"]}
-            assert ks.plain_calls_on_cuda == plain
+            assert launched == {"expand_combine": ran["expansion_level"] - ran["leaf_level"],
+                                "expand_leaves": ran["leaf_level"]}
+            assert not any(v - before.get(k, 0) for k, v in trace.counters.items() if k.startswith("plain_on_cuda."))
     assert torch.equal(out["cuda"], out["cpu"])

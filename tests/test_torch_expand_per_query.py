@@ -27,6 +27,7 @@ from she_tpu.rng.ctr_drbg import nist_aes128_ctr as jrng
 from she_tpu_torch import convert
 from she_tpu_torch import errors as terrors
 from she_tpu_torch import params as tparams
+from she_tpu_torch import trace
 from she_tpu_torch.bfv import bfv as tbfv
 from she_tpu_torch.bfv import keys as tkeys
 from she_tpu_torch.core.poly import EVAL, PolyRq
@@ -87,14 +88,13 @@ def _expected_levels(counts, apply_count):
 def _port_expand(keyed, count):
     """The port's per-query expand, with the levels and key switches it ran."""
     tcts = [t for _, t in keyed["cts"]][: -(-count // N)]
-    tserving.reset_levels_run()
-    tkeys.reset_switches()
+    before = dict(trace.counters)
     got = tip.expand(tcts, count, keyed["tek"])
+    ran = {k: trace.counters[k] - before.get(k, 0) for k in ("expansion_level", "leaf_level", "key_switch")}
     counts = [min(N, count - N * i) for i in range(len(tcts))]
     _, apply_count = expansion.expansion_step_element(keyed["tek"], N, 1)
     levels, leaf_levels, switches = _expected_levels(counts, apply_count)
-    assert tserving.levels_run == {"expansion_level": levels, "leaf_level": leaf_levels}
-    assert tkeys.switches == {"key_switch": switches}
+    assert ran == {"expansion_level": levels, "leaf_level": leaf_levels, "key_switch": switches}
     return tcts, got
 
 

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from she_tpu_torch import trace
 from she_tpu_torch.core import rns
 from she_tpu_torch.ops import modarith as ma
 from she_tpu_torch.ops import ntt as tntt
@@ -69,14 +70,14 @@ def test_kernel_matches_plain(word_bits, degree, fill, batch, nmod):
     tables = tntt.build_ntt_tables(moduli, degree, dev)
     assert tables.word_bits == word_bits
     x = _rows(moduli, degree, batch, seed=degree, fill=fill).to(dev)
-    before = dict(ntt_cuda.launches)
+    before = dict(trace.counters)
     fwd = ntt_cuda.forward(x, tables)
     assert torch.equal(fwd, tntt.forward_ntt_plain(x, tables))
     inv = ntt_cuda.inverse(fwd, tables)
     assert torch.equal(inv, tntt.inverse_ntt_plain(fwd, tables))
     assert torch.equal(inv, x)
-    assert ntt_cuda.launches["ntt_forward"] == before["ntt_forward"] + 1
-    assert ntt_cuda.launches["ntt_inverse"] == before["ntt_inverse"] + 1
+    assert trace.counters["launch.ntt_forward"] == before.get("launch.ntt_forward", 0) + 1
+    assert trace.counters["launch.ntt_inverse"] == before.get("launch.ntt_inverse", 0) + 1
 
 
 @pytest.mark.gpu
@@ -86,12 +87,12 @@ def test_kernel_w64_moduli_round_trip_and_reference(fill):
     tables = tntt.build_ntt_tables(W64_MODULI, 8192, dev)
     assert tables.word_bits == 64
     x = _rows(W64_MODULI, 8192, batch=2, seed=3, fill=fill).to(dev)
-    before = dict(ntt_cuda.launches)
+    before = dict(trace.counters)
     fwd = ntt_cuda.forward(x, tables)
     assert fwd[0, 2].tolist() == refimpl.forward_ntt(x[0, 2].tolist(), W64_MODULI[2])
     assert torch.equal(ntt_cuda.inverse(fwd, tables), x)
-    assert ntt_cuda.launches["ntt_forward"] == before["ntt_forward"] + 1
-    assert ntt_cuda.launches["ntt_inverse"] == before["ntt_inverse"] + 1
+    assert trace.counters["launch.ntt_forward"] == before.get("launch.ntt_forward", 0) + 1
+    assert trace.counters["launch.ntt_inverse"] == before.get("launch.ntt_inverse", 0) + 1
 
 
 @pytest.mark.gpu
@@ -99,11 +100,11 @@ def test_dispatch_launches_kernel_for_cuda_tensors():
     dev = _card()
     tables = tntt.build_ntt_tables(W32_MODULI, 256, dev)
     x = _rows(W32_MODULI, 256, batch=1).to(dev)
-    plain_before = dict(tntt.plain_calls_on_cuda)
-    before = ntt_cuda.launches["ntt_forward"]
+    plain_before = [trace.counters["plain_on_cuda." + k] for k in ("ntt_forward", "ntt_inverse")]
+    before = trace.counters["launch.ntt_forward"]
     tntt.forward_ntt(x, tables)
-    assert ntt_cuda.launches["ntt_forward"] == before + 1
-    assert tntt.plain_calls_on_cuda == plain_before
+    assert trace.counters["launch.ntt_forward"] == before + 1
+    assert [trace.counters["plain_on_cuda." + k] for k in ("ntt_forward", "ntt_inverse")] == plain_before
 
 
 @pytest.mark.gpu
@@ -140,14 +141,14 @@ def test_row_walk_matches_plain_at_served_moduli(L, batch, fill):
     tables = tntt.build_ntt_tables(moduli, 8192, dev)
     assert tables.word_bits == 64
     x = _rows(moduli, 8192, batch, seed=batch + L, fill=fill).to(dev)
-    before = dict(ntt_cuda.launches)
+    before = dict(trace.counters)
     fwd = ntt_cuda.forward(x, tables)
     assert torch.equal(fwd, tntt.forward_ntt_plain(x, tables))
     inv = ntt_cuda.inverse(fwd, tables)
     assert torch.equal(inv, tntt.inverse_ntt_plain(fwd, tables))
     assert torch.equal(inv, x)
-    assert ntt_cuda.launches["ntt_forward"] == before["ntt_forward"] + 1
-    assert ntt_cuda.launches["ntt_inverse"] == before["ntt_inverse"] + 1
+    assert trace.counters["launch.ntt_forward"] == before.get("launch.ntt_forward", 0) + 1
+    assert trace.counters["launch.ntt_inverse"] == before.get("launch.ntt_inverse", 0) + 1
 
 
 @pytest.mark.gpu
@@ -248,12 +249,13 @@ def test_simd_encoding_on_the_card_equals_the_cpu():
     got = {}
     for device in (dev, torch.device("cpu")):
         ctx = bfv.get_bfv_context(ep, device=device)
-        before = dict(ntt_cuda.launches)
+        before = dict(trace.counters)
         data = bfv.encode_simd_batch(ctx, rows)
         pt = bfv.Plaintext(ctx, PolyRq(data[3], ctx.plaintext_context, COEFF))
         got[device.type] = (data.cpu(), bfv.decode(ctx, pt, "simd"),
                             bfv.plaintext_to_eval(ctx, pt).poly.data.cpu())
-        launched = {k: ntt_cuda.launches[k] - before[k] for k in ("ntt_forward", "ntt_inverse")}
+        launched = {k: trace.counters["launch." + k] - before.get("launch." + k, 0)
+                    for k in ("ntt_forward", "ntt_inverse")}
         on_card = device.type == "cuda"
         assert launched == {"ntt_forward": 2 * on_card, "ntt_inverse": 1 * on_card}
     assert torch.equal(got["cuda"][0], got["cpu"][0]) and torch.equal(got["cuda"][2], got["cpu"][2])
@@ -288,10 +290,10 @@ def test_simple_pir_matmul_matches_plain(k, C, b_bits):
     dev = _card()
     db, queries = _simple_pir_operands(131, C, k, 9, b_bits, seed=C + k + b_bits)
     planes = spc.database_planes(db.to(dev), 9)
-    before = spc.launches["simple_pir_matmul"]
+    before = trace.counters["launch.simple_pir_matmul"]
     got = spc.simple_pir_matmul(planes, queries.to(dev), b_bits)
     torch.cuda.synchronize()
-    assert spc.launches["simple_pir_matmul"] == before + 1
+    assert trace.counters["launch.simple_pir_matmul"] == before + 1
     assert got.shape == (k, 131)
     assert torch.equal(got, spc.simple_pir_matmul_plain(planes, queries.to(dev), b_bits))
 
@@ -397,9 +399,9 @@ def test_simple_pir_on_the_card_equals_the_cpu():
         server = sp.SimplePirServer(res.database, res.hint, res.params, device=device)
         client = sp.SimplePirClient(res.params, res.hint, device=device)
         queries = [client.query(i, rng=nist_aes128_ctr(bytes([i % 256]) * 32)) for i in (0, 7, 299)]
-        before = spc.launches["simple_pir_matmul"]
+        before = trace.counters["launch.simple_pir_matmul"]
         answers = server.compute_response(torch.cat([q.queries for q in queries]))
-        assert spc.launches["simple_pir_matmul"] == before + (device.type == "cuda")
+        assert trace.counters["launch.simple_pir_matmul"] == before + (device.type == "cuda")
         for i, q in enumerate(queries):
             assert client.decrypt(answers[i : i + 1], q.prepare_response(), q.index) == entries[q.index].tobytes()
         got[device.type] = [t.cpu() for t in (res.database, res.hint, queries[1].queries, answers)]

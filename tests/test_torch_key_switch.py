@@ -35,6 +35,7 @@ from she_tpu.pir import index_pir as jip
 from she_tpu.rng.ctr_drbg import nist_aes128_ctr as jrng
 from she_tpu_torch import convert
 from she_tpu_torch import params as tparams
+from she_tpu_torch import trace
 from she_tpu_torch.bfv import bfv as tbfv
 from she_tpu_torch.bfv import keys as tkeys
 from she_tpu_torch.core import context as tctxmod
@@ -46,6 +47,7 @@ from she_tpu_torch.utils import nt
 PARAMS = "insecure_n_8_logq_5x18_logt_5"
 N = 8
 CPU = torch.device("cpu")
+KS_OPS = ("ks_digits", "ks_mac", "ks_finish", "expand_combine", "expand_leaves", "mod_switch")
 # near 2^62, q_0 > q_1 (so (q_0 - a) mod q_1 != q_1 - (a mod q_1)), q_ks last
 BIG = tuple(nt.generate_primes([62, 61, 62], preferring_small=False, ntt_degree=N))
 BIG17 = tuple(nt.generate_primes([62] * 18, preferring_small=False, ntt_degree=N))
@@ -224,11 +226,11 @@ def test_expand_stacked_matches_she_tpu(keyed):
     tctx = keyed["tctx"]
     assert tserving.ip.expansion_step_element(keyed["tek"], N, 1) == (5, 2)
     stacked = torch.stack([tct.stacked() for _, tct in keyed["cts"]])  # [2, 2, L, N]
-    tkeys.reset_switches()
-    tserving.reset_levels_run()
+    before = dict(trace.counters)
     got = tserving.expand_stacked(stacked, N, keyed["tek"], tctx)
-    assert tkeys.switches == {"key_switch": 1 + 2 + 1}  # a call a level, two at level 1
-    assert tserving.levels_run == {"expansion_level": 3, "leaf_level": 1}  # the last level writes the 8 leaves
+    ran = {k: trace.counters[k] - before.get(k, 0) for k in ("key_switch", "expansion_level", "leaf_level")}
+    # a key switch a level, two at level 1; the last level writes the 8 leaves
+    assert ran == {"key_switch": 1 + 2 + 1, "expansion_level": 3, "leaf_level": 1}
     for b, (jct, _) in enumerate(keyed["cts"]):
         want = jip.expand([jct], N, keyed["jek"])
         assert len(want) == got.shape[0]
@@ -350,7 +352,7 @@ def test_strided_and_indexed_operands():
     inv = torch.from_numpy(_rand(ctx.moduli, batch=(2, 3, 2), seed=71))
     got = ks.ks_finish(inv, ctx, pool[:, :, 0], None, 3, index)
     assert torch.equal(got, ks.ks_finish_plain(inv, ctx, pool.index_select(0, index)[:, :, 0].contiguous(), None, 3))
-    assert not any(ks.plain_calls_on_cuda.values())
+    assert not any(trace.counters["plain_on_cuda." + op] for op in KS_OPS)
 
 
 def _cpu_args():

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from she_tpu_torch import trace
 from she_tpu_torch.core.context import get_poly_context
 from she_tpu_torch.ops import key_switch as ks
 from she_tpu_torch.ops import key_switch_cuda as kc
@@ -37,6 +38,7 @@ MODULI = {
 }
 DEGREES = [8, 512, 4096, 8192]
 FILLS = ["zero", "max", "random"]
+KS_KERNELS = ("ks_digits", "ks_mac", "ks_finish", "expand_combine", "expand_leaves", "mod_switch")
 
 
 def _card() -> torch.device:
@@ -80,9 +82,9 @@ def test_ks_digits(route, degree, l_t, fill):
     stacked = _rows(moduli[:-1], (3, 2), degree, seed=degree + l_t, fill=fill)  # c1 a strided view
     c1 = stacked[:, 1]
     for element in _elements(degree):
-        before = kc.launches["ks_digits"]
+        before = trace.counters["launch.ks_digits"]
         got = kc.ks_digits(c1, moduli, element)
-        assert kc.launches["ks_digits"] == before + 1
+        assert trace.counters["launch.ks_digits"] == before + 1
         assert torch.equal(got, ks.ks_digits_plain(c1, _ctx(moduli, degree), element)), element
 
 
@@ -190,7 +192,7 @@ def test_dispatch_takes_the_kernels_on_cuda():
     _card()
     moduli = _ks_moduli("w32", 2)
     ctx = _ctx(moduli, 64)
-    before, plain = dict(kc.launches), dict(ks.plain_calls_on_cuda)
+    before = dict(trace.counters)
     c = _rows(moduli[:-1], (2, 2), 64, seed=41)
     digits = ks.ks_digits(c[:, 1], ctx, 3)
     mac = ks.ks_mac(digits, _rows(moduli, (2, 2), 64, seed=42), ctx)
@@ -201,8 +203,10 @@ def test_dispatch_takes_the_kernels_on_cuda():
     leaves = torch.zeros((1,) + tuple(pool.shape[1:]), dtype=torch.int64, device="cuda")
     ks.expand_combine(pool, out[:1], idx[:1], idx[1:2], -idx[:1] - 1, 4, _ctx(moduli[:-1], 64), leaves)
     ks.mod_switch(out, _ctx(moduli[:-1], 64), 1)
-    assert {k: kc.launches[k] - before[k] for k in kc.launches} == dict.fromkeys(kc.launches, 1)
-    assert ks.plain_calls_on_cuda == plain
+    assert {k: trace.counters["launch." + k] - before.get("launch." + k, 0) for k in KS_KERNELS} == dict.fromkeys(
+        KS_KERNELS, 1)
+    assert {k: trace.counters["plain_on_cuda." + k] - before.get("plain_on_cuda." + k, 0) for k in KS_KERNELS} == (
+        dict.fromkeys(KS_KERNELS, 0))
 
 
 # -- the mod switch ------------------------------------------------------------
@@ -235,9 +239,9 @@ def test_mod_switch(route, degree, count, fill):
     ctx = _ctx(moduli, degree)
     x = _switch_rows(moduli, (3, 2), degree, seed=37 * degree + count, fill=fill).transpose(0, 1)
     for target in range(1, count):
-        before = kc.launches["mod_switch"]
+        before = trace.counters["launch.mod_switch"]
         got = kc.mod_switch(x, moduli, target)
-        assert kc.launches["mod_switch"] == before + 1
+        assert trace.counters["launch.mod_switch"] == before + 1
         assert torch.equal(got, ks.mod_switch_plain(x, ctx, target)), target
 
 

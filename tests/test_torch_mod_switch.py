@@ -26,6 +26,7 @@ from she_tpu.core import poly as jpoly
 from she_tpu.ops import word as wordmod
 from she_tpu_torch import errors as terrors
 from she_tpu_torch import params as tparams
+from she_tpu_torch import trace
 from she_tpu_torch.bfv import bfv as tbfv
 from she_tpu_torch.core import context as tctxmod
 from she_tpu_torch.core.poly import COEFF, EVAL, PolyRq
@@ -124,16 +125,16 @@ def test_mod_switch_at_n256_matches_she_tpu(count, target):
 
 
 def test_mod_switch_down_to_single_is_one_dispatch():
-    """Every drop of every poly in one mod_switch: bfv.mod_switch_runs
-    counts one, and a ciphertext already at one modulus is returned as it
+    """Every drop of every poly in one mod_switch: the tracer's registry
+    counts one mod_switch, and a ciphertext already at one modulus is returned as it
     is, with no run."""
     moduli = _moduli(32)
     _, tct = _ciphertexts(32, moduli, 8, (3,), seed=5)
-    tbfv.reset_mod_switch_runs()
+    before = trace.counters["mod_switch"]
     single = tbfv.mod_switch_down_to_single(tct)
-    assert tbfv.mod_switch_runs == {"mod_switch": 1}
+    assert trace.counters["mod_switch"] == before + 1
     assert single.moduli_count == 1 and tbfv.mod_switch_down_to_single(single) is single
-    assert tbfv.mod_switch_runs == {"mod_switch": 1}
+    assert trace.counters["mod_switch"] == before + 1
 
 
 @pytest.mark.parametrize("count,target", CASES + [(8, 3)])

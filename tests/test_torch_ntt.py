@@ -13,6 +13,7 @@ from she_tpu.ops import ntt as jntt
 from she_tpu.ops import ntt_pallas
 from she_tpu.ops import word as wordmod
 from she_tpu.utils import refimpl
+from she_tpu_torch import trace
 from she_tpu_torch.ops import ntt as tntt
 from she_tpu_torch.ops import ntt_cuda
 
@@ -117,10 +118,10 @@ def test_plain_matches_pallas_interpret(monkeypatch, degree):
 
 def test_cpu_tensor_takes_plain_version():
     tables = tntt.build_ntt_tables(W32_MODULI, 8, CPU)
-    before = dict(ntt_cuda.launches)
+    before = trace.launch_total
     x = torch.from_numpy(_rows(W32_MODULI, 8, batch=2))
     tntt.inverse_ntt(tntt.forward_ntt(x, tables), tables)
-    assert ntt_cuda.launches == before
+    assert trace.launch_total == before
 
 
 def test_kernel_wrapper_refuses_cpu_tensor():

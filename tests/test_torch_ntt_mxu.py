@@ -20,6 +20,7 @@ import torch
 
 from she_tpu_torch import convert
 from she_tpu_torch import params as tparams
+from she_tpu_torch import trace
 from she_tpu_torch.ops import modarith as ma
 from she_tpu_torch.ops import ntt as tntt
 from she_tpu_torch.ops import ntt_cuda, ntt_mxu, ntt_mxu_cuda
@@ -230,10 +231,10 @@ def test_block_tables_never_take_the_matrix_route(monkeypatch, block):
 
 def test_cpu_tensor_takes_plain_version():
     t = ntt_mxu.build_mxu_tables(W32_MODULI, 128, CPU)
-    before = dict(ntt_mxu_cuda.launches), dict(ntt_cuda.launches)
+    before = trace.launch_total
     x = torch.from_numpy(_rows(W32_MODULI, 128, (2,)))
     assert torch.equal(ntt_mxu.inverse_ntt(ntt_mxu.forward_ntt(x, t), t), x)
-    assert (dict(ntt_mxu_cuda.launches), dict(ntt_cuda.launches)) == before
+    assert trace.launch_total == before
 
 
 @pytest.mark.parametrize(
@@ -385,7 +386,7 @@ def test_fused_kernel_matches_plain(digits, rows_a, direction, fill):
     bt = tntt.build_ntt_tables(moduli, degree, dev)
     assert t.D == digits
     x = torch.from_numpy(_rows(moduli, degree, (5,), seed=digits + rows_a, fill=fill)).to(dev)
-    before = ntt_mxu_cuda.launches["ntt_mxu"]
+    before = trace.counters["launch.ntt_mxu"]
     if direction == "forward":
         got, want, butterfly = (ntt_mxu_cuda.ntt_mxu_forward(x, t), ntt_mxu.forward_factored_plain(x, t),
                                 ntt_cuda.forward(x, bt))
@@ -393,7 +394,7 @@ def test_fused_kernel_matches_plain(digits, rows_a, direction, fill):
         got, want, butterfly = (ntt_mxu_cuda.ntt_mxu_inverse(x, t), ntt_mxu.inverse_factored_plain(x, t),
                                 ntt_cuda.inverse(x, bt))
     torch.cuda.synchronize()
-    assert ntt_mxu_cuda.launches["ntt_mxu"] == before + 1
+    assert trace.counters["launch.ntt_mxu"] == before + 1
     assert torch.equal(got, want)
     assert torch.equal(got, butterfly)
 
@@ -419,7 +420,7 @@ def test_fused_kernel_serves_many_units_a_slot(digits, rows_a, direction):
     rows = _rows(moduli, degree, (3 * slots + 5,), seed=digits + rows_a)
     rows[-1, :, :3] = np.array(moduli)[:, None] - 1
     x = torch.from_numpy(rows).to(dev)
-    before = ntt_mxu_cuda.launches["ntt_mxu"]
+    before = trace.counters["launch.ntt_mxu"]
     if direction == "forward":
         got, want, butterfly = (ntt_mxu_cuda.ntt_mxu_forward(x, t), ntt_mxu.forward_factored_plain(x, t),
                                 ntt_cuda.forward(x, bt))
@@ -427,7 +428,7 @@ def test_fused_kernel_serves_many_units_a_slot(digits, rows_a, direction):
         got, want, butterfly = (ntt_mxu_cuda.ntt_mxu_inverse(x, t), ntt_mxu.inverse_factored_plain(x, t),
                                 ntt_cuda.inverse(x, bt))
     torch.cuda.synchronize()
-    assert ntt_mxu_cuda.launches["ntt_mxu"] == before + 1
+    assert trace.counters["launch.ntt_mxu"] == before + 1
     assert torch.equal(got, want)
     assert torch.equal(got, butterfly)
 
@@ -441,13 +442,13 @@ def test_matrix_ntt_matches_butterfly_kernel_on_card(moduli, degree, nlimbs, bat
     t = ntt_mxu.build_mxu_tables(moduli, degree, dev)
     bt = tntt.build_ntt_tables(moduli, degree, dev)
     x = torch.from_numpy(_rows(moduli, degree, batch, seed=5)).to(dev)
-    before = ntt_mxu_cuda.launches["ntt_mxu"]
+    before = trace.counters["launch.ntt_mxu"]
     fwd = ntt_mxu.forward_ntt(x, t)
     assert torch.equal(fwd, ntt_cuda.forward(x, bt))
     inv = ntt_mxu.inverse_ntt(fwd, t)
     assert torch.equal(inv, ntt_cuda.inverse(fwd, bt))
     assert torch.equal(inv, x)
-    assert ntt_mxu_cuda.launches["ntt_mxu"] == before + 2
+    assert trace.counters["launch.ntt_mxu"] == before + 2
 
 
 @pytest.mark.gpu
@@ -460,12 +461,12 @@ def test_dispatch_env_on_card(monkeypatch):
     x = torch.from_numpy(_rows(moduli, degree, (4,), seed=9)).to(dev)
     want = ntt_cuda.forward(x, tables)
     monkeypatch.setenv(ntt_mxu.ENV, "1")
-    before = dict(ntt_cuda.launches), ntt_mxu_cuda.launches["ntt_mxu"]
+    before = [trace.counters["launch." + k] for k in ("ntt_forward", "ntt_inverse", "ntt_mxu")]
     fwd = tntt.forward_ntt(x, tables)
     assert torch.equal(tntt.inverse_ntt(fwd, tables), x)
     assert torch.equal(fwd, want)
-    assert dict(ntt_cuda.launches) == before[0]
-    assert ntt_mxu_cuda.launches["ntt_mxu"] == before[1] + 2
+    assert [trace.counters["launch." + k] for k in ("ntt_forward", "ntt_inverse", "ntt_mxu")] == [
+        before[0], before[1], before[2] + 2]
 
 
 @pytest.mark.gpu

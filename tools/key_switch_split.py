@@ -82,8 +82,12 @@ KERNEL_WRAPPERS = ("ntt_cuda", "dim0_cuda", "simple_pir_cuda", "ntt_mxu_cuda", "
 
 def hand_launches() -> int:
     """The launches of the port's hand-written kernels so far, by the
-    wrappers' own counts (the profiler does not link a kernel that a
-    library loaded with ctypes launched to the range it ran in)."""
+    tracer's running total of its launch.* counts, or in a tree before the
+    tracer by the wrappers' own counts (the profiler does not link a kernel
+    that a library loaded with ctypes launched to the range it ran in)."""
+    trace = sys.modules.get("she_tpu_torch.trace")
+    if trace is not None:
+        return trace.launch_total
     total = 0
     for name in KERNEL_WRAPPERS:
         module = sys.modules.get(f"she_tpu_torch.ops.{name}")
@@ -210,7 +214,8 @@ def instrument_dim0_and_leaves(labels: Labels) -> str:
     `mac` (dim0_partial: the MAC or the int8 form) and `dim0_columns`
     (the inverse NTT and the columns' transpose). PNNS's BSGS MAC is a
     stage of its own, `bsgs`, one part `mac`. The expansion: in a tree
-    whose levels write their leaves (serving.levels_run has leaf_level),
+    whose levels write their leaves (one with the tracer's registry, whose
+    leaf_level counts them, or whose serving.levels_run has leaf_level),
     a level that writes leaves is part `leaves` and any other level's
     combine `combine`; in an older tree the tail after the last level is
     `leaf_gather` (the pool's index_select), `leaf_add` (the doubling's
@@ -228,7 +233,7 @@ def instrument_dim0_and_leaves(labels: Labels) -> str:
     server.dim0_columns = labels.part_wrapper("dim0_columns", server.dim0_columns)
     pnns_serving.bsgs_inner_products = labels.stage_wrapper(
         "bsgs", labels.part_wrapper("mac", pnns_serving.bsgs_inner_products))
-    if "leaf_level" in serving.levels_run:
+    if not hasattr(serving, "levels_run") or "leaf_level" in serving.levels_run:
         ks = importlib.import_module("she_tpu_torch.ops.key_switch")
         combine = labels.part_wrapper("combine", ks.expand_combine)
         leaves = labels.part_wrapper("leaves", ks.expand_combine)
