@@ -100,11 +100,14 @@ then PNNS (BatchedPnnsServer), 16 cosine-similarity queries a batch over a
    SimplePIR, and the warm tool for PIR and PNNS;
 13. the key switch (ks_shape_timing): every path above switches keys
    (each Galois rotation, expansion level and relinearization) through
-   the four kernels of csrc/key_switch.cu, ks_digits, ks_mac and
-   ks_finish around the NTT kernels, and expand_combine once an expansion
-   level; every path fails unless each launched once a key switch (or
-   level) the port counted and no plain key-switch pass ran on CUDA
-   tensors; then each is timed at every shape a path launched it with,
+   csrc/key_switch.cu: where every key-switching modulus is below 2^30 and
+   8 <= N <= 4096 (the w32 paths, keyword, both PNNS cells, the mesh's) through
+   the fused pair, ks_digits_ntt_mac and ks_intt_finish, else (the w64
+   path) through ks_digits, ks_mac and ks_finish around the NTT kernels;
+   and expand_combine once an expansion level; every path fails unless
+   each launched once a key switch of its route (or level) the port
+   counted, every launch shape took its shape's route, and no plain
+   key-switch pass ran on CUDA tensors; then each is timed at every shape a path launched it with,
    before any plain version, beside its byte bound (and
    torch.remainder where that one call computes ks_digits), then held
    bit-equal to its plain version; the mod switch too: every path that
@@ -256,19 +259,26 @@ MESH_LIMB_MODULI = 4  # (e): limb-parallel NTTs of 4 moduli, which 2 and 4 ranks
 MESH_REPS = 3  # calls of each part on each rank, the first a warm-up
 NTT_KERNELS = ("ntt_forward", "ntt_inverse")
 NTT_AND_DIM0 = NTT_KERNELS + ("dim0_int8",)
-# the key switch's kernels (csrc/key_switch.cu): a key switch launches the
-# first three once each, an expansion level expand_combine once, or its leaf
-# instance (expand_leaves) where the level writes leaves into the output; a
-# mod switch (every drop of every poly of a ciphertext batch) mod_switch once
-KS_KERNELS = ("ks_digits", "ks_mac", "ks_finish", "expand_combine", "expand_leaves", "mod_switch")
-KS_SWITCH = KS_KERNELS[:3]
+# the key switch's kernels (csrc/key_switch.cu): a key switch on the split
+# route launches KS_SPLIT once each (and each NTT kernel once), one on the
+# fused route (every key-switching modulus below 2^30, N <= 4096: the w32
+# paths) KS_FUSED once each; an expansion level expand_combine once, or its
+# leaf instance (expand_leaves) where the level writes leaves into the
+# output; a mod switch (every drop of every poly of a ciphertext batch)
+# mod_switch once
+KS_SPLIT = ("ks_digits", "ks_mac", "ks_finish")
+KS_FUSED = ("ks_digits_ntt_mac", "ks_intt_finish")
+KS_KERNELS = KS_SPLIT + ("expand_combine", "expand_leaves", "mod_switch") + KS_FUSED
+KS_W32 = KS_FUSED + ("expand_combine", "expand_leaves", "mod_switch")  # what a w32 path's key switches launch
 # kernels shorter than their wrapper's host work a call: their ms is
 # replayed from a CUDA graph (graph_ms), beside the time through the wrapper
 GRAPH_TIMED = ("mod_switch",)
 # the she_tpu functions each replaces (none is a Pallas kernel: XLA fuses them)
 KS_REPLACES = {"ks_digits": "she_tpu/ops/galois.py:61", "ks_mac": "she_tpu/bfv/keys.py:319",
                "ks_finish": "she_tpu/core/poly.py:207", "expand_combine": "she_tpu/pir/serving.py:160",
-               "expand_leaves": "she_tpu/pir/serving.py:168", "mod_switch": "she_tpu/core/poly.py:207"}
+               "expand_leaves": "she_tpu/pir/serving.py:168", "mod_switch": "she_tpu/core/poly.py:207",
+               "ks_digits_ntt_mac": "she_tpu/bfv/keys.py:228-255, she_tpu/ops/galois.py:61",
+               "ks_intt_finish": "she_tpu/core/poly.py:207"}
 # the BEHZ product's kernels (csrc/behz.cu): a tensor product launches
 # behz_lift twice (a side) and behz_tensor_mac once, a floor behz_floor once
 BEHZ_KERNELS = ("behz_lift", "behz_tensor_mac", "behz_floor")
@@ -306,11 +316,14 @@ KERNEL_SOURCES = {
     "expand_leaves": "she_tpu_torch/csrc/key_switch.cu",
     "dim0_mac": "she_tpu_torch/csrc/dim0_mac.cu",
     "mod_switch": "she_tpu_torch/csrc/key_switch.cu",
+    "ks_digits_ntt_mac": "she_tpu_torch/csrc/key_switch.cu",
+    "ks_intt_finish": "she_tpu_torch/csrc/key_switch.cu",
 }
 # ptxas_lines' labels of each kernel's instances
 PTXAS_LABELS = {"ks_digits": "ks_digits_kernel", "ks_mac": "ks_mac_kernel", "ks_finish": "ks_finish_kernel",
                 "expand_combine": "expand_combine_kernel", "expand_leaves": "expand_leaves", "dim0_mac": "dim0_mac_kernel",
-                "mod_switch": "mod_switch_kernel"}
+                "mod_switch": "mod_switch_kernel", "ks_digits_ntt_mac": "ks_digits_ntt_mac_kernel",
+                "ks_intt_finish": "ks_intt_finish_kernel"}
 # profiler names of the kernels where f"{name}_kernel" does not single them out
 PROFILE_NAMES = {"expand_combine": "expand_combine_kernel<false", "expand_leaves": "expand_combine_kernel<true"}
 MESH_PATHS = ("mesh_batch_w32", "mesh_two_axis_w32", "mesh_pnns_w32", "mesh_dim0_psum", "mesh_sharded")
@@ -428,6 +441,9 @@ def ptxas_lines(name: str) -> list[str]:
             label = ("expand_combine_kernel" if m is None else
                      {"00": "expand_combine_kernel", "10": "expand_leaves (expand_combine_kernel<leaves>)",
                       "11": "expand_leaves (expand_combine_kernel<leaves, doubled>)"}.get(m.group(1) + m.group(2)))
+        elif "Compiling entry function" in line and re.search(r"ks_(?:digits_ntt_mac|intt_finish)_kernel", line):
+            m = re.search(r"(ks_(?:digits_ntt_mac|intt_finish)_kernel)ILi(\d+)E", line)
+            label = f"{m.group(1)}<log2n=12>" if m and m.group(2) == "12" else None
         elif "Compiling entry function" in line and re.search(r"ks_\w+_kernel", line):
             m = re.search(r"(ks_\w+?_kernel)(?:ILNS_\d+FinishE(\d)E|ILb([01])E)?", line)
             variant = (("update", "galois", "relinearize")[int(m.group(2))] if m.group(2)
@@ -493,22 +509,41 @@ def launch_shapes_of(kernels) -> dict:
 
 
 def key_switch_counts(label: str, launches: dict, switches: bool, expands: bool) -> None:
-    """Fails unless each of ks_digits, ks_mac and ks_finish launched once a
-    key switch the port ran (the registry's key_switch), expand_leaves once
-    an expansion level that wrote leaves and expand_combine once any other
-    level (expansion_level, leaf_level); if a path that switches keys
-    (`switches`) ran no key switch, or one that expands queries in batches
-    (`expands`) no level or no level that wrote its leaves; or if a plain
-    key-switch pass (the leaves' too) ran on CUDA tensors."""
-    from she_tpu_torch import trace
+    """Fails unless each of ks_digits_ntt_mac and ks_intt_finish launched
+    once a key switch the port ran on the fused route (the registry's
+    key_switch.fused) and each of ks_digits, ks_mac and ks_finish once one
+    on the split route (key_switch.split), the two routes adding up to
+    key_switch; unless every launch shape of those kernels took the route
+    that ops/key_switch.fused_route gives its moduli and degree (the w32
+    paths the fused pair, the w64 paths the split chain); unless
+    expand_leaves launched once an expansion level that wrote leaves and
+    expand_combine once any other level (expansion_level, leaf_level); if
+    a path that switches keys (`switches`) ran no key switch, or one that
+    expands queries in batches (`expands`) no level or no level that wrote
+    its leaves; or if a plain key-switch pass (the leaves' too) ran on CUDA
+    tensors."""
+    import torch
 
-    ran = {k: trace.counters[k] for k in ("key_switch", "expansion_level", "leaf_level")}
-    if (any(launches[k] != ran["key_switch"] for k in KS_SWITCH)
+    from she_tpu_torch import trace
+    from she_tpu_torch.core.context import get_poly_context
+    from she_tpu_torch.ops import key_switch as ks
+
+    ran = {k: trace.counters[k] for k in ("key_switch", "key_switch.fused", "key_switch.split", "expansion_level",
+                                          "leaf_level")}
+    if (ran["key_switch.fused"] + ran["key_switch.split"] != ran["key_switch"]
+            or any(launches[k] != ran["key_switch.split"] for k in KS_SPLIT)
+            or any(launches[k] != ran["key_switch.fused"] for k in KS_FUSED)
             or launches["expand_leaves"] != ran["leaf_level"]
             or launches["expand_combine"] != ran["expansion_level"] - ran["leaf_level"]):
-        raise AssertionError(f"[{label}] key-switch launches {[launches[k] for k in KS_KERNELS]} against "
-                             f"{ran['key_switch']} key switches and {ran['expansion_level']} expansion levels, "
+        raise AssertionError(f"[{label}] key-switch launches {dict((k, launches[k]) for k in KS_KERNELS)} against "
+                             f"{ran['key_switch']} key switches ({ran['key_switch.fused']} fused, "
+                             f"{ran['key_switch.split']} split) and {ran['expansion_level']} expansion levels, "
                              f"{ran['leaf_level']} of them writing leaves")
+    for key in launch_shapes_of(KS_SPLIT + KS_FUSED):
+        fused = ks.fused_route(get_poly_context(key.shape[-1], key.moduli, 64, torch.device("cuda")))
+        if fused != (key.name in KS_FUSED):
+            raise AssertionError(f"[{label}] {key.name} launched at {key.shape}, moduli {key.moduli}: the shape's "
+                                 f"route is the {'fused' if fused else 'split'} one")
     if (switches and not ran["key_switch"]) or (expands and not (ran["expansion_level"] and ran["leaf_level"])):
         raise AssertionError(f"[{label}] the path ran {ran} key switches and expansion levels")
     plain = plain_on_cuda(KS_KERNELS)
@@ -2155,6 +2190,13 @@ def ks_bytes(key) -> int:
         return words * n * batch * (2 * l_ks + (int(c0) + int(c1)) * l_t + 2 * l_t)
     if name == "mod_switch":  # x [..., L, N] in, [..., target, N] out
         return words * prod(shape[:-2]) * n * (shape[-2] + variant[0])
+    if name == "ks_digits_ntt_mac":  # c1 [..., L_t, N] and the int32 key [L_t, 2, L_ks, N] in, [..., 2, L_ks, N] int32 out
+        batch, l_t = prod(shape[:-2]), shape[-2]
+        return n * (words * batch * l_t + 4 * l_t * 2 * l_ks + 4 * batch * 2 * l_ks)
+    if name == "ks_intt_finish":  # int32 products [..., 2, L_ks, N], c0 and c1 where given in, [..., 2, L_t, N] out
+        batch, l_t = prod(shape[:-3]), l_ks - 1
+        _, c0, c1, _ = variant
+        return n * batch * (4 * 2 * l_ks + words * ((int(c0) + int(c1)) * l_t + 2 * l_t))
     return words * 4 * prod(shape)  # expand_combine, expand_leaves: the update and the parents in, both children out
 
 
@@ -2206,6 +2248,21 @@ def ks_case(key, seed: int, device="cuda") -> dict:
         key_rows = residues(moduli, (shape[-3], 2), 3)
         kernel = lambda: kc.ks_mac(fwd, key_rows, moduli)  # noqa: E731
         plain = lambda: ks.ks_mac_plain(fwd, key_rows, ctx)  # noqa: E731
+    elif name == "ks_digits_ntt_mac":
+        element, slots = variant
+        base, index = stacked(shape[:-2], slots, 2)
+        c1 = base[..., 1, :, :]
+        key_rows = residues(moduli, (shape[-2], 2), 3).int()
+        kernel = lambda: kc.ks_digits_ntt_mac(c1, key_rows, moduli, ctx.ntt_tables, element, index)  # noqa: E731
+        plain = lambda: ks.ks_digits_ntt_mac_plain(c1, key_rows, ctx, element, index)  # noqa: E731
+    elif name == "ks_intt_finish":
+        element, has_c0, has_c1, slots = variant
+        products = residues(moduli, shape[:-2], 2).int()
+        base, index = stacked(shape[:-3], slots, 2)
+        c0 = base[..., 0, :, :] if has_c0 else None
+        c1 = base[..., 1, :, :] if has_c1 else None
+        kernel = lambda: kc.ks_intt_finish(products, moduli, ctx.ntt_tables, c0, c1, element, index)  # noqa: E731
+        plain = lambda: ks.ks_intt_finish_plain(products, ctx, c0, c1, element, index)  # noqa: E731
     elif name == "mod_switch":
         target_count, strides = variant
         x = strided_like(residues(moduli, shape[:-2], 1), strides)
@@ -2349,6 +2406,8 @@ KS_LIBRARY = {
     "expand_leaves": "torch.index_select of the same leaves, in output order, from a pool of every node: the gather "
                      "alone of the leaf pass it replaces, without the level's combine or the doubling",
     "mod_switch": "none: no PyTorch call computes a divide-and-round across RNS rows",
+    "ks_digits_ntt_mac": "none: no PyTorch call computes an exact modular NTT or a modular sum of products",
+    "ks_intt_finish": "none: no PyTorch call computes an exact modular NTT or the divide-and-round by q_ks",
 }
 
 
@@ -2382,11 +2441,61 @@ def ks_kernel_entries(rows: list, paths: dict, names=KS_KERNELS) -> list:
     return out
 
 
+def fused_against_chain(entries: list) -> dict:
+    """The fused pair at ks_digits_ntt_mac's widest served shape (the
+    keyword cell's widest level) against the split chain (ks_digits, the
+    NTT kernels, ks_mac, ks_finish) on the same inputs, in turns (chain,
+    fused, fused, chain; 5 calls each after a warm-up), both held
+    bit-equal; with the byte bound of each (14 U and 56 U at that level)."""
+    import torch
+
+    from she_tpu_torch.core.context import get_poly_context
+    from she_tpu_torch.ops import key_switch_cuda as kc
+    from she_tpu_torch.ops import ntt_cuda
+
+    row = max(next(e for e in entries if e["name"] == "ks_digits_ntt_mac")["shapes"], key=lambda r: r["bytes"])
+    key = kc.KsKey("ks_digits_ntt_mac", tuple(row["shape"]), tuple(row["moduli"]), tuple(row["variant"]))
+    element, slots = key.variant  # an expansion level: a Galois element, parents read from a slot pool
+    moduli, n, l_t = key.moduli, key.shape[-1], key.shape[-2]
+    tables = get_poly_context(n, moduli, 64, torch.device("cuda")).ntt_tables
+    base = random_residues(moduli[:-1], (slots or key.shape[0],) + tuple(key.shape[1:-2]) + (2,), n, 8, "cuda")
+    index = None if slots is None else torch.randperm(slots, device="cuda")[: key.shape[0]]
+    c0, c1 = base[..., 0, :, :], base[..., 1, :, :]
+    key_rows = random_residues(moduli, (l_t, 2), n, 9, "cuda")
+    key32 = key_rows.int()
+    c0_arg = c0 if element is not None else None
+
+    def fused():
+        products = kc.ks_digits_ntt_mac(c1, key32, moduli, tables, element, index)
+        return kc.ks_intt_finish(products, moduli, tables, c0_arg, None, element, index)
+
+    def chain():
+        fwd = ntt_cuda.forward(kc.ks_digits(c1, moduli, element, index), tables)
+        inv = ntt_cuda.inverse(kc.ks_mac(fwd, key_rows, moduli), tables)
+        del fwd
+        return kc.ks_finish(inv, moduli, c0_arg, None, element, index)
+
+    if not torch.equal(fused(), chain()):
+        raise AssertionError(f"the fused pair and the split chain differ at {key.shape}")
+    times = {"chain": [], "fused": []}
+    for name in ("chain", "fused", "fused", "chain"):
+        times[name].append(cuda_ms(fused if name == "fused" else chain, 5))
+    del base, c0, c1
+    torch.cuda.empty_cache()
+    unit = prod(key.shape) * 8 // l_t  # U: the target polynomials' 64-bit words
+    return dict(shape=list(key.shape), moduli=list(moduli), fused_ms=min(times["fused"]), chain_ms=min(times["chain"]),
+                turns=times, fused_bound_ms=1e3 * 14 * unit / HBM_BYTES_PER_S,
+                chain_bound_ms=1e3 * 56 * unit / HBM_BYTES_PER_S)
+
+
 def ks_summary(entries: list, paths: dict, card: str) -> str:
     stage = {p: {k: round(v["stages_ms"][k], 3) for k in ("expansion", "behz_relinearize", "mod_switch")
                  if k in v["stages_ms"]}
              for p, v in paths.items() if "stages_ms" in v}
-    return ("key switch and mod switch: " + "; ".join(
+    pair = fused_against_chain(entries)
+    return (f"fused key switch at {tuple(pair['shape'])}: {pair['fused_ms']:.4f} ms (bound {pair['fused_bound_ms']:.4f}) "
+            f"against the split chain's {pair['chain_ms']:.4f} ms (bound {pair['chain_bound_ms']:.4f}), bit-equal; "
+            + "key switch and mod switch: " + "; ".join(
         f"{e['name']} {e['ms']:.4f} ms at {tuple(e['widest_shape'])} against a byte bound of {e['bound_ms']:.4f} ms "
         f"({100 * e['bound_ms'] / e['ms']:.1f}%), plain {e['plain_ms']:.4f} ms, "
         + ("" if e["library_ms"] is None else f"library {e['library_ms']:.4f} ms at {tuple(e['library_shape'])}, "
@@ -3296,7 +3405,7 @@ def _rank_part(label: str, mesh, run, reps: int, kernels: tuple) -> dict:
     launched, the int8 dim-0 kernel only where it is one of them, the
     SimplePIR kernel and the plain NTT on CUDA tensors never, and the
     key-switch kernels as key_switch_counts says (the part switches keys
-    where ks_digits is one of `kernels`, and expands queries in batches
+    where a pass of either route is one of `kernels`, and expands queries in batches
     where expand_combine is), the BEHZ kernels as behz_counts says (the
     part multiplies ciphertexts where behz_lift is one of `kernels`), the
     dim-0 MAC as mac_counts says (the part serves a MAC where dim0_mac
@@ -3318,7 +3427,8 @@ def _rank_part(label: str, mesh, run, reps: int, kernels: tuple) -> dict:
         seconds.append(time.perf_counter() - t0)
         outs.append(out)
     launches = {k: v for k, v in kernel_launches().items() if k not in ("ntt_mxu",)}
-    key_switch_counts(f"{label} rank {rank}", launches, "ks_digits" in kernels, "expand_combine" in kernels)
+    key_switch_counts(f"{label} rank {rank}", launches, bool(set(KS_SPLIT + KS_FUSED) & set(kernels)),
+                      "expand_combine" in kernels)
     behz_counts(f"{label} rank {rank}", launches, "behz_lift" in kernels)
     mac_counts(f"{label} rank {rank}", launches, "dim0_mac" in kernels)
     mod_switch_counts(f"{label} rank {rank}", launches, "mod_switch" in kernels)
@@ -3373,7 +3483,7 @@ def mesh_world2(mesh, specs: dict) -> dict:
         responses = meshmod.batch_parallel_response(server, queries, ek, mesh)
         return [torch.stack([r.ciphertexts[0][0].stacked() for r in responses])]
 
-    out = {"a": _rank_part("mesh (a)", mesh, serve_a, MESH_REPS, NTT_AND_DIM0 + KS_KERNELS + BEHZ_KERNELS)}
+    out = {"a": _rank_part("mesh (a)", mesh, serve_a, MESH_REPS, NTT_AND_DIM0 + KS_W32 + BEHZ_KERNELS)}
     del server, queries
     torch.cuda.empty_cache()
     spec = specs["d"]
@@ -3390,7 +3500,7 @@ def mesh_world2(mesh, specs: dict) -> dict:
         return [torch.stack([torch.stack([c.stacked() for c in r.ciphertext_matrices[0].ciphertexts])
                              for r in responses])]
 
-    out["d"] = _rank_part("mesh (d)", mesh, serve_d, MESH_REPS, NTT_KERNELS + KS_SWITCH + ("dim0_mac", "mod_switch"))
+    out["d"] = _rank_part("mesh (d)", mesh, serve_d, MESH_REPS, NTT_KERNELS + KS_FUSED + ("dim0_mac", "mod_switch"))
     return out
 
 
@@ -3417,7 +3527,7 @@ def mesh_world4(mesh, specs: dict) -> dict:
     wide4 = meshmod.make_mesh((4,), ("db",), mesh.backend, dev)
     ctx, server, ek, queries = _rank_pir_server(specs["b"], dev)
     out = {"b": _rank_part("mesh (b)", mesh, lambda: [meshmod.two_axis_response(server, queries, ek, mesh)[0][0]],
-                           MESH_REPS, NTT_AND_DIM0 + KS_KERNELS + BEHZ_KERNELS)}
+                           MESH_REPS, NTT_AND_DIM0 + KS_W32 + BEHZ_KERNELS)}
 
     # (c): (b)'s chunk and the expansion of its first half-batch
     ct_ctx = server.ct_ctx
@@ -3924,11 +4034,12 @@ def ntt_mxu_only(args, card: str) -> int:
 
 
 def key_switch_only(args, card: str) -> int:
-    """--only key_switch: the w32 and keyword cells, then each key-switch
-    kernel at every shape they launched it with (ks_shape_timing); then
-    the kernels line (the four key-switch kernels, with these cells'
-    launches) and the last line."""
-    paths = {"w32": main_path("w32", args.seed, args.batches)}
+    """--only key_switch: the w32, w64 and keyword cells (the w64 cell's
+    key switches take the split route, the others' the fused one), then
+    each key-switch kernel at every shape they launched it with
+    (ks_shape_timing); then the kernels line (the key-switch kernels,
+    with these cells' launches) and the last line."""
+    paths = {path: main_path(path, args.seed, args.batches) for path in ("w32", "w64")}
     paths["keyword"] = keyword_path(args.seed, args.batches)[0]
     entries = ks_kernel_entries(ks_shape_timing(paths), paths)
     for path, p in paths.items():

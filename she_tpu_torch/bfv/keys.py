@@ -11,10 +11,14 @@ batched NTTs: ks_digits reduces every decomposition digit (after the
 Galois gather, where an element is given) mod every key-switching
 modulus, ONE forward NTT, ks_mac multiplies them into the key with one
 lazy MAC, ONE inverse NTT, and ks_finish drops q_ks and adds the result
-into the ciphertext. On a CUDA card each pass is a hand-written kernel
-(csrc/key_switch.cu). It is bit-identical to she_tpu's per-modulus
-_compute_key_switching_update, and it works on a target with any leading
-batch axes.
+into the ciphertext (the split route). Where ks.fused_route holds (every
+key-switching modulus below 2^30, 8 <= N <= 4096, at most 8 of them: the w32
+sets) the first three passes are one, ks_digits_ntt_mac, and the last two
+another, ks_intt_finish (the fused route), the products crossing between
+them as 32-bit words; on the CPU each is the chain's plain passes. On a
+CUDA card each pass is a hand-written kernel (csrc/key_switch.cu). It is
+bit-identical to she_tpu's per-modulus _compute_key_switching_update, and
+it works on a target with any leading batch axes.
 """
 
 from __future__ import annotations
@@ -41,17 +45,23 @@ class KeySwitchKey:
     ciphertexts: list  # list[Ciphertext] (Eval)
     _rows: dict = field(default_factory=dict, repr=False, compare=False)
 
-    def key_rows(self, digits: int) -> torch.Tensor:
+    def key_rows(self, digits: int, dtype=torch.int64) -> torch.Tensor:
         """[digits, components, digits + 1, N]: for each decomposition digit
         j < `digits`, the key rows of the first `digits` moduli and of q_ks
-        (the key lives over the top key-switching context, q_ks last)."""
-        if digits not in self._rows:
-            per_digit = []
-            for ct in self.ciphertexts[:digits]:
-                comps = [torch.cat((p.data[:digits], p.data[-1:]), dim=0) for p in ct.polys]
-                per_digit.append(torch.stack(comps))
-            self._rows[digits] = torch.stack(per_digit)
-        return self._rows[digits]
+        (the key lives over the top key-switching context, q_ks last); as
+        int32 words (dtype torch.int32, every modulus below 2^31) for the
+        fused key switch, which reads them from L2 in every CTA. Made once
+        per digits and dtype."""
+        if (digits, dtype) not in self._rows:
+            if dtype == torch.int64:
+                per_digit = []
+                for ct in self.ciphertexts[:digits]:
+                    comps = [torch.cat((p.data[:digits], p.data[-1:]), dim=0) for p in ct.polys]
+                    per_digit.append(torch.stack(comps))
+                self._rows[digits, dtype] = torch.stack(per_digit)
+            else:
+                self._rows[digits, dtype] = self.key_rows(digits).to(dtype)
+        return self._rows[digits, dtype]
 
 
 @dataclass
@@ -156,16 +166,24 @@ def key_switch(context, target: torch.Tensor, ksk: KeySwitchKey, element: int | 
     c1 added into u0 and u1 (both given, no element: relinearize). `index` gathers axis 0 of target, c0 and c1 (the
     expansion's slot pool, read in place). Reference
     Bfv+Keys.swift:123-208. Counted as key_switch in the tracer's
-    registry: on a CUDA card each launches ks_digits, ks_mac and ks_finish
-    once."""
+    registry, and as key_switch.fused or key_switch.split by its route
+    (ks.fused_route: the shape decides): on a CUDA card a fused one
+    launches ks_digits_ntt_mac and ks_intt_finish once, a split one
+    ks_digits, ks_mac and ks_finish once and each NTT kernel once."""
     L_t = target.shape[-2]
     ks_ctx = context.key_switching_contexts[L_t - 1]
     with trace.span("key_switch"):
+        trace.count("key_switch")
+        if ks.fused_route(ks_ctx):
+            trace.count("key_switch.fused")
+            key = ksk.key_rows(L_t, torch.int32)
+            products = ks.ks_digits_ntt_mac(target, key, ks_ctx, element, index)  # [..., 2, L_ks, N] int32
+            return ks.ks_intt_finish(products, ks_ctx, c0, c1, element, index)  # [..., 2, L_t, N]
+        trace.count("key_switch.split")
         digits = ks.ks_digits(target, ks_ctx, element, index)  # [..., L_t, L_ks, N]
         fwd = nttmod.forward_ntt(digits, ks_ctx.ntt_tables)
         acc = ks.ks_mac(fwd, ksk.key_rows(L_t), ks_ctx)  # [..., 2, L_ks, N]
         inv = nttmod.inverse_ntt(acc, ks_ctx.ntt_tables)
-        trace.count("key_switch")
         return ks.ks_finish(inv, ks_ctx, c0, c1, element, index)  # [..., 2, L_t, N]
 
 

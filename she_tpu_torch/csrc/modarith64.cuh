@@ -49,8 +49,8 @@ struct Mod {
 };
 
 // A modulus's row of ops/key_switch_cuda.constants: q, r_lo, r_hi, then
-// what ks_finish alone reads (half mod q, q_ks^-1 mod q, its Shoup
-// constant, 0, 0).
+// what the divide-and-round reads (half mod q, q_ks^-1 mod q, its Shoup
+// constant), the fused MAC's fold constant and 0.
 constexpr int kConstWords = 8;
 
 __device__ __forceinline__ Mod load_mod(const u64* consts, int i) {

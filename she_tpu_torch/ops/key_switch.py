@@ -11,7 +11,17 @@ as
 
     ks_digits -> forward NTT -> ks_mac -> inverse NTT -> ks_finish
 
-and an expansion level as one or more of those, then expand_combine; a
+(the split route), or, where `fused_route` says (every key-switching
+modulus below 2^30, the NTT's 32-bit route, 8 <= N <= 4096, at most
+key_switch_cuda.FUSED_MAX_MODULI moduli, and not the matrix NTT's
+opt-in), as two fused passes whose products cross between them as
+32-bit words:
+
+    ks_digits_ntt_mac -> ks_intt_finish
+
+whose plain versions are the chain's halves (the same plain passes), so
+both routes give the same words. An expansion level is one or more key
+switches, then expand_combine; a
 mod switch (she_tpu/bfv/bfv.py:694 mod_switch_down, :707
 mod_switch_down_to_single) is one mod_switch for every drop. Each
 function dispatches on its data's device: a CPU tensor takes the plain
@@ -32,6 +42,11 @@ versions bit for bit.
   core/poly.divide_and_round_q_last_data), then the add into the
   ciphertext: out0 = g(c0) + u0 (c0 given; g the gather where an element
   is given), out1 = c1 + u1 (c1 given) or u1.
+* ks_digits_ntt_mac: ks_digits, the forward NTT over ks_ctx and ks_mac
+  against the key rows as int32 words (KeySwitchKey.key_rows(L_t,
+  torch.int32)), its products [..., 2, L_ks, N] as int32 words (every
+  q < 2^30).
+* ks_intt_finish: the inverse NTT of those products, then ks_finish.
 * expand_combine: per level node r, p0 = c'_r + parent_r and
   p1 = (parent_r - c'_r) * x^-shift, the parents read from the slot pool
   and both children written: an inner node into its slot, a leaf (where
@@ -58,6 +73,8 @@ from ..core import poly as polymod
 from . import galois as galoismod
 from . import key_switch_cuda
 from . import modarith as ma
+from . import ntt as nttmod
+from . import ntt_mxu
 
 
 def _count_plain(name: str, x: torch.Tensor) -> None:
@@ -116,6 +133,37 @@ def ks_finish_plain(inv: torch.Tensor, ks_ctx, c0=None, c1=None, element: int | 
     if c1 is not None:
         comps[1] = ma.add_mod(_select(c1, index), comps[1], q)
     return torch.stack(comps, dim=-3)
+
+
+def ks_digits_ntt_mac_plain(c1: torch.Tensor, key: torch.Tensor, ks_ctx, element: int | None = None,
+                            index=None) -> torch.Tensor:
+    """c1 [..., L_t, N] (index: its axis 0 gathered), key [L_t, comps,
+    L_ks, N] int32 -> [..., comps, L_ks, N] int32: ks_digits, the forward
+    NTT and ks_mac, the split route's first half."""
+    _count_plain("ks_digits_ntt_mac", c1)
+    fwd = nttmod.forward_ntt_plain(ks_digits_plain(c1, ks_ctx, element, index), ks_ctx.ntt_tables)
+    return ks_mac_plain(fwd, key.to(torch.int64), ks_ctx).to(torch.int32)
+
+
+def ks_intt_finish_plain(products: torch.Tensor, ks_ctx, c0=None, c1=None, element: int | None = None,
+                         index=None) -> torch.Tensor:
+    """products [..., comps, L_ks, N] int32 -> [..., comps, L_t, N]: the
+    inverse NTT, then ks_finish, the split route's second half."""
+    _count_plain("ks_intt_finish", products)
+    inv = nttmod.inverse_ntt_plain(products.to(torch.int64), ks_ctx.ntt_tables)
+    return ks_finish_plain(inv, ks_ctx, c0, c1, element, index)
+
+
+def fused_route(ks_ctx) -> bool:
+    """Whether a key switch over ks_ctx takes the fused pair: every
+    key-switching modulus below 2^30 (the NTT's 32-bit route), 8 <= N <= 4096
+    and at most key_switch_cuda.FUSED_MAX_MODULI moduli, where a row and
+    its accumulators fit one CTA's registers; and not the matrix NTT's
+    opt-in (SHE_TPU_NTT_MXU=1), which sends every NTT to ops/ntt_mxu. The
+    shape decides, on any device: on the CPU both routes run the same
+    plain passes."""
+    return (key_switch_cuda.fused_shape(tuple(ks_ctx.moduli), ks_ctx.degree)
+            and not ntt_mxu.use_mxu(ks_ctx.ntt_tables))
 
 
 def check_level_slots(parents, child0, child1) -> None:
@@ -190,6 +238,21 @@ def ks_finish(inv: torch.Tensor, ks_ctx, c0=None, c1=None, element: int | None =
     return _route("ks_finish", inv,
                   lambda: key_switch_cuda.ks_finish(inv, ks_ctx.moduli, c0, c1, element, index),
                   lambda: ks_finish_plain(inv, ks_ctx, c0, c1, element, index))
+
+
+def ks_digits_ntt_mac(c1: torch.Tensor, key: torch.Tensor, ks_ctx, element: int | None = None,
+                      index=None) -> torch.Tensor:
+    return _route("ks_digits_ntt_mac", c1,
+                  lambda: key_switch_cuda.ks_digits_ntt_mac(c1, key, ks_ctx.moduli, ks_ctx.ntt_tables, element, index),
+                  lambda: ks_digits_ntt_mac_plain(c1, key, ks_ctx, element, index))
+
+
+def ks_intt_finish(products: torch.Tensor, ks_ctx, c0=None, c1=None, element: int | None = None,
+                   index=None) -> torch.Tensor:
+    return _route("ks_intt_finish", products,
+                  lambda: key_switch_cuda.ks_intt_finish(products, ks_ctx.moduli, ks_ctx.ntt_tables, c0, c1, element,
+                                                         index),
+                  lambda: ks_intt_finish_plain(products, ks_ctx, c0, c1, element, index))
 
 
 def expand_combine(pool: torch.Tensor, update: torch.Tensor, parents: torch.Tensor, child0: torch.Tensor,

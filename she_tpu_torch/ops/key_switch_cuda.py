@@ -2,7 +2,12 @@
 
 The kernels replace the passes that she_tpu leaves to XLA to fuse in a key
 switch (she_tpu/bfv/keys.py:270-363, ops/galois.py:61, core/poly.py:207,
-bfv/bfv.py:796-840), in an expansion level (pir/serving.py:160-171:
+bfv/bfv.py:796-840): on the fused route (fused_shape: every key-switching
+modulus below 2^30, 8 <= N <= 4096, at most FUSED_MAX_MODULI moduli) two
+kernels, ks_digits_ntt_mac and ks_intt_finish, whose products cross
+between them as 32-bit words; on the split route ks_digits, ks_mac and
+ks_finish around the NTT kernels (ops/ntt_cuda.py). They also replace
+the passes in an expansion level (pir/serving.py:160-171:
 the combine, and the leaves written by its leaf instance) and in the mod
 switch (bfv/bfv.py:694,707 over core/poly.py:207);
 ops/key_switch.py holds their plain versions and the dispatch. Each
@@ -42,17 +47,26 @@ from . import kernel_build
 MAX_LOG2N = 13
 MAX_MODULUS = 1 << 62
 MAX_BATCH_AXES = 6
-CONST_WORDS = 8  # per modulus: q, r_lo, r_hi, half mod q, q_ks^-1 mod q, its Shoup constant, 0, 0
+CONST_WORDS = 8  # per modulus: q, r_lo, r_hi, half mod q, q_ks^-1 mod q, its Shoup constant, fold, 0
 COMPS = 2  # the components of every key-switching key (bfv/keys.KeySwitchKey)
 MAX_MOD_SWITCH_MODULI = 8  # the moduli a mod_switch input may have (csrc/key_switch.cu kMaxModSwitchRows)
+# the fused pair (ks_digits_ntt_mac, ks_intt_finish): the NTT's 32-bit route
+# (every modulus below 2^30), 8 <= N <= 2^12 (a row in one CTA's registers)
+# and at most 8 key-switching moduli (csrc/key_switch.cu kMaxFusedModuli,
+# kMinFusedLog2n, kMaxFusedLog2n)
+FUSED_MAX_MODULUS = 1 << 30
+FUSED_MIN_LOG2N = 3
+FUSED_MAX_LOG2N = 12
+FUSED_MAX_MODULI = 8
 
 
 class KsKey(NamedTuple):
     """What a launch is counted by in the tracer's shape table: the kernel, the
-    shape of its main input (c1 as read, fwd, inv, the update), the
+    shape of its main input (c1 as read, fwd, inv, the products, the update), the
     key-switching moduli (the ciphertext moduli for expand_combine) and
-    the kernel's variant: (element, slots) for ks_digits, () for ks_mac,
-    (element, c0 given, c1 given, slots) for ks_finish, (shift, slots) for
+    the kernel's variant: (element, slots) for ks_digits and
+    ks_digits_ntt_mac, () for ks_mac, (element, c0 given, c1 given, slots)
+    for ks_finish and ks_intt_finish, (shift, slots) for
     expand_combine, (shift, slots, outputs, a doubling mask given) for
     its leaf instance, expand_leaves, (target moduli count, the input's
     strides) for mod_switch; slots is the size of an indexed operand's
@@ -87,6 +101,8 @@ _ARGTYPES = {
     "she_ks_finish": [_VP, _OP, _OP, _VP, _LL, _INT, _INT, _VP, _U64, _INT, _VP],
     "she_expand_combine": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _INT, _INT, _INT, _VP, _VP],
     "she_mod_switch": [_OP, _VP, _LL, _INT, _INT, _INT, _VP, _VP],
+    "she_ks_digits_ntt_mac": [_OP, _VP, _VP, _LL, _INT, _INT, _VP, _U64, _INT, _VP, _VP, _VP, _VP],
+    "she_ks_intt_finish": [_VP, _OP, _OP, _VP, _LL, _INT, _INT, _VP, _U64, _INT] + [_VP] * 8,
 }
 
 
@@ -109,12 +125,15 @@ def constants(moduli: tuple, device: torch.device) -> torch.Tensor:
     """[L, CONST_WORDS] int64 (the bit patterns of unsigned words) on the
     device: per modulus q_i, floor(2^128 / q_i) as (lo, hi), and for every
     modulus but the last floor(q_last / 2) mod q_i, q_last^-1 mod q_i and
-    its Shoup constant floor(q_last^-1 * 2^64 / q_i)."""
+    its Shoup constant floor(q_last^-1 * 2^64 / q_i); and for q_i below
+    2^32 the 32-bit Shoup constant floor((2^32 mod q_i) * 2^32 / q_i) that
+    folds the high word of a 64-bit sum (the fused route's MAC)."""
     q_last = moduli[-1]
     rows = []
     for i, q in enumerate(moduli):
         ratio = (1 << 128) // q
-        row = [q, ratio & ((1 << 64) - 1), ratio >> 64, 0, 0, 0, 0, 0]
+        fold = ((1 << 32) % q << 32) // q if q < 1 << 32 else 0
+        row = [q, ratio & ((1 << 64) - 1), ratio >> 64, 0, 0, 0, fold, 0]
         if i < len(moduli) - 1:
             inv = nt.inverse_mod(q_last % q, q)
             row[3:6] = [(q_last >> 1) % q, inv, (inv << 64) // q]
@@ -126,17 +145,17 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _check_tensor(x: torch.Tensor, what: str) -> None:
+def _check_tensor(x: torch.Tensor, what: str, dtype=torch.int64) -> None:
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{what} must be a tensor")
-    if x.dtype != torch.int64:
-        raise TypeError(f"{what} must be int64, got {x.dtype}")
+    if x.dtype != dtype:
+        raise TypeError(f"{what} must be {str(dtype).removeprefix('torch.')}, got {x.dtype}")
     if x.device.type != "cuda":
         raise ValueError(f"{what} must be a CUDA tensor, got {x.device}")
 
 
-def _check_contiguous(x: torch.Tensor, what: str) -> None:
-    _check_tensor(x, what)
+def _check_contiguous(x: torch.Tensor, what: str, dtype=torch.int64) -> None:
+    _check_tensor(x, what, dtype)
     if not x.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
 
@@ -148,6 +167,28 @@ def _check_moduli(moduli: tuple, degree: int) -> int:
         raise ValueError(f"the key-switch kernels take power-of-two N in [2, 8192], got {degree}")
     if max(moduli) >= MAX_MODULUS or min(moduli) < 2:
         raise ValueError(f"the key-switch kernels take moduli in [2, 2^62), got {moduli}")
+    return log2n
+
+
+def fused_shape(moduli: tuple, degree: int) -> bool:
+    """Whether the fused pair takes a key switch over these key-switching
+    moduli at this degree: every modulus below 2^30 (the NTT's 32-bit
+    route, ops/ntt.ntt_word_bits), N a power of two from 8 to 4096 and at
+    most FUSED_MAX_MODULI moduli."""
+    return (max(moduli) < FUSED_MAX_MODULUS and 2 <= len(moduli) <= FUSED_MAX_MODULI
+            and degree & (degree - 1) == 0 and 1 << FUSED_MIN_LOG2N <= degree <= 1 << FUSED_MAX_LOG2N)
+
+
+def _check_fused(moduli: tuple, degree: int, tables, device) -> int:
+    """The fused pair's moduli, degree and 32-bit NTT tables; returns log2(N)."""
+    log2n = _check_moduli(moduli, degree)
+    if not fused_shape(moduli, degree):
+        raise ValueError(f"the fused key switch takes 2 to {FUSED_MAX_MODULI} moduli below 2^30 and N from "
+                         f"{1 << FUSED_MIN_LOG2N} up to {1 << FUSED_MAX_LOG2N}, got moduli {moduli} at N = {degree}")
+    if tuple(tables.moduli) != tuple(moduli) or tables.degree != degree or tables.word_bits != 32:
+        raise ValueError(f"the fused key switch needs the 32-bit NTT tables of moduli {moduli} at N = {degree}")
+    if tables.q.device != device:
+        raise ValueError(f"tables on {tables.q.device}, data on {device}")
     return log2n
 
 
@@ -301,6 +342,87 @@ def ks_finish(inv: torch.Tensor, moduli: tuple, c0=None, c1=None, element: int |
         slots = None if index is None else c0.shape[0]
         trace.count_shape("ks_finish", KsKey("ks_finish", tuple(inv.shape), moduli,
                                              (element, c0 is not None, c1 is not None, slots)))
+    return out
+
+
+def ks_digits_ntt_mac(c1: torch.Tensor, key: torch.Tensor, moduli: tuple, tables, element: int | None = None,
+                      index=None) -> torch.Tensor:
+    """The fused route's first kernel: c1 [..., L_t, N] (read in place;
+    index: its axis 0 gathered) and the key rows [L_t, 2, L_ks, N] int32
+    (contiguous) -> [..., 2, L_ks, N] int32, the products in the Eval
+    domain (ks_digits, the forward NTT and ks_mac in one launch); `tables`
+    are the moduli's NTT tables (their 32-bit ones are read)."""
+    moduli = tuple(moduli)
+    L_ks, degree = len(moduli), c1.shape[-1]
+    log2n = _check_fused(moduli, degree, tables, c1.device)
+    if tuple(key.shape) != (L_ks - 1, COMPS, L_ks, degree):
+        raise ValueError(f"key must be [{L_ks - 1}, {COMPS}, {L_ks}, {degree}], got {tuple(key.shape)}")
+    if key.dtype != torch.int32:
+        raise TypeError(f"key must be int32, got {key.dtype}")
+    op, batch = operand(c1, L_ks - 1, degree, index, "c1")
+    _check_contiguous(key, "key", torch.int32)
+    if key.device != c1.device:
+        raise ValueError(f"key on {key.device}, c1 on {c1.device}")
+    out = torch.empty(batch + (COMPS, L_ks, degree), dtype=torch.int32, device=c1.device)
+    m = prod(batch)
+    if m:
+        w = tables.w32
+        err = _library().she_ks_digits_ntt_mac(
+            ctypes.byref(op), key.data_ptr(), out.data_ptr(), m, L_ks - 1, log2n,
+            constants(moduli, c1.device).data_ptr(), _pinv(element, degree), int(element is not None),
+            w.roots.data_ptr(), w.roots_shoup.data_ptr(), w.q.data_ptr(), _stream())
+        _raise_on(err, "ks_digits_ntt_mac")
+    if trace.launch("ks_digits_ntt_mac"):
+        trace.count_shape("ks_digits_ntt_mac", KsKey("ks_digits_ntt_mac", batch + (L_ks - 1, degree), moduli,
+                                                     (element, None if index is None else c1.shape[0])))
+    return out
+
+
+def ks_intt_finish(products: torch.Tensor, moduli: tuple, tables, c0=None, c1=None, element: int | None = None,
+                   index=None) -> torch.Tensor:
+    """The fused route's second kernel: products [..., 2, L_ks, N] int32
+    (ks_digits_ntt_mac's, contiguous) -> [..., 2, L_t, N] int64: the
+    inverse NTT, the divide-and-round by q_ks and ks_finish's adds (none,
+    g(c0) with a Galois element, or c0 and c1 without one; c0 and c1 read
+    in place, index: their axis 0 gathered) in one launch."""
+    if (c0 is None, c1 is None, element is None) not in ((True, True, True), (False, True, False),
+                                                         (False, False, True)):
+        raise ValueError("ks_intt_finish takes no addend, c0 with a Galois element, or c0 and c1 without one")
+    if index is not None and c0 is None:
+        raise ValueError("an index needs c0")
+    moduli = tuple(moduli)
+    L_ks, degree = len(moduli), products.shape[-1]
+    log2n = _check_fused(moduli, degree, tables, products.device)
+    if products.dim() < 3 or tuple(products.shape[-3:]) != (COMPS, L_ks, degree):
+        raise ValueError(f"products must be [..., {COMPS}, {L_ks}, {degree}], got {tuple(products.shape)}")
+    _check_contiguous(products, "products", torch.int32)
+    batch = tuple(products.shape[:-3])
+    ops = []
+    for x, what in ((c0, "c0"), (c1, "c1")):
+        if x is None:
+            ops.append(None)
+            continue
+        op, b = operand(x, L_ks - 1, degree, index, what)
+        if b != batch:
+            raise ValueError(f"{what}'s batch {b} differs from the products' {batch}")
+        if x.device != products.device:
+            raise ValueError(f"{what} on {x.device}, products on {products.device}")
+        ops.append(op)
+    out = torch.empty(batch + (COMPS, L_ks - 1, degree), dtype=torch.int64, device=products.device)
+    m = prod(batch)
+    if m:
+        w = tables.w32
+        err = _library().she_ks_intt_finish(
+            products.data_ptr(), None if ops[0] is None else ctypes.byref(ops[0]),
+            None if ops[1] is None else ctypes.byref(ops[1]), out.data_ptr(), m, L_ks - 1, log2n,
+            constants(moduli, products.device).data_ptr(), _pinv(element, degree), int(element is not None),
+            w.inv_roots.data_ptr(), w.inv_roots_shoup.data_ptr(), w.q.data_ptr(), w.n_inv.data_ptr(),
+            w.n_inv_shoup.data_ptr(), w.n_inv_w.data_ptr(), w.n_inv_w_shoup.data_ptr(), _stream())
+        _raise_on(err, "ks_intt_finish")
+    if trace.launch("ks_intt_finish"):
+        slots = None if index is None else c0.shape[0]
+        trace.count_shape("ks_intt_finish", KsKey("ks_intt_finish", tuple(products.shape), moduli,
+                                                  (element, c0 is not None, c1 is not None, slots)))
     return out
 
 

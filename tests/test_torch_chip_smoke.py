@@ -115,14 +115,14 @@ def test_kernels_line_names_every_kernel():
     """The kernels line (run() checks its names against KERNEL_SOURCES)
     covers all seven sources the package builds: the NTT's two kernels,
     dim0_int8, simple_pir_matmul, ntt_mxu, the key switch's four,
-    expand_combine's leaf instance and the mod switch, the BEHZ product's
-    three and dim0_mac."""
+    expand_combine's leaf instance, the mod switch and the fused route's
+    pair, the BEHZ product's three and dim0_mac."""
     from she_tpu_torch.ops import kernel_build
 
     assert set(chip_smoke.KERNEL_SOURCES) == {"ntt_forward", "ntt_inverse", "dim0_int8", "simple_pir_matmul",
                                               "ntt_mxu", "ks_digits", "ks_mac", "ks_finish", "expand_combine",
-                                              "expand_leaves", "mod_switch", "behz_lift", "behz_tensor_mac",
-                                              "behz_floor", "dim0_mac"}
+                                              "expand_leaves", "mod_switch", "ks_digits_ntt_mac", "ks_intt_finish",
+                                              "behz_lift", "behz_tensor_mac", "behz_floor", "dim0_mac"}
     assert set(chip_smoke.KERNEL_SOURCES.values()) == {
         f"she_tpu_torch/csrc/{source}" for source in kernel_build.SOURCES.values()}
     assert len(kernel_build.SOURCES) == 7
@@ -148,6 +148,25 @@ def test_key_switch_byte_bounds():
     assert chip_smoke.ks_bytes(KsKey("ks_finish", (128, 128, 2, 3, 4096), moduli, relin)) == 14 * unit
     assert chip_smoke.ks_bytes(KsKey("expand_combine", (128, 128, 2, 2, 4096), moduli[:2], (64, 511))) == 16 * unit
     assert 1e3 * 8 * unit / chip_smoke.HBM_BYTES_PER_S == pytest.approx(1.282, abs=5e-4)
+
+
+def test_fused_key_switch_byte_bounds():
+    """The fused pair at the keyword cell's widest level moves 14 U (U as
+    above) and the 32-bit key rows: ks_digits_ntt_mac reads c1 (2 U) and
+    writes the products as 32-bit words (3 U), ks_intt_finish reads them
+    (3 U) and c0 (2 U) and writes 4 U; a relinearization's reads c1 too.
+    The split chain moved 56 U."""
+    from she_tpu_torch.ops.key_switch_cuda import KsKey
+
+    moduli, unit = (1, 2, 3), 128 * 128 * 4096 * 8
+    key_bytes = 2 * 2 * 3 * 4096 * 4
+    mac = chip_smoke.ks_bytes(KsKey("ks_digits_ntt_mac", (128, 128, 2, 4096), moduli, (33, 257)))
+    assert mac == 5 * unit + key_bytes
+    galois, relin = (33, True, False, 257), (None, True, True, None)
+    finish = chip_smoke.ks_bytes(KsKey("ks_intt_finish", (128, 128, 2, 3, 4096), moduli, galois))
+    assert finish == 9 * unit
+    assert chip_smoke.ks_bytes(KsKey("ks_intt_finish", (128, 128, 2, 3, 4096), moduli, relin)) == 11 * unit
+    assert 1e3 * (mac + finish - key_bytes) / chip_smoke.HBM_BYTES_PER_S == pytest.approx(2.2436, abs=5e-4)
 
 
 def test_mod_switch_byte_bounds():

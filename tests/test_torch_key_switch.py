@@ -41,6 +41,7 @@ from she_tpu_torch.bfv import keys as tkeys
 from she_tpu_torch.core import context as tctxmod
 from she_tpu_torch.ops import key_switch as ks
 from she_tpu_torch.ops import key_switch_cuda as kc
+from she_tpu_torch.ops import ntt as tntt
 from she_tpu_torch.pir import serving as tserving
 from she_tpu_torch.utils import nt
 
@@ -462,4 +463,164 @@ def test_constants_are_the_barrett_and_shoup_words():
         if i < len(BIG) - 1:
             inv = pow(q_last, -1, q)
             assert (table[i, 3], table[i, 4], table[i, 5]) == ((q_last >> 1) % q, inv, (inv << 64) // q)
+        assert table[i, 6] == 0  # no fold constant above 2^32
+    small = (17, 97, (1 << 28) - 65535)
+    folds = kc.constants(small, CPU).numpy()[:, 6]
+    assert [int(f) for f in folds] == [((1 << 32) % q << 32) // q for q in small]
     assert kc._pinv(3, N) * 3 % (2 * N) == 1
+
+
+# -- the key switch's two routes -----------------------------------------------
+
+# (parameter set, or (moduli bits, degree) of generated primes) -> fused?
+ROUTE_CASES = {
+    "w32 at N = 4096": ("n_4096_logq_27_28_28_logt_5", True),
+    "18-bit moduli at N = 8": ("insecure_n_8_logq_5x18_logt_5", True),
+    "18-bit moduli at N = 4": (([18] * 3, 4), False),
+    "eight 28-bit moduli at N = 4096, the limit": (([28] * 8, 4096), True),
+    "w64's 55-bit moduli at N = 8192": ("n_8192_logq_3x55_logt_42", False),
+    "28-bit moduli at N = 8192": (([28] * 3, 8192), False),
+    "33-bit moduli at N = 4096": ("n_4096_logq_16_33_33_logt_4", False),
+    "60-bit moduli at N = 4096": (([60] * 3, 4096), False),
+    "nine 28-bit moduli at N = 4096": (([28] * 9, 4096), False),
+}
+
+
+def _route_ctx(source):
+    if isinstance(source, str):
+        p = tparams.from_predefined(source, 64)
+        moduli, degree = p.coefficient_moduli, p.poly_degree
+    else:
+        bits, degree = source
+        moduli = nt.generate_primes(bits, preferring_small=False, ntt_degree=degree)
+    return tctxmod.get_poly_context(degree, tuple(moduli), 64, CPU)
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_fused_route_choice(case):
+    """The fused pair takes the NTT's 32-bit route (every key-switching
+    modulus below 2^30) at 8 <= N <= 4096 with at most 8 moduli; every other
+    shape keeps the split chain."""
+    source, fused = ROUTE_CASES[case]
+    ctx = _route_ctx(source)
+    assert ks.fused_route(ctx) is fused
+    assert kc.fused_shape(ctx.moduli, ctx.degree) is fused
+
+
+def test_matrix_ntt_opt_in_keeps_the_split_route(monkeypatch):
+    """With the matrix NTT's opt-in every NTT goes to ops/ntt_mxu, so the
+    key switch keeps the split chain."""
+    ctx = _route_ctx("n_4096_logq_27_28_28_logt_5")
+    monkeypatch.setenv("SHE_TPU_NTT_MXU", "1")
+    assert not ks.fused_route(ctx)
+
+
+def _route_counts(before):
+    return {k: trace.counters[k] - before.get(k, 0) for k in ("key_switch", "key_switch.fused", "key_switch.split")}
+
+
+def test_expansion_counts_fused_key_switches(keyed):
+    """At 18-bit moduli and N = 8 every key switch of an expansion takes
+    the fused route; on the CPU its plain passes are the chain's."""
+    stacked = torch.stack([tct.stacked() for _, tct in keyed["cts"]])
+    before = dict(trace.counters)
+    tserving.expand_stacked(stacked, N, keyed["tek"], keyed["tctx"])
+    assert _route_counts(before) == {"key_switch": 4, "key_switch.fused": 4, "key_switch.split": 0}
+
+
+def test_expansion_counts_split_key_switches():
+    """At 60-bit moduli every key switch of an expansion (two levels, one
+    key switch each) takes the split route."""
+    tctx = tbfv.get_bfv_context(tparams.from_predefined("insecure_n_512_logq_4x60_logt_20", 64), device="cpu")
+    from she_tpu_torch.rng.ctr_drbg import nist_aes128_ctr
+
+    sk = tbfv.generate_secret_key(tctx, nist_aes128_ctr(b"s" * 32))
+    degree = tctx.degree
+    ek = tkeys.generate_evaluation_key(tctx, tkeys.EvaluationKeyConfig((degree + 1, degree // 2 + 1)), sk,
+                                       nist_aes128_ctr(b"k" * 32))
+    ct = tbfv.encrypt(tbfv.encode(tctx, [1, 2, 3]), sk, seed=b"c" * 32, err_rng=nist_aes128_ctr(b"e" * 32))
+    before = dict(trace.counters)
+    out = tserving.expand_stacked(ct.stacked().unsqueeze(0), 4, ek, tctx)
+    assert _route_counts(before) == {"key_switch": 2, "key_switch.fused": 0, "key_switch.split": 2}
+    assert out.shape == (4, 1, 2, 3, degree)
+
+
+def _fused_args(moduli=(17, 97, 113), degree=N):
+    ctx = tctxmod.get_poly_context(degree, moduli, 64, CPU)
+    l_t = len(moduli) - 1
+    return dict(
+        c1=torch.zeros((2, l_t, degree), dtype=torch.int64),
+        key=torch.zeros((l_t, 2, l_t + 1, degree), dtype=torch.int32),
+        products=torch.zeros((2, 2, l_t + 1, degree), dtype=torch.int32),
+        moduli=moduli, tables=ctx.ntt_tables)
+
+
+def _mac(a):
+    return kc.ks_digits_ntt_mac(a["c1"], a["key"], a["moduli"], a["tables"])
+
+
+def _finish(a):
+    return kc.ks_intt_finish(a["products"], a["moduli"], a["tables"])
+
+
+# refusal -> (which wrapper, what is changed, the error and its message)
+FUSED_REFUSALS = {
+    "c1 on the CPU": (_mac, {}, ValueError, "CUDA tensor"),
+    "products on the CPU": (_finish, {}, ValueError, "CUDA tensor"),
+    "c1 int32": (_mac, {"c1": torch.zeros((2, 2, N), dtype=torch.int32)}, TypeError, "int64"),
+    "key int64": (_mac, {"key": torch.zeros((2, 2, 3, N), dtype=torch.int64)}, TypeError, "int32"),
+    "products int64": (_finish, {"products": torch.zeros((2, 2, 3, N), dtype=torch.int64)}, TypeError, "int32"),
+    "key of three components": (_mac, {"key": torch.zeros((2, 3, 3, N), dtype=torch.int32)}, ValueError,
+                                r"key must be \[2, 2, 3, 8\]"),
+    "products of another L_ks": (_finish, {"products": torch.zeros((2, 2, 4, N), dtype=torch.int32)}, ValueError,
+                                 r"products must be \[\.\.\., 2, 3, 8\]"),
+}
+
+
+@pytest.mark.parametrize("case", list(FUSED_REFUSALS))
+def test_fused_wrappers_refuse(case):
+    wrapper, change, error, message = FUSED_REFUSALS[case]
+    args = _fused_args()
+    args.update(change)
+    with pytest.raises(error, match=message):
+        wrapper(args)
+
+
+@pytest.mark.parametrize("wrapper", [_mac, _finish])
+@pytest.mark.parametrize("moduli", [(17, 97, (1 << 30) + 3), ((1 << 30) + 3, 97, 113)])
+def test_fused_wrappers_refuse_moduli_from_two_to_the_thirty(wrapper, moduli):
+    """A modulus at or above 2^30 is the NTT's 64-bit route: the split chain's."""
+    args = _fused_args()
+    args["moduli"] = moduli
+    with pytest.raises(ValueError, match="below 2"):
+        wrapper(args)
+
+
+@pytest.mark.parametrize("wrapper", [_mac, _finish])
+def test_fused_wrappers_refuse_n_8192_and_other_tables(wrapper):
+    moduli = tuple(nt.generate_primes([28, 28, 28], preferring_small=False, ntt_degree=8192))
+    args = _fused_args()
+    args.update(moduli=moduli, c1=torch.zeros((2, 2, 8192), dtype=torch.int64),
+                products=torch.zeros((2, 2, 3, 8192), dtype=torch.int32))
+    with pytest.raises(ValueError, match="N from 8 up to 4096"):
+        wrapper(args)
+    args = _fused_args()
+    args["tables"] = _fused_args((17, 97, 193))["tables"]
+    with pytest.raises(ValueError, match="32-bit NTT tables"):
+        wrapper(args)
+
+
+def test_fused_plain_versions_are_the_chain():
+    """ks_digits_ntt_mac_plain and ks_intt_finish_plain give the split
+    chain's words (the products as int32)."""
+    moduli = tuple(nt.generate_primes([28, 27, 28], preferring_small=False, ntt_degree=N))
+    ctx = _tctx(moduli, 64)
+    c = torch.from_numpy(_rand(moduli[:-1], batch=(3, 2), seed=71))
+    key = torch.from_numpy(_rand(moduli, batch=(2, 2), seed=72))
+    for element in (None, 5):
+        fwd = ks.ks_mac_plain(tntt.forward_ntt_plain(ks.ks_digits_plain(c[:, 1], ctx, element), ctx.ntt_tables), key, ctx)
+        products = ks.ks_digits_ntt_mac_plain(c[:, 1], key.to(torch.int32), ctx, element)
+        assert products.dtype == torch.int32 and torch.equal(products.to(torch.int64), fwd)
+        c0 = c[:, 0] if element else None
+        want = ks.ks_finish_plain(tntt.inverse_ntt_plain(fwd, ctx.ntt_tables), ctx, c0, None, element)
+        assert torch.equal(ks.ks_intt_finish_plain(products, ctx, c0, None, element), want)

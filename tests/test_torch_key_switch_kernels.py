@@ -16,7 +16,11 @@ c1 as strided views of a stacked ciphertext and through the slot pool's
 index, and the widest shapes the keyword and w64 cells launch. The mod
 switch from 2, 3 and 5 moduli down to every target, at the residues'
 edges (0, q - 1 and the last modulus's half), and at every shape a path
-mod-switches at.
+mod-switches at. The fused route's pair (ks_digits_ntt_mac,
+ks_intt_finish) against the split chain's plain versions at 28-bit moduli
+(in an order with q_j > q_i), N from 8 to 4096 and L_t from 1 to the
+route's limit, at the keyword cell's widest level, and a whole keyword
+query tree expanded by both routes.
 """
 
 import numpy as np
@@ -27,6 +31,7 @@ from she_tpu_torch import trace
 from she_tpu_torch.core.context import get_poly_context
 from she_tpu_torch.ops import key_switch as ks
 from she_tpu_torch.ops import key_switch_cuda as kc
+from she_tpu_torch.ops import ntt
 from she_tpu_torch.utils import nt
 
 MODULI = {
@@ -271,3 +276,137 @@ def test_mod_switch_served_shapes(cell, fill):
     assert torch.equal(kc.mod_switch(x, moduli, 1), ks.mod_switch_plain(x, ctx, 1))
     assert torch.equal(ks.mod_switch(x, ctx, 1), ks.mod_switch_plain(x.cpu(), get_poly_context(
         degree, moduli, 64, torch.device("cpu")), 1).cuda())
+
+
+# -- the fused route -------------------------------------------------------------
+
+# 28-bit moduli, q_0 > q_1: the first L_t and the last (q_ks) of a case;
+# up to FUSED_MAX_MODULI of them
+FUSED = tuple(nt.generate_primes([28, 27, 28, 28, 28, 28, 28, 28], preferring_small=False, ntt_degree=8192))
+FUSED_DEGREES = [8, 16, 512, 2048, 4096]
+FUSED_L_T = list(range(1, kc.FUSED_MAX_MODULI))
+
+
+def _fused_moduli(l_t):
+    return FUSED[:l_t] + (FUSED[-1],)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fill", FILLS)
+@pytest.mark.parametrize("l_t", FUSED_L_T)
+@pytest.mark.parametrize("degree", FUSED_DEGREES)
+def test_ks_digits_ntt_mac(degree, l_t, fill):
+    """Against ks_digits -> forward NTT -> ks_mac (plain), c1 a strided
+    view, then read through a slot pool's index, for each element."""
+    _card()
+    moduli = _fused_moduli(l_t)
+    ctx = _ctx(moduli, degree)
+    stacked = _rows(moduli[:-1], (5, 2), degree, seed=degree + l_t, fill=fill)
+    c1 = stacked[:, 1]
+    key = _rows(moduli, (l_t, 2), degree, seed=3 * degree + l_t, fill="max" if fill == "max" else "random").int()
+    index = torch.tensor([4, 0, 2], device="cuda")
+    for element in _elements(degree):
+        before = trace.counters["launch.ks_digits_ntt_mac"]
+        got = kc.ks_digits_ntt_mac(c1, key, moduli, ctx.ntt_tables, element)
+        assert trace.counters["launch.ks_digits_ntt_mac"] == before + 1
+        assert torch.equal(got, ks.ks_digits_ntt_mac_plain(c1, key, ctx, element)), element
+        got = kc.ks_digits_ntt_mac(c1, key, moduli, ctx.ntt_tables, element, index)
+        assert torch.equal(got, ks.ks_digits_ntt_mac_plain(c1, key, ctx, element, index)), element
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["update", "galois", "relinearize"])
+@pytest.mark.parametrize("fill", FILLS)
+@pytest.mark.parametrize("l_t", FUSED_L_T)
+@pytest.mark.parametrize("degree", FUSED_DEGREES)
+def test_ks_intt_finish(degree, l_t, fill, mode):
+    """Against inverse NTT -> ks_finish (plain), c0 and c1 strided views of
+    a stacked ciphertext, then read through a slot pool's index."""
+    _card()
+    moduli = _fused_moduli(l_t)
+    ctx = _ctx(moduli, degree)
+    products = _rows(moduli, (3, 2), degree, seed=5 * degree + l_t, fill=fill).int()
+    stacked = _rows(moduli[:-1], (4, 3), degree, seed=7 * degree + l_t, fill=fill)
+    for index in (None, torch.tensor([3, 1, 0], device="cuda")):
+        base = stacked if index is not None else stacked[:3]
+        c0 = base[:, 0] if mode in ("galois", "relinearize") else None
+        c1 = base[:, 2] if mode == "relinearize" else None
+        idx = index if c0 is not None else None
+        for element in (_elements(degree)[1:] if mode == "galois" else [None]):
+            before = trace.counters["launch.ks_intt_finish"]
+            got = kc.ks_intt_finish(products, moduli, ctx.ntt_tables, c0, c1, element, idx)
+            assert trace.counters["launch.ks_intt_finish"] == before + 1
+            assert torch.equal(got, ks.ks_intt_finish_plain(products, ctx, c0, c1, element, idx)), element
+
+
+@pytest.mark.gpu
+def test_fused_widest_served_level():
+    """The keyword cell's widest level, [128, 128] parents by queries at
+    N = 4096 read from a slot pool through their indices, the Galois
+    element N/128 + 1: the fused pair against the plain chain."""
+    _card()
+    l_t, nodes, queries, degree, _ = SERVED["keyword"]
+    moduli = _fused_moduli(l_t)
+    ctx = _ctx(moduli, degree)
+    slots = 2 * nodes + 1
+    pool = _rows(moduli[:-1], (slots, queries, 2), degree, seed=33)
+    parents = torch.randperm(slots, generator=torch.Generator().manual_seed(1))[:nodes].cuda()
+    element = degree // nodes + 1
+    key = _rows(moduli, (l_t, 2), degree, seed=34)
+    products = kc.ks_digits_ntt_mac(pool[:, :, 1], key.int(), moduli, ctx.ntt_tables, element, parents)
+    digits = ks.ks_digits_plain(pool[:, :, 1], ctx, element, parents)
+    want = ks.ks_mac_plain(ntt.forward_ntt_plain(digits, ctx.ntt_tables), key, ctx)
+    del digits
+    assert torch.equal(products.long(), want)
+    got = kc.ks_intt_finish(products, moduli, ctx.ntt_tables, pool[:, :, 0], None, element, parents)
+    want = ks.ks_finish_plain(ntt.inverse_ntt_plain(want, ctx.ntt_tables), ctx, pool[:, :, 0], None, element, parents)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_dispatch_takes_the_fused_pair_on_cuda():
+    """On CUDA tensors ks_digits_ntt_mac and ks_intt_finish of
+    ops/key_switch.py launch their kernels and run no plain pass."""
+    _card()
+    moduli = _fused_moduli(2)
+    ctx = _ctx(moduli, 64)
+    before = dict(trace.counters)
+    c = _rows(moduli[:-1], (2, 2), 64, seed=43)
+    products = ks.ks_digits_ntt_mac(c[:, 1], _rows(moduli, (2, 2), 64, seed=44).int(), ctx, 3)
+    ks.ks_intt_finish(products, ctx, c[:, 0], None, 3)
+    names = ("ks_digits_ntt_mac", "ks_intt_finish")
+    assert {k: trace.counters["launch." + k] - before.get("launch." + k, 0) for k in names} == dict.fromkeys(names, 1)
+    plain = names + KS_KERNELS + ("ntt_forward", "ntt_inverse")
+    assert not any(trace.counters["plain_on_cuda." + k] - before.get("plain_on_cuda." + k, 0) for k in plain)
+
+
+@pytest.mark.gpu
+def test_keyword_query_tree_by_both_routes():
+    """A whole keyword query tree (n_4096_logq_27_28_28_logt_5, 256
+    outputs, 8 levels, a batch of 4 queries) expanded on the card by the
+    fused route and by the split chain: the same bytes."""
+    _card()
+    from she_tpu_torch import params as tparams
+    from she_tpu_torch.bfv import bfv, keys
+    from she_tpu_torch.pir import expansion
+    from she_tpu_torch.rng.ctr_drbg import nist_aes128_ctr
+
+    context = bfv.get_bfv_context(tparams.from_predefined("n_4096_logq_27_28_28_logt_5", 32), device="cuda")
+    degree, outputs = context.degree, 256
+    sk = bfv.generate_secret_key(context, nist_aes128_ctr(b"s" * 32))
+    elements = tuple((degree >> k) + 1 for k in range(8))
+    ek = keys.generate_evaluation_key(context, keys.EvaluationKeyConfig(elements), sk, nist_aes128_ctr(b"k" * 32))
+    cts = [bfv.encrypt(bfv.encode(context, [q + 1, 0, 3]), sk, seed=bytes([q + 1]) * 32,
+                       err_rng=nist_aes128_ctr(bytes([q + 9]) * 32)) for q in range(4)]
+    stacked = torch.stack([ct.stacked() for ct in cts])
+    before = dict(trace.counters)
+    fused = expansion.expand_stacked(stacked, outputs, ek, context)
+    ran = {k: trace.counters[k] - before.get(k, 0) for k in ("key_switch", "key_switch.fused", "key_switch.split")}
+    assert ran["key_switch"] == ran["key_switch.fused"] > 0 and ran["key_switch.split"] == 0
+    route = ks.fused_route
+    try:
+        ks.fused_route = lambda ks_ctx: False
+        split = expansion.expand_stacked(stacked, outputs, ek, context)
+    finally:
+        ks.fused_route = route
+    assert torch.equal(fused, split)

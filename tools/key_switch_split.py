@@ -29,7 +29,12 @@ The key switch's parts: the Galois gather, the digits (each digit reduced
 mod every key-switching modulus), the forward NTT, the MAC against the
 key, the inverse NTT, the divide-and-round by q_ks, the add into c0 (and
 c1) and the expansion's combine (c' + parent, (parent - c') x^-k into the
-slot pool). The expansion's tail after its last level: in a tree whose
+slot pool). Where a tree's key switch has two routes, each cell says which
+its key switches took (`route`: the registry's key_switch.fused and
+key_switch.split a batch): a fused key switch is two parts, `digits_ntt_mac`
+(the digits, the forward NTT and the MAC) and `intt_finish` (the inverse
+NTT, the divide-and-round and the add), whose insides no range can split;
+a split one the parts above. The expansion's tail after its last level: in a tree whose
 levels write the leaves into the output (`leaves`: each level that writes
 leaves, apart from the other levels' `combine`) there is none; in an
 older tree it is the leaves' gather from the pool (`leaf_gather`), the
@@ -190,9 +195,11 @@ def instrument(labels: Labels) -> str:
         ks = None
     if ks is not None:
         for name, part in (("ks_digits", "digits"), ("ks_mac", "mac"), ("ks_finish", "finish"),
-                           ("expand_combine", "combine")):
-            setattr(ks, name, labels.part_wrapper(part, getattr(ks, name)))
-        return "kernels"
+                           ("expand_combine", "combine"), ("ks_digits_ntt_mac", "digits_ntt_mac"),
+                           ("ks_intt_finish", "intt_finish")):
+            if hasattr(ks, name):
+                setattr(ks, name, labels.part_wrapper(part, getattr(ks, name)))
+        return "kernels, two routes" if hasattr(ks, "fused_route") else "kernels"
     # a tree before the key-switch kernels: its plain passes where they are called
     galois.apply_galois_coeff = labels.part_wrapper("gather", galois.apply_galois_coeff)
     modarith.sum_products_mod = labels.part_wrapper("mac", modarith.sum_products_mod)
@@ -433,6 +440,7 @@ def service_cell(cs, seed: int, count: int):
 
 HAND_KERNELS = ("ntt_forward_kernel", "ntt_inverse_kernel", "ntt_mxu_kernel", "dim0_int8_kernel", "plane_products",
                 "ks_digits_kernel", "ks_mac_kernel", "ks_finish_kernel", "expand_combine_kernel", "mod_switch_kernel",
+                "ks_digits_ntt_mac_kernel", "ks_intt_finish_kernel",
                 "behz_lift_kernel", "behz_tensor_mac_kernel", "behz_floor_kernel", "dim0_mac_kernel")
 
 
@@ -520,6 +528,7 @@ def run_cell(cs, labels: Labels, cell: str, seed: int, batches: int) -> dict:
         label = {"pnns_w32": "pnns_4096x128_w32_b16", "pnns_w64": "pnns_4096x128_w64_b16"}[cell]
         server, queries, ek, stage_names, dig = pnns_cell(cs, label, seed)
     setup_s = time.perf_counter() - t0
+    counted = route_counts()
     batch_s, cpu_s, responses = [], [], None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -531,21 +540,37 @@ def run_cell(cs, labels: Labels, cell: str, seed: int, batches: int) -> dict:
         batch_s.append(time.perf_counter() - t0)
         cpu_s.append(time.process_time() - c0)
     steady = batch_s[1:]
+    route = {k: (v - counted[k]) / (batches + 1) for k, v in route_counts().items()}
     peak = torch.cuda.max_memory_allocated()
     same = cs.assert_same_pnns_responses if cell.startswith("pnns") else cs.assert_same_responses
     stages = cs.stage_split(server, queries, ek, responses, stage_names, same)
     split = profiled_parts(labels, lambda: server.compute_response_batch(queries, ek))
     out = dict(cell=cell, setup_s=setup_s, batch_s=batch_s, median_s_per_batch=statistics.median(steady),
                cpu_s=cpu_s, median_cpu_s_per_batch=statistics.median(cpu_s[1:]),
-               stages_ms=stages, peak_bytes=peak, digest=dig(responses), **split)
+               stages_ms=stages, peak_bytes=peak, digest=dig(responses), route=route, **split)
     print(f"[{cell}] median {out['median_s_per_batch']:.4f} s/batch over {len(steady)} batches "
           f"(first {batch_s[0]:.4f}), host CPU {out['median_cpu_s_per_batch']:.4f} s a batch, peak {peak} bytes "
           f"while serving; device ms by stage {({k: round(v, 3) for k, v in stages.items()})}; "
           f"responses digest {out['digest']}", flush=True)
+    if route:
+        print(f"[{cell}]   key switches a batch by route: {route}", flush=True)
     print(f"[{cell}]   NTT kernels of the profiled batch: forward {split['ntt_kernel_ms']['ntt_forward']:.3f} ms, "
           f"inverse {split['ntt_kernel_ms']['ntt_inverse']:.3f} ms, of {split['busy_ms']:.3f} busy ms", flush=True)
     print_parts(cell, split)
     return out
+
+
+def route_counts() -> dict:
+    """The registry's key switches by route (key_switch.fused,
+    key_switch.split); empty in a tree whose key switch has one route."""
+    try:
+        from she_tpu_torch import trace
+        from she_tpu_torch.ops import key_switch as ks
+    except ImportError:
+        return {}
+    if not hasattr(ks, "fused_route"):
+        return {}
+    return {k: trace.counters[k] for k in ("key_switch.fused", "key_switch.split")}
 
 
 def print_parts(cell: str, split: dict) -> None:

@@ -8,7 +8,8 @@ turns (parent, this, this, parent, ... for --turns rounds: CUDA events, the
 mean of 20 launches after a warm-up), through ops/ntt_cuda with its
 library swapped, and holds every library's output bit-equal to the plain
 version on the same input. Prints each build's registers and spills (ptxas
--v) and integer SASS instruction counts of its 64-bit N = 8192 instances,
+-v) of its 64-bit N = 8192 and 32-bit N = 4096 instances, the integer SASS
+instruction counts of its 64-bit N = 8192 instances,
 the card's name and power limit, and one JSON line of the times.
 
 A library without she_ntt_lazy (built from ntt.cu before the row walk)
@@ -60,7 +61,7 @@ class OlderInterface:
 
 def build(label: str, source: Path, out_dir: Path):
     """nvcc with the package's flags; returns (library, ptxas lines of the
-    64-bit N = 8192 instances)."""
+    64-bit N = 8192 instances and the 32-bit N = 4096 ones)."""
     from she_tpu_torch.ops import kernel_build, ntt_cuda
 
     out = out_dir / f"libntt_{label}.so"
@@ -69,9 +70,10 @@ def build(label: str, source: Path, out_dir: Path):
     ptxas, keep = [], False
     for line in log:
         if "Compiling entry function" in line:
-            keep = bool(re.search(r"ntt_(forward|inverse)_kernelIyLi13E", line))
-            name = re.search(r"(ntt_(?:forward|inverse)_kernel)IyLi13E(Lb1E)?", line)
-            current = name and name.group(1) + (" lazy" if name.group(2) else "")
+            name = re.search(r"(ntt_(?:forward|inverse)_kernel)I(?:yLi13E(Lb1E)?|(j)Li12E)", line)
+            keep = bool(name)
+            current = name and name.group(1) + (" lazy" if name.group(2) else "") + (" u32 N=4096" if name.group(3)
+                                                                                      else "")
         elif keep and ("Used" in line or "spill" in line):
             ptxas.append(f"{current}: {line.strip()}")
     lib = ctypes.CDLL(str(out))
